@@ -1,0 +1,331 @@
+"""Smoke run and measurement of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``fpyv_tpu_torch/csrc`` (nvcc, sm_90a),
+holds each kernel against its plain PyTorch version on the card, drives the
+port's main path at the benched shape (4096 envs of the full acro env), and
+times it. Phases, one line each:
+
+1. device: the card's name and power limit (nvidia-smi) and the build time;
+2. K2 (one fused physics step) on the params.yaml world against
+   ``drone_step_reference``;
+3. K3 (K = 256 fused steps) against ``rollout_reference``;
+4. K4 (the env megaloop) against ``env_rollout_reference``: the default world
+   with K = 256 and 50-step episodes (every env resets several times), and
+   the params.yaml world with DomainRand and wind gusts, K = 64;
+5. the main path with every launch counter at 0: one fused step, one fused
+   rollout and the env megaloop on both worlds, K sized from a warm-up so a
+   timed run takes about 12 s; env-steps/s beside the card and its limit,
+   the plain env version's rate at K = 64 as a reference figure, and K4's
+   rate as the bank grows from 4096 to 1M envs (how far 4096 envs fill
+   the card);
+6. the ``kernels`` JSON line: per kernel its launches on the main path, its
+   largest error against the plain version, its time and the plain
+   version's at the main path's shapes, and the least time the card could
+   take for the same work.
+
+Any failed check raises and the script exits non-zero. The last line is
+``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
+without either it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+from fpyv_tpu_torch.config import SimulatorConfig
+from fpyv_tpu_torch.envs.acro import AcroEnv, vector_reset
+from fpyv_tpu_torch.ops import _build
+from fpyv_tpu_torch.ops import env_kernel as ek
+from fpyv_tpu_torch.ops import step_kernel as sk
+from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.world.generators import WorldSpec, build_world
+
+N_ENVS = 4096
+THROTTLE = -0.6
+RUN_SECONDS = 12.0
+PROBE_ENVS = (4096, 16384, 65536, 262144, 1048576)
+PROBE_K = 1000
+
+# H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
+PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM3
+
+# float32 step tolerances as the port's CPU tests state them: one step
+# pos 1e-5, velocity 1e-4 (spring contacts), attitude 1e-6; K chained steps
+# pos/vel/prev_dist 2e-4, attitude/rates 1e-4, reward sums 2e-3; t and done equal
+TOL_STEP = {"pos": 1e-5, "vel": 1e-4, "att": 1e-6, "rates": 1e-4, "thrust": 1e-4, "done": 0.0}
+TOL_ROLL = {"pos": 2e-4, "vel": 2e-4, "att": 1e-4, "rates": 1e-4, "thrust": 1e-3, "done": 0.0}
+TOL_ENV = dict(TOL_ROLL, t=0.0, prev_dist=2e-4, episode_return=2e-3, dr=1e-5, wind=1e-4)
+ROWS = {"pos": slice(0, 3), "vel": slice(3, 6), "att": slice(6, 10), "rates": slice(10, 13),
+        "thrust": slice(13, 14), "done": slice(14, 15), "t": slice(15, 16),
+        "prev_dist": slice(16, 17), "episode_return": slice(17, 18), "dr": slice(18, 21),
+        "wind": slice(21, 24)}
+
+SOURCES = {"drone_step": "fpyv_tpu_torch/csrc/step_kernels.cu",
+           "rollout": "fpyv_tpu_torch/csrc/step_kernels.cu",
+           "env_rollout": "fpyv_tpu_torch/csrc/env_kernels.cu"}
+REPLACES = {"drone_step": "fpyv_tpu/ops/pallas_step.py:313",
+            "rollout": "fpyv_tpu/ops/pallas_step.py:326",
+            "env_rollout": "fpyv_tpu/ops/pallas_env.py:325"}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def compare(name: str, out: torch.Tensor, ref: torch.Tensor, tol: dict) -> float:
+    """Max abs error per field of a state matrix; raise past the tolerance."""
+    worst = 0.0
+    errs = {}
+    for field, atol in tol.items():
+        rows = ROWS[field]
+        if rows.start >= out.shape[0]:
+            continue
+        e = (out[rows] - ref[rows]).abs().max().item()
+        errs[field] = e
+        if not e <= atol:
+            raise AssertionError(f"{name}: {field} max abs err {e} > {atol}")
+        worst = max(worst, e)
+    log(f"{name}: max abs err per field {json.dumps(errs)}")
+    return worst
+
+
+def reward_err(name: str, rsum: torch.Tensor, ref: torch.Tensor) -> float:
+    e = (rsum - ref).abs().max().item()
+    if not e <= TOL_ENV["episode_return"]:
+        raise AssertionError(f"{name}: reward sum max abs err {e}")
+    return e
+
+
+def check_state(name: str, mat: torch.Tensor, n: int, max_t=None) -> None:
+    """The repo's own sanity checks: finite, shaped, unit quaternions."""
+    if mat.shape[1] != n or not torch.isfinite(mat).all():
+        raise AssertionError(f"{name}: non-finite or misshaped state {tuple(mat.shape)}")
+    qn = mat[6:10].norm(dim=0)
+    if (qn - 1).abs().max().item() > 1e-4:
+        raise AssertionError(f"{name}: quaternion norms off by {(qn - 1).abs().max().item()}")
+    if max_t is not None and not ((mat[15] >= 0) & (mat[15] < max_t)).all():
+        raise AssertionError(f"{name}: episode counter out of [0, {max_t})")
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+# ---------------------------------------------------------------------------
+# Least time for the work: operations counted from csrc/physics.cuh and
+# csrc/env_kernels.cu, one per add/mul/compare/select/min/max/abs/div/sqrt/
+# sin/cos/log/floor and per integer op of the hash (a lower bound: libm
+# calls are many instructions), against the float32 peak; bytes are each
+# input read once and each output written once.
+# ---------------------------------------------------------------------------
+
+
+def step_ops(S: int, C: int, reps: int = 2, dr: bool = False, wind: bool = False) -> int:
+    base = 12 + 9 + 5 + 6 + 3 + 39 + 3 + 6 + 15 + 6 + 15  # action, R, thrust, drag
+    motors = 4 * (19 + 31 * S + 58 * C)  # motor points, ground, spheres, cylinders
+    tail = 10 + 12 + 42 + 31 * reps + 1  # accel, integrate, attitude, done
+    return base + motors + tail + (7 if dr else 0) + (3 if wind else 0)
+
+
+def reset_ops(dr: bool, gust: bool) -> int:
+    draw = 13  # counter, xor, fmix (8), shift, convert, scale
+    ops = 10 * draw + 6 + 18 + 3 + 9 + 6 + 20 + 9
+    return ops + (3 * draw + 6 if dr else 0) + (4 * draw + 24 if gust else 0)
+
+
+def bound(ops: float, nbytes: float):
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    # ---- 1. device + build ------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    regs = [ln.strip() for ln in str(_build.build_info.get("log", "")).splitlines()
+            if "registers" in ln]
+    log(f"device: {smi}")
+    log(f"build: {build_s:.3f} s (nvcc {_build.build_info.get('seconds', 0.0):.3f} s); "
+        f"ptxas: {'; '.join(regs)}")
+
+    gen = torch.Generator().manual_seed(0)
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    params = env.params
+    world = env.default_world(dev)
+    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
+    pcyl = sk.cylinder_matrix(pworld)
+    errors = {}
+
+    # ---- 2. K2 on the params.yaml world -----------------------------------
+    st, _ = vector_reset(env, gen, N_ENVS, pworld)
+    act = (torch.rand(N_ENVS, 4, generator=gen) - 0.5).to(dev)
+    s15, a4 = sk.state_to_matrix(st.drone), sk.action_matrix(act)
+    psph = sk.sphere_matrix(pworld)
+    out = sk.launch_drone_step(params, s15, a4, psph, pcyl)
+    torch.cuda.synchronize()
+    ref = sk.drone_step_reference(params, s15, a4, psph, pcyl)
+    check_state("K2", out, N_ENVS)
+    errors["drone_step"] = compare("K2 drone_step (params.yaml world, N=4096)", out, ref,
+                                   TOL_STEP)
+
+    # ---- 3. K3 ---------------------------------------------------------------
+    out = sk.launch_rollout(params, s15, a4, psph, 256, pcyl)
+    torch.cuda.synchronize()
+    ref = sk.rollout_reference(params, s15, a4, psph, 256, pcyl)
+    check_state("K3", out, N_ENVS)
+    errors["rollout"] = compare("K3 rollout (params.yaml world, N=4096, K=256)", out, ref,
+                                TOL_ROLL)
+
+    # ---- 4. K4, two runs across resets -------------------------------------
+    hover = torch.zeros(N_ENVS, 4, device=dev)
+    hover[:, 3] = THROTTLE
+    a4 = sk.action_matrix(hover)
+    env50 = AcroEnv(params=params, max_episode_steps=50)
+    st, _ = vector_reset(env50, gen, N_ENVS, world)
+    s24, wm = ek.env_state_to_matrix(st), ek.env_world_matrix(world)
+    out, rsum = ek.launch_env_rollout(env50, s24, a4, wm, 256, seed=1)
+    torch.cuda.synchronize()
+    ref, ref_rsum, resets = ek.env_rollout_reference(env50, s24, a4, wm, 256, seed=1)
+    check_state("K4", out, N_ENVS, max_t=50)
+    if resets < 4 * N_ENVS:
+        raise AssertionError(f"K4: expected every env to reset several times, saw {resets}")
+    e1 = max(compare(f"K4 env_rollout (default world, K=256, 50-step episodes, {resets} "
+                     f"resets)", out, ref, TOL_ENV), reward_err("K4", rsum, ref_rsum))
+    env_dr = AcroEnv(params=params, randomize=True, wind=(1.0, 0.5, 0.0), wind_scale=0.5)
+    st, _ = vector_reset(env_dr, gen, N_ENVS, pworld)
+    s24, pwm = ek.env_state_to_matrix(st), ek.env_world_matrix(pworld)
+    out, rsum = ek.launch_env_rollout(env_dr, s24, a4, pwm, 64, seed=2, cyl_mat=pcyl)
+    torch.cuda.synchronize()
+    ref, ref_rsum, presets = ek.env_rollout_reference(env_dr, s24, a4, pwm, 64, seed=2,
+                                                       cyl_mat=pcyl)
+    check_state("K4 params", out, N_ENVS, max_t=env_dr.max_episode_steps)
+    e2 = max(compare(f"K4 env_rollout (params.yaml world + DR + wind, K=64, {presets} "
+                     f"resets)", out, ref, TOL_ENV), reward_err("K4 params", rsum, ref_rsum))
+    errors["env_rollout"] = max(e1, e2)
+
+    # ---- 5. main path, counters from 0 -------------------------------------
+    _build.reset_launch_counts()
+    st, _ = vector_reset(env, gen, N_ENVS, world)
+    stepped = sk.fused_drone_step(params, st.drone, hover, world)
+    rolled = sk.fused_rollout(params, st.drone, hover, world, 256)
+    rates = {}
+    for label, e, w in (("default world", env, world), ("params.yaml world + DR + wind",
+                                                          env_dr, pworld)):
+        state, _ = vector_reset(e, gen, N_ENVS, w)
+        k_warm = 20_000
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, w, rs = ek.fused_env_rollout(e, state, hover, w, k_warm, seed=0)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / k_warm
+        k = min(int(RUN_SECONDS / per_step), ek.MAX_STEPS_PER_LAUNCH - 10_000)
+        times = []
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, w, rs = ek.fused_env_rollout(e, state, hover, w, k, seed=1 + rep)
+            total = rs.sum().item()  # completion on the host is part of the time
+            times.append(time.perf_counter() - t0)
+            if not math.isfinite(total):
+                raise AssertionError(f"main path ({label}): non-finite reward sum")
+        check_state(f"main path ({label})", ek.env_state_to_matrix(state), N_ENVS,
+                    max_t=e.max_episode_steps)
+        rates[label] = N_ENVS * k / min(times)
+        log(f"main path ({label}): {rates[label]:.6e} env-steps/s at N={N_ENVS}, K={k} "
+            f"per launch, best of {[round(t, 6) for t in times]} s, on {smi}")
+    launches = dict(_build.launch_counts)
+    for t in (stepped.pos, rolled.pos):
+        if not torch.isfinite(t).all():
+            raise AssertionError("main path: non-finite physics state")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"main path launched no {missing}")
+    log(f"main path launches: {json.dumps(launches)}")
+
+    # plain env version on the card as a reference figure (not a yardstick)
+    st, _ = vector_reset(env, gen, N_ENVS, world)
+    s24, wm = ek.env_state_to_matrix(st), ek.env_world_matrix(world)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ek.env_rollout_reference(env, s24, a4, wm, 64, seed=0)
+    torch.cuda.synchronize()
+    log(f"plain env_rollout_reference on the card: {N_ENVS * 64 / (time.perf_counter() - t0):.6e}"
+        f" env-steps/s at N={N_ENVS}, K=64 (reference figure)")
+
+    # occupancy probe: K4's rate as the bank grows past one warp per SM
+    probe = {}
+    for n in PROBE_ENVS:
+        pst, _ = vector_reset(env, gen, n, world)
+        ps, pa = ek.env_state_to_matrix(pst), sk.action_matrix(hover[:1].expand(n, 4))
+        ms = cuda_ms(lambda: ek.launch_env_rollout(env, ps, pa, wm, PROBE_K, seed=0), 3)
+        probe[n] = n * PROBE_K / (ms * 1e-3)
+    log(f"occupancy probe (default world, K={PROBE_K}, env-steps/s by N): "
+        f"{json.dumps(probe)} on {smi}")
+
+    # ---- 6. kernels line: times at the main path's shapes -------------------
+    s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(world)
+    S = world.num_spheres
+    kernels = []
+
+    def row(name, ms, plain_ms, ops, nbytes):
+        bms, by = bound(ops, nbytes)
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], "launches": launches[name],
+                        "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": None})
+
+    step_bytes = N_ENVS * (15 + 4 + 15) * 4 + 5 * S * 4
+    ms = cuda_ms(lambda: sk.launch_drone_step(params, s15, a4, sph), 200)
+    pms = cuda_ms(lambda: sk.drone_step_reference(params, s15, a4, sph), 3)
+    row("drone_step", ms, pms, N_ENVS * step_ops(S, 0), step_bytes)
+    ms = cuda_ms(lambda: sk.launch_rollout(params, s15, a4, sph, 256), 20)
+    pms = cuda_ms(lambda: sk.rollout_reference(params, s15, a4, sph, 256), 1)
+    row("rollout", ms, pms, N_ENVS * 256 * step_ops(S, 0), step_bytes)
+    K = 64
+    _, _, main_resets = ek.env_rollout_reference(env, s24, a4, wm, K, seed=0)
+    ms = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, wm, K, seed=0), 50)
+    pms = cuda_ms(lambda: ek.env_rollout_reference(env, s24, a4, wm, K, seed=0), 1)
+    env_ops = (N_ENVS * K * (step_ops(S, 0) + 21) + main_resets * reset_ops(False, False)
+               + K * 18 * S + N_ENVS * 17)
+    row("env_rollout", ms, pms, env_ops, N_ENVS * (24 + 4 + 24 + 1) * 4 + 12 * S * 4)
+    for kr in kernels:
+        log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "
+            f"{kr['bound_ms']:.6f} ms by {kr['bound_by']}), {kr['launches']} main-path "
+            f"launches, max abs err {kr['max_abs_err']}")
+    log(json.dumps({"kernels": kernels}))
+    log(f"card: {smi}")
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                          "kind": torch.cuda.get_device_name(0),
+                                          "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,231 @@
+// K1: the drone physics step shared by every fused kernel of the port.
+//
+// Replaces fpyv_tpu/ops/pallas_step.py:_step_components (the physics core
+// that the Pallas kernels _kernel_single, _kernel_rollout and _env_kernel
+// call). One thread owns one env; its 15 state values live in registers.
+//
+// The operation order follows _step_components line by line. Constants that
+// JAX folds from Python floats arrive pre-folded in float64 and rounded once
+// to float32 (StepConsts, built by fpyv_tpu_torch.ops.step_kernel). Every
+// literal here carries an f suffix: one double literal would promote its
+// expression. Built with --fmad=false and without --use_fast_math, so each
+// operation rounds as the plain PyTorch version's does.
+//
+// Bound on the H100: per-env scalar float32 arithmetic (about 450 operations
+// per env-step on a one-sphere world, 6 sin/cos and a few sqrt), no matrix
+// product and a few bytes per env per launch — operations, not bytes. The
+// design keeps the state in registers across a kernel's step loop and the
+// world rows in shared memory, so a step touches device memory not at all.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace fpyv {
+
+constexpr int kStateRows = 15;
+
+// Field order must match StepConstants.as_array() in ops/step_kernel.py.
+struct StepConsts {
+  float dt, max_rates, rate_a, rate_keep, thrust_b, thrust_keep;
+  float c3, c2, c1, c0;
+  float drag_x, drag_y, drag_z;
+  float gz, mass, inv_m, half_rate;
+  float motor_radius, neg_spring;
+  float motor_x[4], motor_y[4];
+  float reps;
+};
+
+// Sphere centers may move per step (the env kernel); radius/active are rows
+// of the world matrix. All pointers are into shared memory.
+struct Spheres {
+  const float* cx;
+  const float* cy;
+  const float* cz;
+  const float* r;
+  const float* active;
+  int n;
+};
+
+// Cylinder matrix rows (6, C): center xyz, radius, height, active.
+struct Cylinders {
+  const float* rows;
+  int n;
+};
+
+// Per-env DomainRand scales and wind, used when the template flags say so.
+struct EnvPhysics {
+  float mass_scale, drag_scale, thrust_scale;
+  float wx, wy, wz;
+};
+
+__device__ __forceinline__ float lt0(float x) { return x < 0.0f ? 1.0f : 0.0f; }
+
+template <bool kDR, bool kWind>
+__device__ __forceinline__ void step_components(const StepConsts& k, const Spheres& sph,
+                                                const Cylinders& cyl, float s[kStateRows],
+                                                const float act[4], const EnvPhysics& ep) {
+  const float px = s[0], py = s[1], pz = s[2];
+  const float vx = s[3], vy = s[4], vz = s[5];
+  float qw = s[6], qx = s[7], qy = s[8], qz = s[9];
+  const float r0 = s[10], r1 = s[11], r2 = s[12];
+  const float thrust_prev = s[13], done = s[14];
+
+  // --- action2force (components.py:179-196)
+  const float mr = k.max_rates;
+  const float rc0 = fminf(fmaxf(-act[0] * mr, -mr), mr);
+  const float rc1 = fminf(fmaxf(-act[1] * mr, -mr), mr);
+  const float rc2 = fminf(fmaxf(-act[2] * mr, -mr), mr);
+  const float n0 = rc0 * k.rate_a + r0 * k.rate_keep;
+  const float n1 = rc1 * k.rate_a + r1 * k.rate_keep;
+  const float n2 = rc2 * k.rate_a + r2 * k.rate_keep;
+  const float xpct = 100.0f * (fminf(fmaxf(act[3], -1.0f), 1.0f) + 1.0f) * 0.5f;
+  const float poly = ((k.c3 * xpct + k.c2) * xpct + k.c1) * xpct + k.c0;
+  float thrust = poly * k.thrust_b + thrust_prev * k.thrust_keep;
+  if (kDR) thrust = thrust * ep.thrust_scale;
+  const float applied = thrust;
+
+  // --- rotation matrix from the quaternion
+  const float R00 = 1.0f - 2.0f * (qy * qy + qz * qz);
+  const float R01 = 2.0f * (qx * qy - qz * qw);
+  const float R02 = 2.0f * (qx * qz + qy * qw);
+  const float R10 = 2.0f * (qx * qy + qz * qw);
+  const float R11 = 1.0f - 2.0f * (qx * qx + qz * qz);
+  const float R12 = 2.0f * (qy * qz - qx * qw);
+  const float R20 = 2.0f * (qx * qz - qy * qw);
+  const float R21 = 2.0f * (qy * qz + qx * qw);
+  const float R22 = 1.0f - 2.0f * (qx * qx + qy * qy);
+  const float tx = R02 * applied, ty = R12 * applied, tz = R22 * applied;
+
+  // --- drag (kinematics.py:33-38) on velocity + wind
+  float wx_ = vx, wy_ = vy, wz_ = vz;
+  if (kWind) {
+    wx_ = vx + ep.wx;
+    wy_ = vy + ep.wy;
+    wz_ = vz + ep.wz;
+  }
+  const float vnorm = sqrtf(wx_ * wx_ + wy_ * wy_ + wz_ * wz_);
+  const float bx = R00 * wx_ + R10 * wy_ + R20 * wz_;
+  const float by = R01 * wx_ + R11 * wy_ + R21 * wz_;
+  const float bz = R02 * wx_ + R12 * wy_ + R22 * wz_;
+  const float fbx = k.drag_x * bx * vnorm;
+  const float fby = k.drag_y * by * vnorm;
+  const float fbz = k.drag_z * bz * vnorm;
+  float dx = R00 * fbx + R01 * fby + R02 * fbz;
+  float dy = R10 * fbx + R11 * fby + R12 * fbz;
+  float dz = R20 * fbx + R21 * fby + R22 * fbz;
+  if (kDR) {
+    dx = dx * ep.drag_scale;
+    dy = dy * ep.drag_scale;
+    dz = dz * ep.drag_scale;
+  }
+  float gz = k.gz;
+  if (kDR) gz = gz * ep.mass_scale;
+
+  // --- motor points + collisions (spheres, cylinders, ground)
+  const float rm = k.motor_radius;
+  float cfx = 0.0f, cfy = 0.0f, cfz = 0.0f, crashed = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float m0 = k.motor_x[m], m1 = k.motor_y[m];
+    const float mx = px + R00 * m0 + R01 * m1;
+    const float my = py + R10 * m0 + R11 * m1;
+    const float mz = pz + R20 * m0 + R21 * m1;
+    const float pen = mz - rm;
+    cfz = cfz + lt0(pen) * (k.neg_spring * pen);
+    crashed = fmaxf(crashed, lt0(mz));
+    for (int i = 0; i < sph.n; ++i) {
+      const float ddx = mx - sph.cx[i], ddy = my - sph.cy[i], ddz = mz - sph.cz[i];
+      const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+      const float sd = dist - sph.r[i];
+      const float inv = 1.0f / fmaxf(dist, 1e-12f);
+      const float pen_s = sd - rm;
+      const float hit_s = lt0(pen_s) * sph.active[i];
+      const float mag = k.neg_spring * pen_s;
+      cfx = cfx + hit_s * mag * ddx * inv;
+      cfy = cfy + hit_s * mag * ddy * inv;
+      cfz = cfz + hit_s * mag * ddz * inv;
+      crashed = fmaxf(crashed, lt0(sd) * sph.active[i]);
+    }
+    const int C = cyl.n;
+    for (int i = 0; i < C; ++i) {
+      const float ccx = cyl.rows[i], ccy = cyl.rows[C + i], ccz = cyl.rows[2 * C + i];
+      const float cr_ = cyl.rows[3 * C + i], ch_ = cyl.rows[4 * C + i];
+      const float act_c = cyl.rows[5 * C + i];
+      const float ddx = mx - ccx, ddy = my - ccy;
+      const float r2d = sqrtf(ddx * ddx + ddy * ddy);
+      const float d2d = r2d - cr_;
+      const float z0 = ccz, z1 = ccz + ch_;
+      const float in_band = (z0 < mz && mz < z1) ? 1.0f : 0.0f;
+      const float dh = fminf(fabsf(mz - z0), fabsf(mz - z1));
+      const float d = in_band * d2d + (1.0f - in_band) * sqrtf(d2d * d2d + dh * dh);
+      // normal: RELATIVE z against the ABSOLUTE band (components.py:719-720)
+      const float relz = mz - ccz;
+      const float band_n = (z0 < relz && relz < z1) ? 1.0f : 0.0f;
+      const float inv2d = 1.0f / fmaxf(r2d, 1e-12f);
+      const float cap_sign = fabsf(relz - z0) < fabsf(relz - z1) ? -1.0f : 1.0f;
+      const float nx_ = band_n * ddx * inv2d;
+      const float ny_ = band_n * ddy * inv2d;
+      const float nz_ = (1.0f - band_n) * cap_sign;
+      const float pen_c = d - rm;
+      const float hit_c = lt0(pen_c) * act_c;
+      const float mag = k.neg_spring * pen_c;
+      cfx = cfx + hit_c * mag * nx_;
+      cfy = cfy + hit_c * mag * ny_;
+      cfz = cfz + hit_c * mag * nz_;
+      crashed = fmaxf(crashed, lt0(d) * act_c);
+    }
+  }
+
+  float inv_m = k.inv_m;
+  if (kDR) inv_m = 1.0f / (k.mass * ep.mass_scale);
+  const float acx = (tx + dx + cfx) * inv_m;
+  const float acy = (ty + dy + cfy) * inv_m;
+  const float acz = (tz + dz + gz + cfz) * inv_m;
+
+  // --- integrate: position first (kinematics.py:21-22)
+  s[0] = px + vx * k.dt;
+  s[1] = py + vy * k.dt;
+  s[2] = pz + vz * k.dt;
+  s[3] = vx + acx * k.dt;
+  s[4] = vy + acy * k.dt;
+  s[5] = vz + acz * k.dt;
+
+  // --- attitude: q <- q ⊗ conj(qE), applied reps times (the 2x quirk)
+  const float h0 = n0 * k.half_rate, h1 = n1 * k.half_rate, h2 = n2 * k.half_rate;
+  const float cr = cosf(h0), sr = sinf(h0);
+  const float cp = cosf(h1), sp = sinf(h1);
+  const float cyw = cosf(h2), syw = sinf(h2);
+  const float ew = cyw * cp * cr + syw * sp * sr;
+  const float ex = cyw * cp * sr - syw * sp * cr;
+  const float ey = cyw * sp * cr + syw * cp * sr;
+  const float ez = syw * cp * cr - cyw * sp * sr;
+  const int reps = static_cast<int>(k.reps);
+  for (int r = 0; r < reps; ++r) {
+    const float nw = qw * ew + qx * ex + qy * ey + qz * ez;
+    const float nx = -qw * ex + qx * ew - qy * ez + qz * ey;
+    const float ny = -qw * ey + qx * ez + qy * ew - qz * ex;
+    const float nz = -qw * ez - qx * ey + qy * ex + qz * ew;
+    qw = nw;
+    qx = nx;
+    qy = ny;
+    qz = nz;
+  }
+  const float qn = 1.0f / sqrtf(qw * qw + qx * qx + qy * qy + qz * qz);
+  s[6] = qw * qn;
+  s[7] = qx * qn;
+  s[8] = qy * qn;
+  s[9] = qz * qn;
+  s[10] = n0;
+  s[11] = n1;
+  s[12] = n2;
+  s[13] = thrust;
+  s[14] = fmaxf(done, crashed);
+}
+
+// Copy `count` floats from device memory into shared memory, block-strided.
+__device__ __forceinline__ void load_shared(float* dst, const float* src, int count) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) dst[j] = src[j];
+}
+
+}  // namespace fpyv

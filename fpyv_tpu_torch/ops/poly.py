@@ -1,0 +1,40 @@
+"""Polynomial evaluation/fitting for the motor thrust curve (mirrors
+``fpyv_tpu.ops.poly``).
+
+The fit stays on the host in numpy float64 (once, at config time); the
+evaluation is a Horner chain on tensors in the tensor's own dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def polyval(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """Horner evaluation. ``coeffs`` highest-degree-first (np.polyfit order),
+    host numbers; each is rounded to ``x``'s dtype before use, as the JAX
+    version casts them to the input dtype."""
+    x = torch.as_tensor(x)
+    c = torch.as_tensor(np.asarray(coeffs, np.float64), dtype=x.dtype,
+                        device=x.device)
+    acc = torch.full_like(x, 0.0) + c[0]
+    for i in range(1, c.shape[-1]):
+        acc = acc * x + c[i]
+    return acc
+
+
+def fit_poly_through_origin(x, y, degree: int = 3, origin: bool = True) -> np.ndarray:
+    """Host-side float64 least-squares fit, reference-exact.
+
+    Parity: src/utils/flight_time_calculator.py:43-52 (``model_xy``) — a plain
+    ``np.polyfit`` of degree `degree` with the point (0, 0) *prepended* to the
+    data when ``origin=True`` (the origin is a sample, not a constraint).
+    Returns coefficients highest-degree-first (np.polyfit order).
+    """
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    if origin:
+        x = np.append(0.0, x)
+        y = np.append(0.0, y)
+    return np.polyfit(x, y, degree)

@@ -1,0 +1,242 @@
+"""World generators: tracks, targets, cylinders, ground — reference parity
+(mirrors ``fpyv_tpu.world.generators``; with the same numpy seed the
+world comes out identical).
+
+Host-side builders (numpy + seeded rng) producing the SoA ``World`` the
+physics consumes and the raw point clouds the renderer consumes.
+
+Reference parity (src/utils/generators.py + components.py constructors),
+including two deliberate reference quirks preserved bug-for-bug:
+
+- ``generate_track`` places gate x-coordinates with ``cos(θ)·gate_size`` but
+  y with ``sin(θ)·radius`` (generators.py:9 — an ellipse unless they match),
+  and passes ``gate_resolution`` as the SIZE of rectangle/half-circle gates
+  (generators.py:17); only circle gates get ``gate_size/2``.
+- Ground's random point cloud scales z by 0.2/size of the x/y extent
+  (components.py:655-660).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from fpyv_tpu_torch.config import SimulatorConfig
+from fpyv_tpu_torch.physics.world import GATE_SHAPES, empty_world
+
+
+def euler_z(theta: float) -> np.ndarray:
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+# ---------------------------------------------------------------------------
+# Point-cloud constructors (components.py per-class generate_points parity)
+# ---------------------------------------------------------------------------
+
+
+def ground_points(size: float, resolution: int, random: bool = False,
+                  rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Ground cloud (components.py:655-664)."""
+    if random:
+        rng = rng or np.random.default_rng()
+        pts = size * (2.0 * rng.random((resolution**2, 3)) - 1.0)
+        pts[:, 2] /= size
+        pts[:, 2] *= 0.2
+        return pts
+    axis = np.linspace(-size / 2, size / 2, resolution)
+    x, y = np.meshgrid(axis, axis)
+    return np.stack([x.reshape(-1), y.reshape(-1), np.zeros(x.size)], axis=-1)
+
+
+def cylinder_points(radius: float, height: float, angle_resolution: int,
+                    height_resolution: int, random: bool = False,
+                    rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Cylinder surface cloud relative to its base center (components.py:697-708)."""
+    if random:
+        rng = rng or np.random.default_rng()
+        angles = rng.random((height_resolution, angle_resolution)) * 2 * np.pi
+        heights = rng.random((height_resolution, angle_resolution)) * height
+    else:
+        angles = np.linspace(0, 2 * np.pi, angle_resolution)
+        heights = np.linspace(0, height, height_resolution)
+        angles, heights = np.meshgrid(angles, heights)
+    return np.stack(
+        [radius * np.cos(angles).reshape(-1),
+         radius * np.sin(angles).reshape(-1),
+         heights.reshape(-1)], axis=-1,
+    )
+
+
+def gate_corners(size: float, shape: str = "rectangle",
+                 resolution: int = 17) -> np.ndarray:
+    """Gate polyline in the gate frame, closed (components.py:790-805)."""
+    if shape == "rectangle":
+        corners = np.array(
+            [[0, -1, -1], [0, 1, -1], [0, 1, 1], [0, -1, 1]], dtype=np.float64
+        ) * size / 2
+    elif "circle" in shape:
+        coef = 1 if "half" in shape else 2
+        theta = np.linspace(0, coef * np.pi, resolution)
+        y = np.cos(theta) * size / coef
+        z = np.sin(theta) * size / coef
+        corners = np.stack([np.zeros_like(y), y, z], axis=-1)
+        if "half" in shape:
+            corners = corners - np.array([0, 0, size / 2])
+    else:
+        raise NotImplementedError(shape)
+    return np.vstack([corners, corners[:1]])
+
+
+# ---------------------------------------------------------------------------
+# Object-list generators (generators.py parity)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TargetSpec:
+    position: np.ndarray
+    radius: float
+    nu: int
+    path: Optional[Dict[str, Any]]  # {"radius":..., "resolution":...} or None
+
+
+@dataclass
+class CylinderSpec:
+    position: np.ndarray
+    radius: float
+    height: float
+    angle_resolution: int
+    height_resolution: int
+    random: bool
+
+
+@dataclass
+class GateSpec:
+    position: np.ndarray
+    rotmat: np.ndarray
+    size: float
+    shape: str
+    resolution: int
+
+
+def generate_targets(count: int, center, std: float, size: float,
+                     variation: float, nu: int, path,
+                     rng: np.random.Generator) -> List[TargetSpec]:
+    """generators.py:21-24."""
+    return [
+        TargetSpec(
+            position=np.asarray(center, np.float64) + std * rng.standard_normal(3),
+            radius=float(abs(size + variation * rng.standard_normal())),
+            nu=nu,
+            path=dict(path) if path else None,
+        )
+        for _ in range(count)
+    ]
+
+
+def generate_cylinders(count: int, center, center_std, radius: float,
+                       radius_std: float, height: float, height_std: float,
+                       angle_resolution: int, height_resolution: int,
+                       random: bool, rng: np.random.Generator) -> List[CylinderSpec]:
+    """generators.py:27-36."""
+    return [
+        CylinderSpec(
+            position=np.asarray(center, np.float64)
+            + np.asarray(center_std, np.float64) * rng.standard_normal(3),
+            radius=float(abs(radius + radius_std * rng.standard_normal())),
+            height=float(abs(height + height_std * rng.standard_normal())),
+            angle_resolution=angle_resolution,
+            height_resolution=height_resolution,
+            random=random,
+        )
+        for _ in range(count)
+    ]
+
+
+def generate_track(count: int, radius: float, gate_size: float,
+                   gate_resolution: int) -> List[GateSpec]:
+    """generators.py:7-18 with both quirks preserved (module docstring)."""
+    theta = np.linspace(0, 2 * np.pi, count + 1)[:-1]
+    positions = np.stack(
+        [np.cos(theta) * gate_size,  # quirk: gate_size, not radius
+         np.sin(theta) * radius,
+         np.zeros_like(theta)], axis=-1,
+    )
+    shapes = ["rectangle", "circle", "half_circle"]
+    gates = []
+    for i, p in enumerate(positions):
+        shape = shapes[i % 3]
+        rotmat = euler_z(theta[i] + np.pi / 2)
+        if shape == "circle":
+            gates.append(GateSpec(p + np.array([0, 0, gate_size / 2]), rotmat,
+                                  gate_size / 2, shape, gate_resolution))
+        else:
+            # quirk: size = gate_resolution for rectangle/half_circle
+            gates.append(GateSpec(p.copy(), rotmat, float(gate_resolution),
+                                  shape, gate_resolution))
+    return gates
+
+
+# ---------------------------------------------------------------------------
+# Full world builder
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class WorldSpec:
+    """Host-side object lists (the analog of simulator.py:54-58's world)."""
+
+    targets: List[TargetSpec] = field(default_factory=list)
+    cylinders: List[CylinderSpec] = field(default_factory=list)
+    gates: List[GateSpec] = field(default_factory=list)
+    ground: Optional[Dict[str, Any]] = None  # {"size","resolution","random"}
+
+    @classmethod
+    def from_config(cls, sim: SimulatorConfig, seed: int = 0) -> "WorldSpec":
+        rng = np.random.default_rng(seed)
+        t = dict(sim.targets)
+        path = t.pop("path", None)
+        return cls(
+            targets=generate_targets(**t, path=path, rng=rng),
+            cylinders=generate_cylinders(**sim.obstacles, rng=rng),
+            gates=generate_track(**sim.track),
+            ground=dict(sim.ground),
+        )
+
+
+def build_world(spec: WorldSpec, dtype=torch.float32, device=None):
+    """WorldSpec -> physics SoA World on ``device``."""
+    S, C, G = len(spec.targets), len(spec.cylinders), len(spec.gates)
+    w = empty_world(S, C, G, ground=spec.ground is not None, dtype=dtype, device=device)
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+    if S:
+        w = w.replace(
+            sphere_center=t([s.position for s in spec.targets]),
+            sphere_radius=t([s.radius for s in spec.targets]),
+            sphere_path_center=t([s.position for s in spec.targets]),
+            sphere_path_radius=t([s.path["radius"] if s.path else 0.0 for s in spec.targets]),
+            sphere_path_res=t([s.path["resolution"] if s.path else 1 for s in spec.targets],
+                              torch.int32),
+            sphere_has_path=t([s.path is not None for s in spec.targets], torch.bool),
+        )
+    if C:
+        w = w.replace(
+            cyl_center=t([c.position for c in spec.cylinders]),
+            cyl_radius=t([c.radius for c in spec.cylinders]),
+            cyl_height=t([c.height for c in spec.cylinders]),
+        )
+    if G:
+        w = w.replace(
+            gate_pos=t([g.position for g in spec.gates]),
+            gate_rotmat=t([g.rotmat for g in spec.gates]),
+            gate_size=t([g.size for g in spec.gates]),
+            gate_shape=t([GATE_SHAPES.index(g.shape) for g in spec.gates], torch.int32),
+        )
+    return w
