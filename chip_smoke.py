@@ -4,8 +4,8 @@
 
 Builds the port's CUDA kernels from ``fpyv_tpu_torch/csrc`` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, drives the
-port's main path at the benched shape (4096 envs of the full acro env), and
-times it. Phases, one line each:
+port's main paths at the benched shapes, and times them. Phases, one line
+each:
 
 1. device: the card's name and power limit (nvidia-smi) and the build time;
 2. K2 (one fused physics step) on the params.yaml world against
@@ -14,16 +14,36 @@ times it. Phases, one line each:
 4. K4 (the env megaloop) against ``env_rollout_reference``: the default world
    with K = 256 and 50-step episodes (every env resets several times), and
    the params.yaml world with DomainRand and wind gusts, K = 64;
-5. the main path with every launch counter at 0: one fused step, one fused
-   rollout and the env megaloop on both worlds, K sized from a warm-up so a
-   timed run takes about 12 s; env-steps/s beside the card and its limit,
-   the plain env version's rate at K = 64 as a reference figure, and K4's
-   rate as the bank grows from 4096 to 1M envs (how far 4096 envs fill
-   the card);
-6. the ``kernels`` JSON line: per kernel its launches on the main path, its
+5. K5 (the raycast render) against ``render_depth_reference``, levels equal:
+   1024 envs at 96x72 on the params.yaml world and on per-env
+   ``sample_worlds``, and 8 envs at 640x480 on a world with a gate of each
+   shape;
+6. K6 (the chase megaloop) against ``vision_env_rollout_reference``, 64 envs,
+   K = 64: the default world with 20-step episodes (every env resets) and
+   the params.yaml world with DomainRand and gusts; t, crash and contact
+   counts equal;
+7. the acro main path with its launch counters at 0: one fused step, one
+   fused rollout and the env megaloop on both worlds, K sized from a
+   warm-up so a timed run takes about 8 s; env-steps/s beside the card and
+   its limit, the plain env version's rate at K = 64 as a reference
+   figure, and K4's rate as the bank grows from 4096 to 1M envs;
+8. the vision env main path with its counters at 0:
+   ``VisionAcroEnv(renderer="raycast_pallas", target_only=False)``,
+   ``reset_batched`` and 8 ``step_batched`` at 1024 envs on the params.yaml
+   world, a warm-up and three timed runs; frames/s, and one run under
+   ``torch.profiler``: the device's busy share and its top kernels;
+9. the chase main path with its counters at 0: ``fused_vision_env_rollout``
+   at 1024 envs on the default world and rig, K sized so a launch takes
+   about 10 s; env-steps/s, and ``bench.py``'s K-slope rate (K = 512 ->
+   2048); then the JAX package's station-keeping check (300 steps from a
+   reset: mean |distance - keep_distance| < 1.5 m; here at most 1 % of the
+   envs may crash in the last 200 steps, where the JAX test's 16 envs allow
+   none);
+10. the ``kernels`` JSON line: per kernel its launches on its main path, its
    largest error against the plain version, its time and the plain
    version's at the main path's shapes, and the least time the card could
-   take for the same work.
+   take for the same work. K6 is held against its plain version once more
+   at the chase's timed shape (1024 envs, K = 64), at phase 6's tolerances.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -42,15 +62,21 @@ import torch
 
 from fpyv_tpu_torch.config import SimulatorConfig
 from fpyv_tpu_torch.envs.acro import AcroEnv, vector_reset
+from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv, default_vision_rig
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as ek
 from fpyv_tpu_torch.ops import step_kernel as sk
+from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.vision.camera import CameraRig
 from fpyv_tpu_torch.world.generators import WorldSpec, build_world
+from fpyv_tpu_torch.world.randomize import sample_worlds
 
 N_ENVS = 4096
 THROTTLE = -0.6
-RUN_SECONDS = 12.0
+RUN_SECONDS = 8.0
+N_VISION = 1024  # bench.py's vision lane: 1024 envs, the default 96x72 rig
+CHASE_SECONDS = 10.0
 PROBE_ENVS = (4096, 16384, 65536, 262144, 1048576)
 PROBE_K = 1000
 
@@ -69,12 +95,19 @@ ROWS = {"pos": slice(0, 3), "vel": slice(3, 6), "att": slice(6, 10), "rates": sl
         "prev_dist": slice(16, 17), "episode_return": slice(17, 18), "dr": slice(18, 21),
         "wind": slice(21, 24)}
 
+# the chase (tests/test_pallas_vision.py:287-294): pos 1e-4, vel/att 1e-3
+TOL_CHASE = dict(TOL_ENV, pos=1e-4, vel=1e-3, att=1e-3)
+
 SOURCES = {"drone_step": "fpyv_tpu_torch/csrc/step_kernels.cu",
            "rollout": "fpyv_tpu_torch/csrc/step_kernels.cu",
-           "env_rollout": "fpyv_tpu_torch/csrc/env_kernels.cu"}
+           "env_rollout": "fpyv_tpu_torch/csrc/env_kernels.cu",
+           "render_depth": "fpyv_tpu_torch/csrc/vision_kernels.cu",
+           "vision_env_rollout": "fpyv_tpu_torch/csrc/vision_kernels.cu"}
 REPLACES = {"drone_step": "fpyv_tpu/ops/pallas_step.py:313",
             "rollout": "fpyv_tpu/ops/pallas_step.py:326",
-            "env_rollout": "fpyv_tpu/ops/pallas_env.py:325"}
+            "env_rollout": "fpyv_tpu/ops/pallas_env.py:325",
+            "render_depth": "fpyv_tpu/ops/pallas_vision.py:297",
+            "vision_env_rollout": "fpyv_tpu/ops/pallas_vision.py:661"}
 
 
 def log(msg: str) -> None:
@@ -116,6 +149,58 @@ def check_state(name: str, mat: torch.Tensor, n: int, max_t=None) -> None:
         raise AssertionError(f"{name}: episode counter out of [0, {max_t})")
 
 
+def check_chase(label: str, env, out, ref, rsum, ref_rsum, crashes, ref_crashes, contacts,
+                ref_contacts, n: int, resets: int) -> float:
+    """K6 against its plain version: crash and contact counts equal, t equal,
+    pos 1e-4, vel and attitude (up to sign) 1e-3, reward sums 2e-3; returns
+    the largest error."""
+    check_state("K6", out, n, max_t=env.max_episode_steps)
+    if not (torch.equal(crashes, ref_crashes) and torch.equal(contacts, ref_contacts)):
+        raise AssertionError(f"K6 ({label}): crash or contact counts differ")
+    qd = torch.minimum((out[6:10] - ref[6:10]).abs().amax(0),
+                       (out[6:10] + ref[6:10]).abs().amax(0)).max().item()
+    tol = {k: v for k, v in TOL_CHASE.items() if k != "att"}
+    err = max(compare(f"K6 vision_env_rollout ({label}, {resets} resets, "
+                      f"{int(ref_crashes.sum().item())} crashes, "
+                      f"{int(ref_contacts.sum().item())} contacts)", out, ref, tol),
+              reward_err("K6", rsum, ref_rsum), qd)
+    if qd > TOL_CHASE["att"]:
+        raise AssertionError(f"K6 ({label}): attitude err {qd}")
+    return err
+
+
+def read_counts(label: str, names, launches: dict) -> None:
+    """Read a main path's launch counters (reset just before it) into
+    ``launches``; fail if one of its kernels never launched."""
+    got = {k: _build.launch_counts[k] for k in names}
+    missing = [k for k, v in got.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}")
+    launches.update(got)
+    log(f"{label} launches: {json.dumps(got)}")
+
+
+def device_busy(fn, top: int = 5):
+    """Run fn under torch.profiler: (summed device time of the kernels /
+    wall time, the ``top`` kernels by device time in ms). Only device-side
+    events count (an ``aten::`` op's row repeats its kernels' time); the sum
+    over-counts where kernels overlap; 0.0 where the trace shows no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    by_name = {}  # names cut to 60 characters; kernels that share a cut name add up
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+            by_name[ev.key[:60]] = by_name.get(ev.key[:60], 0.0) + ev.device_time_total
+    busy = sum(by_name.values()) * 1e-6 / wall
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return busy, {k: round(us * 1e-3, 6) for k, us in ranked}
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -148,6 +233,27 @@ def reset_ops(dr: bool, gust: bool) -> int:
     draw = 13  # counter, xor, fmix (8), shift, convert, scale
     ops = 10 * draw + 6 + 18 + 3 + 9 + 6 + 20 + 9
     return ops + (3 * draw + 6 if dr else 0) + (4 * draw + 24 if gust else 0)
+
+
+def render_ops(cfg: "vk.RenderConfig", live_gates: int) -> int:
+    """Counted operations per pixel of csrc/render.cuh for one config: the
+    world ray, each included primitive, the level encoding. Only the
+    ``live_gates`` gate slots active in some env count: an inactive slot
+    cannot change the frame, so the least work leaves it out (the kernel
+    still runs its masked arithmetic)."""
+    ops = 15 + 8
+    ops += (5 + 33 * cfg.n_spheres) if cfg.spheres else 0
+    ops += 50 * cfg.n_cylinders if cfg.cylinders else 0
+    ops += (11 + (8 if cfg.ground_extent is not None else 0)) if cfg.ground else 0
+    return ops + (89 * live_gates if cfg.gates else 0)
+
+
+def chase_step_ops(hw: int, S: int, C: int, dr: bool, wind: bool) -> int:
+    """Counted operations per env-step of K6: the target-only render (world
+    ray, |d|^2, sphere, compare: 54 per pixel; the accumulation of lit pixels
+    is left out), the block reduction, the camera pose, the target centres,
+    the pilot, then the K4 physics and env rows."""
+    return hw * 54 + 130 + 102 + 15 * S + 182 + step_ops(S, C, dr=dr, wind=wind) + 24
 
 
 def bound(ops: float, nbytes: float):
@@ -230,7 +336,59 @@ def main() -> int:
                      f"resets)", out, ref, TOL_ENV), reward_err("K4 params", rsum, ref_rsum))
     errors["env_rollout"] = max(e1, e2)
 
-    # ---- 5. main path, counters from 0 -------------------------------------
+    # ---- 5. K5 on three setups -----------------------------------------------
+    errors["render_depth"] = 0.0
+    gate_world = build_world(WorldSpec.from_config(SimulatorConfig(track={
+        "count": 3, "radius": 6, "gate_size": 2, "gate_resolution": 17}), seed=2), device=dev)
+    gate_world = gate_world.replace(
+        gate_shape=torch.tensor([0, 1, 2], dtype=torch.int32, device=dev),
+        sphere_center=torch.tensor([[0.0, 0.0, 3.0]], device=dev))
+    for label, w, n, rig in (
+            (f"params.yaml world, shared, {N_VISION} envs, 96x72", pworld, N_VISION,
+             default_vision_rig()),
+            (f"sample_worlds per-env worlds, {N_VISION} envs, 96x72",
+             sample_worlds(gen, N_VISION, n_spheres=1, n_cylinders=4, device=dev), N_VISION,
+             default_vision_rig()),
+            ("gate track (shapes 0, 1, 2) + cylinders, 8 envs, 640x480", gate_world, 8,
+             CameraRig(resolution=(640, 480)))):
+        sub, _ = vector_reset(env, gen, n, w)
+        cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(sub)
+        cfg = vk.RenderConfig.for_world(w, 25.0)
+        dcam = torch.from_numpy(vk.flat_dcam(rig)).to(dev)
+        cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(w)
+        out = vk.launch_render_depth(cfg, dcam, cam, wcol)
+        torch.cuda.synchronize()
+        ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+        lit = (ref > 0).float().mean().item()
+        e = (out - ref).abs().max().item()
+        bad = int((out != ref).sum().item())
+        log(f"K5 render_depth ({label}): {bad} of {out.numel()} levels differ, max abs err "
+            f"{e}, lit share {lit:.4f}")
+        if bad or not torch.isfinite(out).all() or lit <= 0.0:
+            raise AssertionError(f"K5 ({label}): levels differ or frame empty")
+        errors["render_depth"] = max(errors["render_depth"], e)
+
+    # ---- 6. K6, two runs across resets ---------------------------------------
+    rig = default_vision_rig()
+    errors["vision_env_rollout"] = 0.0
+    env20 = AcroEnv(params=params, max_episode_steps=20)
+    for label, e_, w in (("default world, 20-step episodes", env20, world),
+                         ("params.yaml world + DR + wind", env_dr, pworld)):
+        st, _ = vector_reset(e_, gen, 64, w)
+        s28, cwm = vk.chase_state_matrix(st), ek.env_world_matrix(w)
+        cyl = sk.cylinder_matrix(w) if sk.world_has_cylinders(w) else None
+        out, rsum, crashes, contacts = vk.launch_vision_env_rollout(e_, s28, cwm, 64, rig,
+                                                                    seed=3, cyl_mat=cyl)
+        torch.cuda.synchronize()
+        ref, ref_rsum, resets, rc, rct = vk.vision_env_rollout_reference(e_, s28, cwm, 64, rig,
+                                                                         seed=3, cyl_mat=cyl)
+        if e_ is env20 and resets < 64:
+            raise AssertionError(f"K6: expected every env to reset, saw {resets}")
+        errors["vision_env_rollout"] = max(errors["vision_env_rollout"], check_chase(
+            f"{label}, N=64, K=64", e_, out, ref, rsum, ref_rsum, crashes, rc, contacts, rct,
+            64, resets))
+
+    # ---- 7. acro main path, counters from 0 ----------------------------------
     _build.reset_launch_counts()
     st, _ = vector_reset(env, gen, N_ENVS, world)
     stepped = sk.fused_drone_step(params, st.drone, hover, world)
@@ -260,14 +418,11 @@ def main() -> int:
         rates[label] = N_ENVS * k / min(times)
         log(f"main path ({label}): {rates[label]:.6e} env-steps/s at N={N_ENVS}, K={k} "
             f"per launch, best of {[round(t, 6) for t in times]} s, on {smi}")
-    launches = dict(_build.launch_counts)
+    launches = {}
     for t in (stepped.pos, rolled.pos):
         if not torch.isfinite(t).all():
             raise AssertionError("main path: non-finite physics state")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing}")
-    log(f"main path launches: {json.dumps(launches)}")
+    read_counts("acro main path", ("drone_step", "rollout", "env_rollout"), launches)
 
     # plain env version on the card as a reference figure (not a yardstick)
     st, _ = vector_reset(env, gen, N_ENVS, world)
@@ -289,7 +444,83 @@ def main() -> int:
     log(f"occupancy probe (default world, K={PROBE_K}, env-steps/s by N): "
         f"{json.dumps(probe)} on {smi}")
 
-    # ---- 6. kernels line: times at the main path's shapes -------------------
+    # ---- 8. vision env main path, counters from 0 -------------------------------
+    venv = VisionAcroEnv(acro=env, renderer="raycast_pallas", target_only=False)
+    _build.reset_launch_counts()
+
+    def vision_episode():
+        state, obs = venv.reset_batched(gen, pworld, None, N_VISION)
+        frames = [obs["pixels"]]
+        for _ in range(8):
+            state, obs, _, _, _ = venv.step_batched(state, hover[:N_VISION], pworld, None)
+            frames.append(obs["pixels"])
+        torch.cuda.synchronize()
+        return state, frames
+
+    vtimes = []
+    for _ in range(4):  # the first is a warm-up
+        t0 = time.perf_counter()
+        vstate, frames = vision_episode()
+        vtimes.append(time.perf_counter() - t0)
+    for f in frames:
+        if f.shape != (N_VISION, 72, 96) or not ((f >= 0) & (f <= 1)).all():
+            raise AssertionError("vision env: frames misshaped or out of [0, 1]")
+    if (frames[-1] > 0).float().mean().item() <= 0.0:
+        raise AssertionError("vision env: blank frames")
+    read_counts("vision env main path", ("render_depth",), launches)
+    log(f"vision env main path: {9 * N_VISION / min(vtimes[1:]):.6e} frames/s (reset + 8 "
+        f"steps at N={N_VISION}, 96x72, params.yaml world, best of "
+        f"{[round(t, 6) for t in vtimes[1:]]} s after a warm-up) on {smi}")
+    busy, top = device_busy(vision_episode)
+    log(f"vision env trace: device busy {busy:.6f} of the wall time; top kernels by device "
+        f"time: {json.dumps(top)}")
+
+    # ---- 9. chase main path, counters from 0 ----------------------------------------
+    _build.reset_launch_counts()
+    cstate, _ = vector_reset(env, gen, N_VISION, world)
+    cworld = world
+
+    def chase(k, seed):
+        nonlocal cstate, cworld
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cstate, cworld, rs, crashes, _ = vk.fused_vision_env_rollout(env, cstate, cworld, k,
+                                                                     seed=seed)
+        total = rs.sum().item()  # completion on the host is part of the time
+        t = time.perf_counter() - t
+        if not math.isfinite(total):
+            raise AssertionError("chase: non-finite reward sum")
+        return t
+
+    k_warm = 512
+    per_step = chase(k_warm, 0) / k_warm
+    k = min(int(CHASE_SECONDS / per_step), ek.MAX_STEPS_PER_LAUNCH - 10_000)
+    times = [chase(k, 1 + rep) for rep in range(2)]
+    check_state("chase main path", ek.env_state_to_matrix(cstate), N_VISION,
+                max_t=env.max_episode_steps)
+    chase_rate = N_VISION * k / min(times)
+    log(f"chase main path: {chase_rate:.6e} env-steps/s at N={N_VISION}, K={k} per launch, "
+        f"best of {[round(t, 6) for t in times]} s, default world, 96x72 rig, on {smi}")
+    slope = {}
+    for kk in (512, 2048):
+        chase(kk, 7)
+        slope[kk] = min(chase(kk, 8 + r) for r in range(3))
+    slope_rate = N_VISION * (2048 - 512) / (slope[2048] - slope[512])
+    log(f"chase K-slope (bench.py measure_vision, K = 512 -> 2048): {slope_rate:.6e} "
+        f"env-steps/s at N={N_VISION} on {smi}")
+    # station keeping (tests/test_pallas_vision.py::test_follows_orbiting_target)
+    cstate, _ = vector_reset(env, gen, N_VISION, world)
+    cstate, w2, _, _, _ = vk.fused_vision_env_rollout(env, cstate, world, 100)
+    cstate, _, _, crashes, _ = vk.fused_vision_env_rollout(env, cstate, w2, 200, seed=1)
+    keep = (cstate.prev_dist - vk.ChasePilot().keep_distance).abs().mean().item()
+    crashed_envs = int((crashes > 0).sum().item())
+    log(f"chase station keeping: mean |distance - 6 m| = {keep:.6f} m after 300 steps, "
+        f"{crashed_envs} of {N_VISION} envs crashed in the last 200")
+    if keep >= 1.5 or crashed_envs > N_VISION // 100:
+        raise AssertionError("chase: station keeping failed")
+    read_counts("chase main path", ("vision_env_rollout",), launches)
+
+    # ---- 10. kernels line: times at the main path's shapes -------------------
     s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(world)
     S = world.num_spheres
     kernels = []
@@ -315,6 +546,37 @@ def main() -> int:
     env_ops = (N_ENVS * K * (step_ops(S, 0) + 21) + main_resets * reset_ops(False, False)
                + K * 18 * S + N_ENVS * 17)
     row("env_rollout", ms, pms, env_ops, N_ENVS * (24 + 4 + 24 + 1) * 4 + 12 * S * 4)
+
+    # K5 at the vision env's shapes: 1024 envs, 96x72, params.yaml world
+    rig = default_vision_rig()
+    hw = rig.resolution[0] * rig.resolution[1]
+    cam_pos, cam_R = venv._camera(vstate)
+    cfg = vk.RenderConfig.for_world(pworld, venv.max_depth)
+    dcam = torch.from_numpy(vk.flat_dcam(rig)).to(dev)
+    cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld)
+    ms = cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 200)
+    pms = cuda_ms(lambda: vk.render_depth_reference(cfg, dcam, cam, wcol), 3)
+    live_gates = (int(pworld.gate_active.reshape(-1, pworld.num_gates).any(0).sum().item())
+                  if pworld.num_gates else 0)
+    row("render_depth", ms, pms, N_VISION * hw * render_ops(cfg, live_gates),
+        (N_VISION * (hw + 16) + 3 * hw + cfg.n_cols) * 4)
+    # K6 at the chase's shapes: 1024 envs, default world and rig, K = 64; held
+    # against its plain version once more at this shape
+    K = 64
+    cstate, _ = vector_reset(env, gen, N_VISION, world)
+    s28 = vk.chase_state_matrix(cstate)
+    out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s28, wm, K, rig)
+    torch.cuda.synchronize()
+    ref, ref_rsum, chase_resets, rc, rct = vk.vision_env_rollout_reference(env, s28, wm, K, rig)
+    errors["vision_env_rollout"] = max(errors["vision_env_rollout"], check_chase(
+        f"default world, N={N_VISION}, K={K}", env, out, ref, rsum, ref_rsum, crashes, rc,
+        contacts, rct, N_VISION, chase_resets))
+    ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, K, rig), 20)
+    pms = cuda_ms(lambda: vk.vision_env_rollout_reference(env, s28, wm, K, rig), 1)
+    row("vision_env_rollout", ms, pms,
+        N_VISION * K * chase_step_ops(hw, S, 0, False, False)
+        + chase_resets * reset_ops(False, False),
+        (N_VISION * (28 + 28 + 3) + 12 * S + 3 * hw) * 4)
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "
             f"{kr['bound_ms']:.6f} ms by {kr['bound_by']}), {kr['launches']} main-path "

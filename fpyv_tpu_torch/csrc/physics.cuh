@@ -61,10 +61,15 @@ struct EnvPhysics {
 
 __device__ __forceinline__ float lt0(float x) { return x < 0.0f ? 1.0f : 0.0f; }
 
-template <bool kDR, bool kWind>
+// kOverride: the guidance override of pallas_step.py:172-177. ov holds
+// (qw, qx, qy, qz, |F|): the attitude quaternion is replaced before any use
+// and |F| is the applied thrust, while the rates and thrust memories still
+// update from act. Without it (K2-K4) the code is what it was.
+template <bool kDR, bool kWind, bool kOverride = false>
 __device__ __forceinline__ void step_components(const StepConsts& k, const Spheres& sph,
                                                 const Cylinders& cyl, float s[kStateRows],
-                                                const float act[4], const EnvPhysics& ep) {
+                                                const float act[4], const EnvPhysics& ep,
+                                                const float* ov = nullptr) {
   const float px = s[0], py = s[1], pz = s[2];
   const float vx = s[3], vy = s[4], vz = s[5];
   float qw = s[6], qx = s[7], qy = s[8], qz = s[9];
@@ -83,7 +88,14 @@ __device__ __forceinline__ void step_components(const StepConsts& k, const Spher
   const float poly = ((k.c3 * xpct + k.c2) * xpct + k.c1) * xpct + k.c0;
   float thrust = poly * k.thrust_b + thrust_prev * k.thrust_keep;
   if (kDR) thrust = thrust * ep.thrust_scale;
-  const float applied = thrust;
+  float applied = thrust;
+  if (kOverride) {
+    qw = ov[0];
+    qx = ov[1];
+    qy = ov[2];
+    qz = ov[3];
+    applied = ov[4];
+  }
 
   // --- rotation matrix from the quaternion
   const float R00 = 1.0f - 2.0f * (qy * qy + qz * qz);

@@ -1,0 +1,473 @@
+// K5 and K6: the batched raycast depth render and the FPV chase megaloop.
+//
+// K5 replaces fpyv_tpu/ops/pallas_vision.py:_render_kernel
+// (pallas_render_depth): nearest-hit depth over spheres, cylinders, the
+// ground and shaped gates, quantised to floor(255 (1 - t / max)) / 255.
+// One thread per pixel on a (ceil(HW / 256), N) grid; each block copies its
+// env's camera (16 floats) and world columns (5S + 6C + 15G + 1, shared
+// worlds read with stride 0) into shared memory, and reads the ray grid
+// dcam (3, HW) in coalesced rows. The frame is written once.
+// Bound on the H100: at 96x72 and 1024 envs the frame is 28.3 MB written
+// against some 40 (sphere) to 80 (gate) float32 operations per primitive and
+// pixel, so a world with a few primitives is bound by operations and an
+// empty one by the write. Nothing but the frame touches device memory.
+//
+// K6 replaces pallas_vision.py:_chase_kernel (pallas_vision_env_rollout):
+// per step, render the chased target (sphere 0) alone, take the mask
+// centroid, run the guidance pilot (_make_chase_action_fn: distance PID on
+// the UWB-clamped range, virtual drag, ground lift, hover-scan while the
+// target is out of frame, 'level' force basis, quaternion of the desired
+// attitude), step the physics with the attitude / |F| override, then the
+// K4 reward and auto-reset (env.cuh).
+// One block of 128 threads per env. The threads stride over the H*W
+// pixels and count the mask, sum u and sum v; a warp-shuffle and shared
+// memory reduction combines them. The sums are of half-integers below 2^22
+// at 96x72, exact in float32 in any order, so the centroid equals the
+// Pallas one bit for bit. Thread 0 holds the env's 28 state rows in
+// registers for all K steps, runs the serial pilot and physics and
+// publishes the next camera pose through shared memory. Bound on the H100:
+// per env-step ~54 counted operations per pixel (3.7e5 at 96x72) against
+// ~900 for the pilot, physics and reward on one thread, so operations; the
+// serial part idles 127 threads, and blocks resident side by side on each
+// SM overlap one block's pilot with others' renders. __launch_bounds__ asks
+// for 8 resident blocks per SM (at most 64 registers a thread): 1056 slots
+// hold a 1024-env bank in one wave, where 80 registers allowed 6 per SM and
+// left 232 blocks to a second, near-empty wave (1.28x measured, PERF.md).
+#include "env.cuh"
+#include "render.cuh"
+
+#include <cstring>
+
+using fpyv::Cylinders;
+using fpyv::EnvConsts;
+using fpyv::EnvPhysics;
+using fpyv::kEnvRows;
+using fpyv::kStateRows;
+using fpyv::kWorldRows;
+using fpyv::Spheres;
+using fpyv::StepConsts;
+using fpyv::WorldRay;
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
+
+constexpr int kRenderBlock = 256;
+constexpr int kCamCols = 16;
+
+// Field order must match RenderConstants.as_array() in ops/vision_kernel.py.
+struct RenderConsts {
+  float n_spheres, n_cylinders, n_gates;
+  float spheres, cylinders, ground, gates;  // 1.0 where included
+  float max_depth;
+  float clip_ground, ground_extent;
+  float frame_width;
+};
+
+// Nearest t over the world columns w of one env (layout of
+// pallas_vision.py:_world_cols): spheres s*5 + [cx cy cz r active],
+// cylinders 5S + c*6 + [cx cy cz r h active], gates 5S + 6C + g*15 + [...],
+// ground last.
+__device__ __forceinline__ float render_t(const RenderConsts& rc, int S, int C, int G,
+                                          const WorldRay& r, const float* w) {
+  float t_min = fpyv::kBig;
+  if (rc.spheres > 0.5f) {
+    const float a = fpyv::ray_a(r);
+    for (int s = 0; s < S; ++s) {
+      const float* q = w + 5 * s;
+      t_min = fminf(t_min, fpyv::hit_sphere(r, a, q[0], q[1], q[2], q[3], q[4] > 0.5f));
+    }
+  }
+  if (rc.cylinders > 0.5f) {
+    for (int c = 0; c < C; ++c) {
+      const float* q = w + 5 * S + 6 * c;
+      t_min = fminf(t_min, fpyv::hit_cylinder(r, q[0], q[1], q[2], q[3], q[4], q[5] > 0.5f));
+    }
+  }
+  const float* gates = w + 5 * S + 6 * C;
+  if (rc.ground > 0.5f) {
+    t_min = fminf(t_min, fpyv::hit_ground(r, gates[15 * G] > 0.5f, rc.clip_ground > 0.5f,
+                                          rc.ground_extent));
+  }
+  if (rc.gates > 0.5f) {
+    for (int g = 0; g < G; ++g) t_min = fminf(t_min, fpyv::hit_gate(r, gates + 15 * g,
+                                                                    rc.frame_width));
+  }
+  return t_min;
+}
+
+__global__ void __launch_bounds__(kRenderBlock)
+    render_depth_kernel(RenderConsts rc, const float* __restrict__ dcam, int hw,
+                        const float* __restrict__ cam, const float* __restrict__ wcol, int wcols,
+                        int wstride, float* __restrict__ out, int n) {
+  extern __shared__ float sh[];
+  float* cs = sh;              // (16,) camera
+  float* ws = sh + kCamCols;   // (wcols,) world columns
+  const int S = static_cast<int>(rc.n_spheres);
+  const int C = static_cast<int>(rc.n_cylinders);
+  const int G = static_cast<int>(rc.n_gates);
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  if (p < hw) {
+    dx = dcam[p];
+    dy = dcam[hw + p];
+    dz = dcam[2 * hw + p];
+  }
+  for (int e = blockIdx.y; e < n; e += gridDim.y) {
+    __syncthreads();  // the previous env's columns are no longer read
+    fpyv::load_shared(cs, cam + static_cast<size_t>(e) * kCamCols, kCamCols);
+    fpyv::load_shared(ws, wcol + static_cast<size_t>(e) * wstride, wcols);
+    __syncthreads();
+    if (p < hw) {
+      const WorldRay r = fpyv::world_ray(cs, dx, dy, dz);
+      const float t = render_t(rc, S, C, G, r, ws);
+      out[static_cast<size_t>(e) * hw + p] = fpyv::encode_level(t, rc.max_depth);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6
+// ---------------------------------------------------------------------------
+
+constexpr int kChaseBlock = 128;
+constexpr int kChaseBlocksPerSM = 8;
+constexpr int kPilotRows = 4;  // PID integral, derivative, previous error, started
+constexpr int kChaseRows = kEnvRows + kPilotRows;
+
+// Field order must match ChaseConstants.as_array() in ops/vision_kernel.py.
+struct ChaseConsts {
+  float mount[9];  // camera mount rotation, row major
+  float rel[3];    // camera position on the frame
+  float k00, k02, k11, k12;  // K^-1 entries
+  float gz, scan_s, scan_w;
+  float drag, lift, tof, keep, uwb;
+  float kP, kI, kD, iclip, rate, rate_keep, leak, dt, min_force, max_force;
+};
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float ssqrt(float x) { return sqrtf(fmaxf(x, 1e-12f)); }
+
+// Shepperd's method over the row-major entries m[9], as
+// pallas_vision.py:_quat_cols_from_R: same candidates, same dominant-diagonal
+// selection, w >= 0.
+__device__ __forceinline__ void quat_from_R(const float m[9], float q[4]) {
+  const float m00 = m[0], m01 = m[1], m02 = m[2], m10 = m[3], m11 = m[4], m12 = m[5];
+  const float m20 = m[6], m21 = m[7], m22 = m[8];
+  const float tr = m00 + m11 + m22;
+  const bool sel_w = tr >= m00 && tr >= m11 && tr >= m22;
+  const bool sel_x = m00 >= m11 && m00 >= m22;
+  const bool sel_y = m11 >= m22;
+  if (sel_w) {
+    const float sw = ssqrt(1.0f + tr);
+    const float iw = 0.5f / sw;
+    q[0] = 0.5f * sw;
+    q[1] = (m21 - m12) * iw;
+    q[2] = (m02 - m20) * iw;
+    q[3] = (m10 - m01) * iw;
+  } else if (sel_x) {
+    const float sx = ssqrt(1.0f + m00 - m11 - m22);
+    const float ix = 0.5f / sx;
+    q[0] = (m21 - m12) * ix;
+    q[1] = 0.5f * sx;
+    q[2] = (m01 + m10) * ix;
+    q[3] = (m02 + m20) * ix;
+  } else if (sel_y) {
+    const float sy = ssqrt(1.0f - m00 + m11 - m22);
+    const float iy = 0.5f / sy;
+    q[0] = (m02 - m20) * iy;
+    q[1] = (m01 + m10) * iy;
+    q[2] = 0.5f * sy;
+    q[3] = (m12 + m21) * iy;
+  } else {
+    const float sz = ssqrt(1.0f - m00 - m11 + m22);
+    const float iz = 0.5f / sz;
+    q[0] = (m10 - m01) * iz;
+    q[1] = (m02 + m20) * iz;
+    q[2] = (m12 + m21) * iz;
+    q[3] = 0.5f * sz;
+  }
+  const float sign = q[0] < 0.0f ? -1.0f : 1.0f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) q[j] = q[j] * sign;
+}
+
+// Camera pose from the drone pose (components.py:501-503): cam_R = R mount,
+// cam_pos = p + R rel, into cam[12].
+__device__ __forceinline__ void camera_pose(const ChaseConsts& p, const float s[], float cam[12],
+                                            float B[9]) {
+  const float qw = s[6], qx = s[7], qy = s[8], qz = s[9];
+  B[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+  B[1] = 2.0f * (qx * qy - qz * qw);
+  B[2] = 2.0f * (qx * qz + qy * qw);
+  B[3] = 2.0f * (qx * qy + qz * qw);
+  B[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
+  B[5] = 2.0f * (qy * qz - qx * qw);
+  B[6] = 2.0f * (qx * qz - qy * qw);
+  B[7] = 2.0f * (qy * qz + qx * qw);
+  B[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
+  const float* m = p.mount;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      cam[3 + 3 * r + c] = B[3 * r] * m[c] + B[3 * r + 1] * m[3 + c] + B[3 * r + 2] * m[6 + c];
+    cam[r] = s[r] + B[3 * r] * p.rel[0] + B[3 * r + 1] * p.rel[1] + B[3 * r + 2] * p.rel[2];
+  }
+}
+
+// The guidance pilot of one step (pallas_vision.py:554-631). s: the state
+// rows at the step's start, cam: its camera pose, (tx, ty, tz, tr): the
+// target, (cnt, su, sv): the mask count and pixel sums. Writes the override
+// ov = (qw, qx, qy, qz, |F|) and the next PID memory rows pid[4].
+__device__ __forceinline__ void chase_pilot(const ChaseConsts& p, const float s[],
+                                            const float cam[12], float tx, float ty, float tz,
+                                            float tr, float cnt, float su, float sv, int i,
+                                            float ov[5], float pid[4]) {
+  const float px = s[0], py = s[1], pz = s[2];
+  const float vx = s[3], vy = s[4], vz = s[5];
+  const float safe = fmaxf(cnt, 1.0f);
+  const float ucen = su / safe, vcen = sv / safe;
+  const bool visible = cnt > 0.5f;
+  const float theta = p.scan_w * static_cast<float>(i);
+  const float scan_fx = p.scan_s * cosf(theta);
+  const float scan_fy = p.scan_s * sinf(theta);
+
+  // ray through the centroid pixel, world frame, normalised
+  const float* R = cam + 3;
+  const float dcx = p.k00 * ucen + p.k02;
+  const float dcy = p.k11 * vcen + p.k12;
+  float dwx = R[0] * dcx + R[1] * dcy + R[2];
+  float dwy = R[3] * dcx + R[4] * dcy + R[5];
+  float dwz = R[6] * dcx + R[7] * dcy + R[8];
+  const float dn = fmaxf(sqrtf(dwx * dwx + dwy * dwy + dwz * dwz), 1e-12f);
+  dwx = dwx / dn;
+  dwy = dwy / dn;
+  dwz = dwz / dn;
+  // UWB-clamped SDF range (components.py:287)
+  const float ddx = px - tx, ddy = py - ty, ddz = pz - tz;
+  const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz) - tr;
+  const float measured = fminf(dist, p.uwb);
+  // PID on the distance; memory rows after the env rows
+  const float p_i = s[kEnvRows + 0], p_d = s[kEnvRows + 1];
+  const float p_e = s[kEnvRows + 2], p_s = s[kEnvRows + 3];
+  const float err = measured - p.keep;
+  const float integ = clampf(p.leak * p_i + err * p.dt, -p.iclip, p.iclip);
+  const float raw_d = clampf(p_s > 0.5f ? (err - p_e) / p.dt : 0.0f, -1.0f, 1.0f);
+  const float deriv = p.rate_keep * p_d + p.rate * raw_d;
+  const float mult = clampf(p.kP * err + p.kI * integ + p.kD * deriv, p.min_force, p.max_force);
+  // virtual drag (components.py:271-285)
+  const float vnorm = sqrtf(vx * vx + vy * vy + vz * vz);
+  const float inv_v = 1.0f / fmaxf(vnorm, 1e-12f);
+  const float cosang = (vx * dwx + vy * dwy + vz * dwz) * inv_v;
+  const float vc = p.drag * (-(cosang - 1.0f) / 2.0f) * vnorm;
+  const float vdx = -vc * vx, vdy = -vc * vy, vdz = -vc * vz;
+  // virtual ground-effect lift (components.py:286)
+  const float below = pz < p.tof ? 1.0f : 0.0f;
+  const float vlift = below * -(p.tof - pz) * p.lift * p.gz * (1.0f + fabsf(vz));
+  // F = mult dir + vdrag + vlift - gravity (components.py:292), else hover-scan
+  const float fx = visible ? mult * dwx + vdx : scan_fx;
+  const float fy = visible ? mult * dwy + vdy : scan_fy;
+  const float fz = visible ? mult * dwz + vdz + vlift - p.gz : -p.gz;
+  // the PID memory freezes while the target is out of frame
+  pid[0] = visible ? integ : p_i;
+  pid[1] = visible ? deriv : p_d;
+  pid[2] = visible ? err : p_e;
+  pid[3] = visible ? 1.0f : p_s;
+  // 'level' force basis (components.py:294-303): y = F x g, x = y x F
+  const float yx = fy * p.gz;
+  const float yy = -fx * p.gz;
+  const float xx = yy * fz;
+  const float xy = -yx * fz;
+  const float xz = yx * fy - yy * fx;
+  const float xn = fmaxf(sqrtf(xx * xx + xy * xy + xz * xz), 1e-12f);
+  const float yn = fmaxf(sqrtf(yx * yx + yy * yy), 1e-12f);
+  const float fn = fmaxf(sqrtf(fx * fx + fy * fy + fz * fz), 1e-12f);
+  const float Rd[9] = {xx / xn, yx / yn, fx / fn,
+                       xy / xn, yy / yn, fy / fn,
+                       xz / xn, 0.0f * xz, fz / fn};
+  quat_from_R(Rd, ov);
+  ov[4] = sqrtf(fx * fx + fy * fy + fz * fz);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <bool kDR, bool kWind>
+__global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
+    chase_kernel(StepConsts k, EnvConsts c, ChaseConsts p, int seed,
+                 const float* __restrict__ state, const float* __restrict__ world, int S,
+                 const float* __restrict__ cyl, int C, const float* __restrict__ dcam, int hw,
+                 int width, float* __restrict__ out, float* __restrict__ rsum_out,
+                 float* __restrict__ crash_out, float* __restrict__ contact_out, int n,
+                 int n_steps) {
+  extern __shared__ float sh[];
+  float* wm = sh;                   // (12, S) world rows
+  float* cm = wm + kWorldRows * S;  // (6, C) cylinder rows
+  float* cen = cm + 6 * C;          // (3, S) target centers of the step
+  __shared__ float cam[12];         // camera pose of the step
+  __shared__ float tgt[4];          // chased target: center, radius
+  __shared__ float part[3][kChaseBlock / 32];
+  fpyv::load_shared(wm, world, kWorldRows * S);
+  fpyv::load_shared(cm, cyl, 6 * C);
+
+  const int e = blockIdx.x;
+  const bool lead = threadIdx.x == 0;
+  const int warp = threadIdx.x >> 5, lane_in_warp = threadIdx.x & 31;
+  float s[kChaseRows];
+  if (lead) {
+#pragma unroll
+    for (int r = 0; r < kChaseRows; ++r) s[r] = state[r * n + e];
+  }
+  const uint32_t lane = fpyv::env_lane(e, seed);
+  const Cylinders cv{cm, C};
+  const float zero_act[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float rsum = 0.0f, crashes = 0.0f, contacts = 0.0f;
+  float B[9];
+  __syncthreads();
+
+  for (int i = 0; i < n_steps; ++i) {
+    if (lead) {
+      fpyv::target_centers(wm, S, i, cen, 0, 1);
+      camera_pose(p, s, cam, B);
+      tgt[0] = cen[0];
+      tgt[1] = cen[S];
+      tgt[2] = cen[2 * S];
+      tgt[3] = wm[3 * S];  // sphere 0, active whatever its mask says
+    }
+    __syncthreads();
+
+    // ---- target-only render: mask count and pixel sums
+    float cnt = 0.0f, su = 0.0f, sv = 0.0f;
+    for (int q = threadIdx.x; q < hw; q += kChaseBlock) {
+      const WorldRay r = fpyv::world_ray(cam, dcam[q], dcam[hw + q], dcam[2 * hw + q]);
+      const float t = fpyv::hit_sphere(r, fpyv::ray_a(r), tgt[0], tgt[1], tgt[2], tgt[3], true);
+      if (t < 1e30f) {
+        cnt += 1.0f;
+        su += static_cast<float>(q % width) + 0.5f;
+        sv += static_cast<float>(q / width) + 0.5f;
+      }
+    }
+    cnt = warp_sum(cnt);
+    su = warp_sum(su);
+    sv = warp_sum(sv);
+    if (lane_in_warp == 0) {
+      part[0][warp] = cnt;
+      part[1][warp] = su;
+      part[2][warp] = sv;
+    }
+    __syncthreads();
+    if (!lead) continue;
+
+    cnt = su = sv = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kChaseBlock / 32; ++w) {
+      cnt += part[0][w];
+      su += part[1][w];
+      sv += part[2][w];
+    }
+    float ov[5], pid[4];
+    chase_pilot(p, s, cam, tgt[0], tgt[1], tgt[2], tgt[3], cnt, su, sv, i, ov, pid);
+
+    const Spheres sp{cen, cen + S, cen + 2 * S, wm + 3 * S, wm + 4 * S, S};
+    const EnvPhysics ep{s[18], s[19], s[20], s[21], s[22], s[23]};
+    float phys[kStateRows];
+#pragma unroll
+    for (int r = 0; r < kStateRows; ++r) phys[r] = s[r];
+    fpyv::step_components<kDR, kWind, true>(k, sp, cv, phys, zero_act, ep, ov);
+
+    float dist;
+    bool reset;
+    rsum = rsum + fpyv::env_advance<kDR, kWind>(c, lane, i, s, phys, tgt[0], tgt[1], tgt[2],
+                                                0.0f, &dist, &reset);
+#pragma unroll
+    for (int r = 0; r < kPilotRows; ++r) s[kEnvRows + r] = reset ? 0.0f : pid[r];
+    const float crashed = phys[14];
+    crashes = crashes + crashed;
+    // contact: a crash within the target's collision shell (motor arm 0.127 m
+    // + motor radius; 0.3 m covers both)
+    contacts = contacts + crashed * (dist <= tgt[3] + 0.3f ? 1.0f : 0.0f);
+  }
+
+  if (lead) {
+#pragma unroll
+    for (int r = 0; r < kChaseRows; ++r) out[r * n + e] = s[r];
+    rsum_out[e] = rsum;
+    crash_out[e] = crashes;
+    contact_out[e] = contacts;
+  }
+}
+
+template <bool kDR, bool kWind>
+void launch_chase(const StepConsts& k, const EnvConsts& c, const ChaseConsts& p, int seed,
+                  const float* state, const float* world, int S, const float* cyl, int C,
+                  const float* dcam, int hw, int width, float* out, float* rsum, float* crashes,
+                  float* contacts, int n, int n_steps, cudaStream_t stream) {
+  const size_t shmem = sizeof(float) * (kWorldRows * S + 6 * C + 3 * S);
+  chase_kernel<kDR, kWind><<<n, kChaseBlock, shmem, stream>>>(
+      k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, rsum, crashes, contacts, n,
+      n_steps);
+}
+
+template <typename T>
+bool read_consts(const float* host, int count, T* out) {
+  if (count != static_cast<int>(sizeof(T) / sizeof(float))) return false;
+  std::memcpy(out, host, sizeof(T));
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the cudaError_t of the launch (0 on success).
+int fpyv_render_depth(const float* consts, int n_consts, const float* dcam, int hw,
+                      const float* cam, const float* wcol, int wcols, int wstride, float* out,
+                      int n, void* stream) {
+  RenderConsts rc;
+  if (!read_consts(consts, n_consts, &rc) || n < 1 || hw < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((hw + kRenderBlock - 1) / kRenderBlock, n < 65535 ? n : 65535);
+  const size_t shmem = sizeof(float) * (kCamCols + wcols);
+  render_depth_kernel<<<grid, kRenderBlock, shmem, static_cast<cudaStream_t>(stream)>>>(
+      rc, dcam, hw, cam, wcol, wcols, wstride, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fpyv_vision_env_rollout(const float* step_consts, int n_step_consts, const float* env_consts,
+                            int n_env_consts, const float* chase_consts, int n_chase_consts,
+                            int seed, const float* state, const float* world, int S,
+                            const float* cyl, int C, const float* dcam, int hw, int width,
+                            float* out, float* rsum, float* crashes, float* contacts, int n,
+                            int n_steps, int randomize, int use_wind, void* stream) {
+  StepConsts k;
+  EnvConsts c;
+  ChaseConsts p;
+  if (!read_consts(step_consts, n_step_consts, &k) || !read_consts(env_consts, n_env_consts, &c) ||
+      !read_consts(chase_consts, n_chase_consts, &p) || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FPYV_CHASE(DR, WIND)                                                                   \
+  launch_chase<DR, WIND>(k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, rsum, \
+                         crashes, contacts, n, n_steps, st)
+  if (randomize && use_wind)
+    FPYV_CHASE(true, true);
+  else if (randomize)
+    FPYV_CHASE(true, false);
+  else if (use_wind)
+    FPYV_CHASE(false, true);
+  else
+    FPYV_CHASE(false, false);
+#undef FPYV_CHASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -8,6 +8,11 @@ the port here, and back (:func:`to_numpy_tree` makes such dicts from
 either package's objects). Dtypes are kept (float32, int32, bool). The JAX
 state's PRNG ``key`` has no counterpart in the port (it draws from
 ``torch.Generator``s) and is dropped on the way in.
+
+Batched (per-env) worlds, whose every field carries a leading (N,) axis,
+go through :func:`world_from_numpy` and :func:`world_to_numpy` unchanged.
+The chase loop's result, (state, world, reward sums, crash counts, contact
+counts), goes through :func:`chase_to_numpy` and :func:`chase_from_numpy`.
 """
 
 from __future__ import annotations
@@ -40,13 +45,12 @@ def to_numpy_tree(obj) -> dict:
         if f.name == "key":
             continue
         v = getattr(obj, f.name)
-        if dataclasses.is_dataclass(v):
-            out[f.name] = to_numpy_tree(v)
-        elif isinstance(v, torch.Tensor):
-            out[f.name] = v.detach().cpu().numpy()
-        else:
-            out[f.name] = np.asarray(v)
+        out[f.name] = to_numpy_tree(v) if dataclasses.is_dataclass(v) else _numpy(v)
     return out
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def world_from_numpy(d: dict, device=None) -> World:
@@ -75,3 +79,23 @@ def acro_state_from_numpy(d: dict, device=None) -> AcroState:
 
 def acro_state_to_numpy(state: AcroState) -> dict:
     return to_numpy_tree(state)
+
+
+CHASE_FIELDS = ("state", "world", "reward_sum", "crashes", "contacts")
+
+
+def chase_to_numpy(result) -> dict:
+    """The 5-tuple of either package's chase rollout
+    (``fused_vision_env_rollout`` / ``pallas_vision_env_rollout``) -> a dict
+    of numpy arrays, state and world as nested dicts."""
+    state, world, *counts = result
+    return dict(state=to_numpy_tree(state), world=to_numpy_tree(world),
+                **{k: _numpy(v) for k, v in zip(CHASE_FIELDS[2:], counts)})
+
+
+def chase_from_numpy(d: dict, device=None):
+    """:func:`chase_to_numpy`'s dict -> (AcroState, World, reward sums,
+    crash counts, contact counts) on ``device`` (CUDA unless told)."""
+    device = resolve_device(device)
+    return (acro_state_from_numpy(d["state"], device), world_from_numpy(d["world"], device),
+            *(_tensor(d[k], device) for k in CHASE_FIELDS[2:]))

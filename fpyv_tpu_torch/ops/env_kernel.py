@@ -29,7 +29,7 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -234,12 +234,23 @@ def env_world_matrix(world: World) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor, action_mat: torch.Tensor,
-                          world_mat: torch.Tensor, n_steps: int, seed: int = 0,
-                          cyl_mat: Optional[torch.Tensor] = None):
+def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor,
+                          action_mat: Optional[torch.Tensor], world_mat: torch.Tensor,
+                          n_steps: int, seed: int = 0, cyl_mat: Optional[torch.Tensor] = None,
+                          action_fn: Optional[Callable] = None, n_pilot_rows: int = 0,
+                          extra_metrics: bool = False):
     """Plain version of K4, line by line as
-    ``fpyv_tpu.ops.pallas_env._env_loop_math``. Returns (state (24, N),
-    reward sum (N,), number of resets in the run)."""
+    ``fpyv_tpu.ops.pallas_env._env_loop_math``. Returns (state, reward sum
+    (N,), number of resets in the run), and with ``extra_metrics`` also the
+    per-env crash and target-contact counts (N,): a contact is a crash
+    within ``sphere_r[0] + 0.3`` of the chased target.
+
+    ``action_fn(i, st, centers, sphere_r) -> (acts, override, pilot)``
+    replaces the fixed ``action_mat`` (the chase pilot of K6): ``st`` is the
+    list of state rows, ``centers`` the step's (cx, cy, cz) sphere rows,
+    ``acts`` four action rows, ``override`` None or (qw, qx, qy, qz, |F|)
+    for the physics, and ``pilot`` the ``n_pilot_rows`` updated memory rows
+    that ride after the 24 env rows and are zeroed on reset."""
     k = step_constants(env.params)
     c = env_constants(env)
     n = state_mat.shape[1]
@@ -259,16 +270,28 @@ def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor, action_mat: tor
         cz = torch.where(has, world_mat[7], world_mat[2])
         return cx, cy, cz
 
+    if state_mat.shape[0] != ENV_ROWS + n_pilot_rows:
+        raise ValueError(f"state must have {ENV_ROWS + n_pilot_rows} rows")
+    if (action_fn is None) == (action_mat is None) or (n_pilot_rows and action_fn is None):
+        raise ValueError("pass exactly one of action_mat and action_fn; pilot rows need "
+                         "action_fn")
     st = list(state_mat.unbind(0))
-    acts = list(action_mat.unbind(0))
+    acts = None if action_mat is None else list(action_mat.unbind(0))
+    override = pilot = None
     rsum = torch.zeros(n, dtype=torch.float32, device=state_mat.device)
+    crashes = torch.zeros_like(rsum)
+    contacts = torch.zeros_like(rsum)
+    shell = sphere_r[0] + _f32(0.3)  # motor arm 0.127 m + motor radius
     resets = torch.zeros((), dtype=torch.int64, device=state_mat.device)
     for i in range(n_steps):
         cx, cy, cz = sphere_centers(i)
+        if action_fn is not None:
+            acts, override, pilot = action_fn(i, st, (cx, cy, cz), sphere_r)
         spheres = list(zip(cx, cy, cz, sphere_r, sphere_active))
         dr = (st[18], st[19], st[20]) if c.randomize else None
         wnd = (st[21], st[22], st[23]) if c.use_wind else None
-        phys = step_components(k, spheres, st[:STATE_ROWS], acts, cyls=cyls, dr=dr, wind=wnd)
+        phys = step_components(k, spheres, st[:STATE_ROWS], acts, cyls=cyls, dr=dr, wind=wnd,
+                               override=override)
 
         px, py, pz = phys[0], phys[1], phys[2]
         crashed = phys[14]
@@ -328,14 +351,18 @@ def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor, action_mat: tor
             rwx, rwy, rwz = (torch.full_like(crashed, w) for w in c.wind)
 
         zeros = torch.zeros_like(crashed)
-        live = phys[:14] + [zeros, t, dist, st[17] + reward] + st[18:24]
+        live = phys[:14] + [zeros, t, dist, st[17] + reward] + st[18:24] + list(pilot or [])
         reset = [rpx, rpy, rpz, rvx, rvy, rvz, rqw, rqx, rqy, rqz,
                  zeros, zeros, zeros, zeros, zeros, zeros, dist_r, zeros,
-                 rms, rds, rts, rwx, rwy, rwz]
+                 rms, rds, rts, rwx, rwy, rwz] + [zeros] * n_pilot_rows
         sel = done > 0.5
         st = [torch.where(sel, r, l) for r, l in zip(reset, live)]
         rsum = rsum + reward
+        crashes = crashes + crashed
+        contacts = contacts + crashed * (dist <= shell).to(torch.float32)
         resets = resets + sel.sum()
+    if extra_metrics:
+        return torch.stack(st), rsum, int(resets), crashes, contacts
     return torch.stack(st), rsum, int(resets)
 
 

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from fpyv_tpu_torch.device import resolve_device
+
 
 def mat3_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 3x3 product ``a @ b``, elementwise (see module note)."""
@@ -94,7 +96,8 @@ def rotmat_z(angle: torch.Tensor) -> torch.Tensor:
 
 
 def quat_identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
-    q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
+    """Identity quaternions on ``device`` (CUDA unless told)."""
+    q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=resolve_device(device))
     q[..., 0] = 1.0
     return q
 
@@ -275,7 +278,9 @@ def distance_point_to_plane(point: torch.Tensor, plane: torch.Tensor) -> torch.T
 def generate_circular_path(center, radius, resolution: int, dtype=torch.float32,
                            device=None) -> torch.Tensor:
     """``resolution`` points on a circle in the z=center_z plane
-    (helper_functions.py:151-153: ``linspace(0, 2pi, n+1)[:-1]``)."""
+    (helper_functions.py:151-153: ``linspace(0, 2pi, n+1)[:-1]``), on
+    ``device`` (CUDA unless told)."""
+    device = resolve_device(device)
     theta = torch.linspace(0.0, 2.0 * math.pi, resolution + 1, dtype=dtype,
                            device=device)[:-1]
     circle = torch.stack([torch.cos(theta) * radius, torch.sin(theta) * radius,

@@ -60,7 +60,7 @@ def collide(
         total_force, crashed = accumulate(d, n, world.cyl_active, total_force, crashed)
 
     dg, ng = ground_sdf(motor_points)
-    pen_g = (dg - motor_radius < 0) & world.has_ground
+    pen_g = (dg - motor_radius < 0) & world.has_ground[..., None]  # per-env worlds: (N,)
     vng = (velocity[..., None, :] * ng).sum(-1)
     fg = (-spring_constant * (dg - motor_radius) - damping_constant * vng)[..., None] * ng
     total_force = total_force + torch.where(pen_g[..., None], fg, 0.0).sum(-2)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from fpyv_tpu_torch.config import FpyvConfig
+from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.ops import rotations as rot
 from fpyv_tpu_torch.physics import collisions
 from fpyv_tpu_torch.physics.motor import ThrustCurve, default_thrust_curve, thrust_curve_from_csv
@@ -128,7 +129,7 @@ class DomainRand:
 
     @classmethod
     def nominal(cls, batch_shape=(), dtype=torch.float32, device=None) -> "DomainRand":
-        o = torch.ones(tuple(batch_shape), dtype=dtype, device=device)
+        o = torch.ones(tuple(batch_shape), dtype=dtype, device=resolve_device(device))
         return cls(mass_scale=o, drag_scale=o.clone(), thrust_scale=o.clone())
 
     @classmethod
@@ -138,7 +139,7 @@ class DomainRand:
         def u(r):
             x = torch.rand(tuple(batch_shape), generator=generator, dtype=dtype,
                            device=generator.device)
-            return (r[0] + x * (r[1] - r[0])).to(device)
+            return (r[0] + x * (r[1] - r[0])).to(resolve_device(device))
 
         return cls(mass_scale=u(mass_range), drag_scale=u(drag_range),
                    thrust_scale=u(thrust_range))
@@ -191,8 +192,9 @@ def calculate_drag(params: DroneParams, R, velocity, wind):
 
 
 def gravity_vector(params: DroneParams, dtype=torch.float32, device=None):
-    """[0, 0, -m g] (kinematics.py:41-45)."""
-    return torch.tensor([0.0, 0.0, -params.gravity * params.mass], dtype=dtype, device=device)
+    """[0, 0, -m g] (kinematics.py:41-45) on ``device`` (CUDA unless told)."""
+    return torch.tensor([0.0, 0.0, -params.gravity * params.mass], dtype=dtype,
+                        device=resolve_device(device))
 
 
 def action_to_rates_thrust(params: DroneParams, state: DroneState, action):

@@ -27,6 +27,8 @@ from dataclasses import dataclass
 
 import torch
 
+from fpyv_tpu_torch.device import resolve_device
+
 
 @dataclass
 class World:
@@ -73,9 +75,10 @@ class World:
 
 def empty_world(n_spheres: int = 0, n_cylinders: int = 0, n_gates: int = 0,
                 ground: bool = True, dtype=torch.float32, device=None) -> World:
-    """A fully-masked world with the given static capacities."""
+    """A fully-masked world with the given static capacities on ``device``
+    (CUDA unless told)."""
     S, C, G = max(n_spheres, 1), max(n_cylinders, 1), max(n_gates, 1)
-    kw = dict(device=device)
+    kw = dict(device=resolve_device(device))
 
     def mask(n, cap):
         m = torch.zeros((cap,), dtype=torch.bool, **kw)

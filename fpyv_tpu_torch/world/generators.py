@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from fpyv_tpu_torch.config import SimulatorConfig
+from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.physics.world import GATE_SHAPES, empty_world
 
 
@@ -209,7 +210,8 @@ class WorldSpec:
 
 
 def build_world(spec: WorldSpec, dtype=torch.float32, device=None):
-    """WorldSpec -> physics SoA World on ``device``."""
+    """WorldSpec -> physics SoA World on ``device`` (CUDA unless told)."""
+    device = resolve_device(device)
     S, C, G = len(spec.targets), len(spec.cylinders), len(spec.gates)
     w = empty_world(S, C, G, ground=spec.ground is not None, dtype=dtype, device=device)
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K2/K3/K4 against their plain PyTorch versions on
+"""The port's CUDA kernels K2-K6 against their plain PyTorch versions on
 the card. Imports neither JAX nor ``fpyv_tpu``, so it runs where only the
 port is installed:
 
@@ -11,7 +11,10 @@ Tolerances: the kernels are built with --fmad=false and without fast math,
 so they round as the plain versions do and differ by libm ulps at most
 (sinf/cosf/logf on the card against PyTorch's own CUDA kernels): 1e-5 after
 one step, 1e-4 after 64 chained steps, 1e-3 on 64-step reward sums. The step
-counter t, and with it every reset decision, is equal exactly.
+counter t, and with it every reset decision, is equal exactly. K5's depth
+levels are equal. K6 (the chase) holds pos 1e-4, velocity and attitude 1e-3
+and reward sums 2e-3 after K = 64 steps (tests/test_pallas_vision.py's
+tolerances); its t, crash and contact counts are equal.
 """
 
 import pytest
@@ -19,9 +22,11 @@ import torch
 
 from fpyv_tpu_torch.config import SimulatorConfig
 from fpyv_tpu_torch.envs.acro import AcroEnv
+from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv, default_vision_rig
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as ek
 from fpyv_tpu_torch.ops import step_kernel as sk
+from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
 from fpyv_tpu_torch.world.generators import WorldSpec, build_world
 
@@ -91,7 +96,14 @@ def test_cuda_entry_points_launch_and_count(cuda_device):
     rolled = sk.fused_rollout(env.params, st.drone, act, w, 8)
     out, w2, rsum = ek.fused_env_rollout(env, st, act, w, 8, seed=1)
     torch.cuda.synchronize()
-    assert _build.launch_counts == {"drone_step": 1, "rollout": 1, "env_rollout": 1}
+    for renderer in ("raycast_pallas", "raycast"):  # both names run K5
+        _, obs = VisionAcroEnv(acro=env, renderer=renderer, target_only=False).reset_batched(
+            torch.Generator().manual_seed(1), w, None, 64)
+    chased = vk.fused_vision_env_rollout(env, st, w, 4, seed=1)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {"drone_step": 1, "rollout": 1, "env_rollout": 1,
+                                    "render_depth": 2, "vision_env_rollout": 1}
+    assert obs["pixels"].is_cuda and chased[0].drone.pos.is_cuda
     assert stepped.pos.is_cuda and rolled.pos.is_cuda and out.drone.pos.is_cuda
     assert rsum.shape == (64,) and torch.isfinite(rsum).all()
     assert int(w2.sphere_path_count[0] - w.sphere_path_count[0]) == 8
@@ -108,3 +120,64 @@ def test_cuda_launches_refuse_bad_inputs(cuda_device):
         sk.launch_drone_step(env.params, s.T.contiguous().T, a, sph)
     with pytest.raises(ValueError, match="on cpu"):
         sk.launch_drone_step(env.params, s, a.cpu(), sph)
+    # a CUDA state into a call whose world was built on the CPU
+    cpu_world = env.default_world("cpu")
+    with pytest.raises(ValueError, match="on cpu"):
+        vk.fused_vision_env_rollout(env, st, cpu_world, 4)
+    with pytest.raises(ValueError, match="on cpu"):
+        vk.fused_render_depth(default_vision_rig(), st.drone.pos, torch.eye(3, device=cuda_device)
+                              .expand(64, 3, 3), cpu_world)
+
+
+def _random_world(device, n, seed):
+    from fpyv_tpu_torch.world.randomize import sample_worlds
+
+    return sample_worlds(torch.Generator().manual_seed(seed), n, n_spheres=2, n_cylinders=4,
+                         device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,res", [("params", (96, 72)), ("batched", (96, 72)),
+                                       ("params", (640, 480))])
+def test_cuda_k5_matches_plain(cuda_device, world, res):
+    env, w, st, _ = _bank(cuda_device, "params", n=64)
+    if world == "batched":
+        w = _random_world(cuda_device, 64, 3)
+    rig = vk.CameraRig(resolution=res)
+    cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(st)
+    cfg = vk.RenderConfig.for_world(w, 25.0)
+    dcam = torch.from_numpy(vk.flat_dcam(rig)).to(cuda_device)
+    cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(w)
+    out = vk.launch_render_depth(cfg, dcam, cam, wcol)
+    torch.cuda.synchronize()
+    ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+    assert (ref > 0).float().mean() > 0.05  # premise: the scene is in view
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,kw", [("default", dict(max_episode_steps=20)),
+                                      ("params", dict(randomize=True, wind=(1.0, 0.5, 0.0),
+                                                      wind_scale=0.5))])
+def test_cuda_k6_matches_plain_across_resets(cuda_device, world, kw):
+    env, w, st, _ = _bank(cuda_device, world, n=64, **kw)
+    rig = default_vision_rig()
+    s = vk.chase_state_matrix(st)
+    wm = ek.env_world_matrix(w)
+    cyl = sk.cylinder_matrix(w) if sk.world_has_cylinders(w) else None
+    out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s, wm, 64, rig, seed=3,
+                                                                cyl_mat=cyl)
+    torch.cuda.synchronize()
+    ref, ref_rsum, resets, ref_crashes, ref_contacts = vk.vision_env_rollout_reference(
+        env, s, wm, 64, rig, seed=3, cyl_mat=cyl)
+    if world == "default":
+        assert resets >= 64  # premise: every env reset
+    torch.testing.assert_close(out[15], ref[15], atol=0, rtol=0)  # t: resets equal
+    torch.testing.assert_close(crashes, ref_crashes, atol=0, rtol=0)
+    torch.testing.assert_close(contacts, ref_contacts, atol=0, rtol=0)
+    torch.testing.assert_close(out[0:3], ref[0:3], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out[3:6], ref[3:6], atol=1e-3, rtol=0)
+    qerr = torch.minimum((out[6:10] - ref[6:10]).abs().amax(0), (out[6:10] + ref[6:10]).abs()
+                         .amax(0))
+    assert qerr.max().item() < 1e-3
+    torch.testing.assert_close(rsum, ref_rsum, atol=2e-3, rtol=0)

@@ -63,7 +63,8 @@ CASES = {
         _t(m, VEC), _t(m, np.concatenate([AXIS, VEC[:, :1]], -1))),
     # host-side helper: float64 here (the test process runs JAX with x64 on)
     "generate_circular_path": lambda m: m.generate_circular_path(
-        [1.0, 2.0, 3.0], 25.0, 40, **({"dtype": torch.float64} if m is trot else {})),
+        [1.0, 2.0, 3.0], 25.0, 40,
+        **({"dtype": torch.float64, "device": "cpu"} if m is trot else {})),
 }
 
 
@@ -89,7 +90,7 @@ def test_rotation_function_matches_jax(name):
 
 
 def test_quat_identity():
-    np.testing.assert_array_equal(trot.quat_identity((3,)).numpy(),
+    np.testing.assert_array_equal(trot.quat_identity((3,), device="cpu").numpy(),
                                   np.asarray(jrot.quat_identity((3,))))
 
 

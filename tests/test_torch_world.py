@@ -89,7 +89,7 @@ def test_ground_sdf_and_gate_plane():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     track = {"count": 4, "radius": 12, "gate_size": 5, "gate_resolution": 17}
     jworld = jbuild(JSpec.from_config(JSim(track=track), seed=3), dtype=jnp.float32)
-    tworld = tbuild(TSpec.from_config(TSim(track=track), seed=3))
+    tworld = tbuild(TSpec.from_config(TSim(track=track), seed=3), device="cpu")
     a = tw.gate_plane_distance(tworld.gate_pos, tworld.gate_rotmat, torch.from_numpy(p))
     b = jw.gate_plane_distance(jworld.gate_pos, jworld.gate_rotmat, jnp.asarray(p))
     np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
@@ -120,3 +120,22 @@ def test_collide_matches_jax():
     assert np.asarray(cb).any() and not np.asarray(cb).all()  # premise: mixed contacts
     np.testing.assert_array_equal(ca.numpy(), np.asarray(cb))
     np.testing.assert_allclose(fa.numpy(), np.asarray(fb), atol=1e-3)
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """``device=None`` means CUDA: with no CUDA device the world builders
+    and the other public constructors raise instead of building on the CPU."""
+    from fpyv_tpu_torch.envs.acro import AcroEnv
+    from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv
+    from fpyv_tpu_torch.physics.drone import DomainRand, DroneParams, gravity_vector
+    from fpyv_tpu_torch.world.randomize import sample_worlds
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = TSpec.from_config(TSim(), seed=2)
+    for build in (lambda: tbuild(spec), tw.empty_world, DomainRand.nominal,
+                  lambda: gravity_vector(DroneParams()), AcroEnv().default_world,
+                  lambda: sample_worlds(torch.Generator(), 4),
+                  lambda: VisionAcroEnv().make_world(spec)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert tbuild(spec, device="cpu").sphere_center.device.type == "cpu"
