@@ -43,7 +43,23 @@ each:
    largest error against the plain version, its time and the plain
    version's at the main path's shapes, and the least time the card could
    take for the same work. K6 is held against its plain version once more
-   at the chase's timed shape (1024 envs, K = 64), at phase 6's tolerances.
+   at the chase's timed shape (1024 envs, K = 64), at phase 6's tolerances;
+11. K7 (the policy rollout) against ``policy_vision_rollout_reference``:
+   (a) float32 weights, 64 envs, 96x72, ``sample_worlds`` with 1 sphere and
+   4 cylinders, K = 16, 8-step episodes (every env resets): frames, crash
+   flags and t equal, the rest at the CPU tests' tolerances; (b) bf16 at
+   the timed shape, 1024 envs and K = 32, teacher-forced: the plain policy
+   on the kernel's own frames and proprio gives its mean and value within
+   1e-3, the plain env on the kernel's own actions its proprio, rewards,
+   crash flags and final state (that plain run, timed, is K7's plain_ms);
+12. the trainer main path with its counters at 0: ``train_vision`` at the
+   default recipe and ``bench.py::measure_vision_trainer``'s shape (1024
+   envs, 30 iterations, ``scan_chunk=10``): one K7 launch an iteration, K5
+   for the bootstrap frames, finite losses and rewards, trained env-steps/s
+   (first chunk left out); one iteration split with CUDA events into the
+   rollout (K7 + the bootstrap frame) and the learner, and traced under
+   ``torch.profiler``: the device's busy share and its top kernels. K7's
+   row joins the ``kernels`` line: its time at 1024 envs and K = 32.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -54,17 +70,22 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
+from fpyv_tpu_torch.apps.train import make_vision_trainer, train_vision
 from fpyv_tpu_torch.config import SimulatorConfig
 from fpyv_tpu_torch.envs.acro import AcroEnv, vector_reset
 from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv, default_vision_rig
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as ek
+from fpyv_tpu_torch.models.policy import PixelActorCritic
+from fpyv_tpu_torch.ops import policy_kernel as pk
 from fpyv_tpu_torch.ops import step_kernel as sk
 from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
@@ -80,8 +101,13 @@ CHASE_SECONDS = 10.0
 PROBE_ENVS = (4096, 16384, 65536, 262144, 1048576)
 PROBE_K = 1000
 
+TRAIN_ITERS = 30  # bench.py::measure_vision_trainer: 1024 envs, 30 iterations, chunks of 10
+TRAIN_CHUNK = 10
+K7_STEPS = 32  # the trainer's T
+
 # H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # bf16 tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
 # float32 step tolerances as the port's CPU tests state them: one step
@@ -98,16 +124,24 @@ ROWS = {"pos": slice(0, 3), "vel": slice(3, 6), "att": slice(6, 10), "rates": sl
 # the chase (tests/test_pallas_vision.py:287-294): pos 1e-4, vel/att 1e-3
 TOL_CHASE = dict(TOL_ENV, pos=1e-4, vel=1e-3, att=1e-3)
 
+# K7 against its plain version (tests/test_torch_policy_kernel.py): float32
+# weights across resets; bf16 teacher-forced, mean and value within 1e-3
+TOL_K7 = {"extra": 1e-6, "action": 5e-5, "reward": 1e-5, "value": 5e-5, "log_prob": 1e-4,
+          "state": 1e-3}
+TOL_K7_BF16 = {"action": 1e-3, "value": 1e-3, "reward": 1e-5, "state": 1e-4}
+
 SOURCES = {"drone_step": "fpyv_tpu_torch/csrc/step_kernels.cu",
            "rollout": "fpyv_tpu_torch/csrc/step_kernels.cu",
            "env_rollout": "fpyv_tpu_torch/csrc/env_kernels.cu",
            "render_depth": "fpyv_tpu_torch/csrc/vision_kernels.cu",
-           "vision_env_rollout": "fpyv_tpu_torch/csrc/vision_kernels.cu"}
+           "vision_env_rollout": "fpyv_tpu_torch/csrc/vision_kernels.cu",
+           "policy_vision_rollout": "fpyv_tpu_torch/csrc/policy_kernels.cu"}
 REPLACES = {"drone_step": "fpyv_tpu/ops/pallas_step.py:313",
             "rollout": "fpyv_tpu/ops/pallas_step.py:326",
             "env_rollout": "fpyv_tpu/ops/pallas_env.py:325",
             "render_depth": "fpyv_tpu/ops/pallas_vision.py:297",
-            "vision_env_rollout": "fpyv_tpu/ops/pallas_vision.py:661"}
+            "vision_env_rollout": "fpyv_tpu/ops/pallas_vision.py:661",
+           "policy_vision_rollout": "fpyv_tpu/ops/pallas_policy.py:194"}
 
 
 def log(msg: str) -> None:
@@ -256,9 +290,46 @@ def chase_step_ops(hw: int, S: int, C: int, dr: bool, wind: bool) -> int:
     return hw * 54 + 130 + 102 + 15 * S + 182 + step_ops(S, C, dr=dr, wind=wind) + 24
 
 
-def bound(ops: float, nbytes: float):
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float, tensor_flops: float = 0.0):
+    """(least ms, what sets it): float32 operations over the float32 peak,
+    bf16 tensor-core flops over the tensor-core peak, bytes over HBM's rate."""
+    t_ops = max(ops / PEAK_F32_OPS, tensor_flops / PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def policy_setup(dev, gen, n: int, max_steps: int, bf16: bool):
+    """The trainer's env (quat, no DR or wind) in per-env sample_worlds with
+    1 sphere and 4 cylinders, a reset bank as the (N, 18) matrix, and a
+    Flax-initialised net whose std samples and whose mean head steers."""
+    env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=max_steps)
+    worlds = sample_worlds(gen, n, n_spheres=1, n_cylinders=4, device=dev)
+    st, _ = vector_reset(env, gen, n, worlds)
+    net = PixelActorCritic(action_dim=4, n_patches=108, torso="patch", prepatched=True,
+                           compute_dtype=torch.bfloat16 if bf16 else None,
+                           device=dev).init_params(gen)
+    with torch.no_grad():
+        net.log_std.fill_(-0.3)
+        net.pi_mean.weight.mul_(30.0)
+    w = pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+    cfg = vk.RenderConfig.for_world(worlds, 25.0)
+    return env, worlds, pk.acro_state_to_cols(st), w, cfg, pk.policy_world_cols(worlds, n)
+
+
+def max_err(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
+    e = (a - b).abs().max().item()
+    if not e <= tol:
+        raise AssertionError(f"K7: {name} max abs err {e} > {tol}")
+    return e
+
+
+def policy_ops(hw: int, cfg, n_patches: int, S: int, C: int):
+    """(float32 operations, bf16 flops) per env-step of K7: the render
+    (render_ops per pixel), physics, sampling and env; the actor's products
+    as tensor-core work: patch embed, fc over its real rows, heads."""
+    ops = hw * render_ops(cfg, 0) + step_ops(S, C) + 2 * 13 + 20 + 30 + 41
+    flops = 2 * (n_patches * 64 * 128 + (n_patches * 128 + 5) * 256 + 256 * 5)
+    return ops, flops
 
 
 def main() -> int:
@@ -272,7 +343,7 @@ def main() -> int:
                          check=True, timeout=60).stdout.strip().splitlines()[0]
 
     # ---- 1. device + build ------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
     regs = [ln.strip() for ln in str(_build.build_info.get("log", "")).splitlines()
@@ -525,8 +596,8 @@ def main() -> int:
     S = world.num_spheres
     kernels = []
 
-    def row(name, ms, plain_ms, ops, nbytes):
-        bms, by = bound(ops, nbytes)
+    def row(name, ms, plain_ms, ops, nbytes, tensor_flops=0.0):
+        bms, by = bound(ops, nbytes, tensor_flops)
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": errors[name], "ms": ms, "plain_ms": plain_ms,
@@ -577,11 +648,122 @@ def main() -> int:
         N_VISION * K * chase_step_ops(hw, S, 0, False, False)
         + chase_resets * reset_ops(False, False),
         (N_VISION * (28 + 28 + 3) + 12 * S + 3 * hw) * 4)
+    # ---- 11. K7 against its plain version ----------------------------------------------
+    # (a) float32 weights across resets
+    env8, pworlds, cols, w32, pcfg, pwcol = policy_setup(dev, gen, 64, 8, bf16=False)
+    out = pk.launch_policy_vision_rollout(env8, rig, cols, pwcol, pcfg, w32, 16, 5)
+    torch.cuda.synchronize()
+    ref = pk.policy_vision_rollout_reference(env8, rig, cols, pwcol, pcfg, w32, 16, 5)
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[2][..., 5], ref[2][..., 5])
+            and torch.equal(out[3][:, 14:16], ref[3][:, 14:16])):
+        raise AssertionError("K7 (float32): frames, crash flags or t differ")
+    resets_a = int((out[3][:, 15] < 16).sum().item())
+    if resets_a < 64:
+        raise AssertionError(f"K7 (float32): expected every env to reset, saw {resets_a}")
+    e7 = max(max_err("extra", out[1], ref[1], TOL_K7["extra"]),
+             max_err("action", out[2][..., :4], ref[2][..., :4], TOL_K7["action"]),
+             max_err("reward", out[2][..., 4], ref[2][..., 4], TOL_K7["reward"]),
+             max_err("value", out[2][..., 6], ref[2][..., 6], TOL_K7["value"]),
+             max_err("log_prob", out[2][..., 7], ref[2][..., 7], TOL_K7["log_prob"]),
+             max_err("state", out[3], ref[3], TOL_K7["state"]))
+    log(f"K7 policy_vision_rollout (float32, N=64, K=16, 8-step episodes, every env reset, "
+        f"{int(ref[2][..., 5].sum().item())} crashes): frames, crash flags and t equal, max abs "
+        f"err {e7}")
+    # (b) bf16 at the timed shape, teacher-forced
+    envk, kworlds, kcols, wbf, kcfg, kwcol = policy_setup(dev, gen, N_VISION, 1000, bf16=True)
+    frames, extra, aux, kstate = pk.launch_policy_vision_rollout(envk, rig, kcols, kwcol, kcfg,
+                                                                 wbf, K7_STEPS, 9)
+    torch.cuda.synchronize()
+    # timed once: this run is K7's plain_ms (forcing the actions changes no work)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    rf, rex, raux, rstate = pk.policy_vision_rollout_reference(
+        envk, rig, kcols, kwcol, kcfg, wbf, K7_STEPS, 9, forced_actions=aux[..., :4])
+    ev[1].record()
+    torch.cuda.synchronize()
+    k7_plain_ms = ev[0].elapsed_time(ev[1])
+    if not (torch.equal(frames, rf) and torch.equal(aux[..., 5], raux[..., 5])):
+        raise AssertionError("K7 (bf16, teacher-forced): frames or crash flags differ")
+    k7_crashes = int(aux[..., 5].sum().item())
+    eb = max(max_err("bf16 extra", extra, rex, TOL_K7["extra"]),
+             max_err("bf16 action", aux[..., :4], raux[..., :4], TOL_K7_BF16["action"]),
+             max_err("bf16 value", aux[..., 6], raux[..., 6], TOL_K7_BF16["value"]),
+             max_err("bf16 reward", aux[..., 4], raux[..., 4], TOL_K7_BF16["reward"]),
+             max_err("bf16 state", kstate, rstate, TOL_K7_BF16["state"]))
+    errors["policy_vision_rollout"] = max(e7, eb)
+    if not (torch.isfinite(aux).all() and torch.isfinite(kstate).all()):
+        raise AssertionError("K7: non-finite outputs")
+    log(f"K7 policy_vision_rollout (bf16, N={N_VISION}, K={K7_STEPS}, teacher-forced, "
+        f"{k7_crashes} crashes): frames and crash flags equal, max abs err {eb}")
+
+    # ---- 12. trainer main path, counters from 0 ---------------------------------------
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "train_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_vision(num_envs=N_VISION, num_iterations=TRAIN_ITERS, scan_chunk=TRAIN_CHUNK,
+                       print_every=0, log_dir=str(log_dir))
+    train_s = time.perf_counter() - t0
+    got = {}
+    read_counts("trainer main path", ("policy_vision_rollout", "render_depth"), got)
+    if got["policy_vision_rollout"] != TRAIN_ITERS or got["render_depth"] < TRAIN_ITERS:
+        raise AssertionError(f"trainer: expected {TRAIN_ITERS} K7 launches and at least as many "
+                             f"K5 launches, saw {got}")
+    launches["policy_vision_rollout"] = got["policy_vision_rollout"]
+    rows = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != TRAIN_ITERS or not all(math.isfinite(r["loss"]) and
+                                           math.isfinite(r["mean_reward"]) for r in rows):
+        raise AssertionError("trainer: missing or non-finite losses or rewards")
+    log(f"trainer main path: {res.steps_per_second:.6e} trained env-steps/s (N={N_VISION}, "
+        f"T={K7_STEPS}, {TRAIN_ITERS} iterations in chunks of {TRAIN_CHUNK}, first chunk left "
+        f"out; {train_s:.3f} s in all), reward {res.mean_reward_first:.6f} -> "
+        f"{res.mean_reward_last:.6f}, last loss {rows[-1]['loss']:.6f}, on {smi}")
+    trainer = make_vision_trainer(num_envs=N_VISION)
+    tstate, _ = trainer.train_iteration(trainer.state)  # warm-up
+    split = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        trainer.rollout_fn(tstate)
+        ev[1].record()
+        ev[2].record()
+        tstate, _ = trainer.train_iteration(tstate)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append((ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])))
+    roll_ms, iter_ms = min(r for r, _ in split), min(i for _, i in split)
+    log(f"trainer iteration split (CUDA events, best of 3): rollout (K7 + bootstrap frame) "
+        f"{roll_ms:.6f} ms, whole iteration {iter_ms:.6f} ms, learner {iter_ms - roll_ms:.6f} "
+        f"ms; all {[[round(a, 6), round(b, 6)] for a, b in split]}")
+
+    def one_iteration():
+        nonlocal tstate
+        tstate, _ = trainer.train_iteration(tstate)
+        torch.cuda.synchronize()
+
+    busy, top = device_busy(one_iteration, top=8)
+    log(f"trainer trace: device busy {busy:.6f} of one iteration's wall time; top kernels by "
+        f"device time (ms): {json.dumps(top)}")
+
+    # K7's row: 1024 envs, K = 32, bf16, at the trainer's shapes
+    n_patches = hw // 64
+    ms = cuda_ms(lambda: pk.launch_policy_vision_rollout(envk, rig, kcols, kwcol, kcfg, wbf,
+                                                         K7_STEPS, 9), 10)
+    ops, flops = policy_ops(hw, kcfg, n_patches, kcfg.n_spheres, kcfg.n_cylinders)
+    wbytes = sum(t.numel() * t.element_size() for t in (wbf.we, wbf.be, wbf.bf, wbf.wm, wbf.bm,
+                                                        wbf.std))
+    wbytes += (n_patches * 128 + 5) * wbf.wf.shape[1] * wbf.wf.element_size()
+    k7_bytes = (K7_STEPS * N_VISION * (hw + 2 * 8 * 4) + N_VISION * (2 * 18 + kcfg.n_cols) * 4
+                + 3 * hw * 4 + wbytes)
+    row("policy_vision_rollout", ms, k7_plain_ms, N_VISION * K7_STEPS * ops + k7_crashes
+        * reset_ops(False, False), k7_bytes, N_VISION * K7_STEPS * flops)
+
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "
             f"{kr['bound_ms']:.6f} ms by {kr['bound_by']}), {kr['launches']} main-path "
             f"launches, max abs err {kr['max_abs_err']}")
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke.py took {time.perf_counter() - t_start:.3f} s")
     log(f"card: {smi}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                           "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,204 @@
+"""Pixel PPO trainer (mirrors ``fpyv_tpu.apps.train``'s ``train_vision``
+on its kernel rollout path).
+
+``train_vision`` trains ``PixelActorCritic(torso="patch")`` on per-env
+randomized worlds with the policy-in-kernel rollout: every iteration is one
+launch of K7 (render, actor, sample, env step for T steps over all envs,
+:mod:`fpyv_tpu_torch.ops.policy_kernel`), the bootstrap frame through K5,
+then the PyTorch PPO learner (:mod:`fpyv_tpu_torch.rl.ppo`). Checkpoints
+hold the full state (params, Adam, env matrix, last obs, generator), so a
+resumed run continues exactly as an unbroken one.
+
+Not ported yet, and refused with a ValueError instead of the JAX trainer's
+silent fallback to its scan rollout (ROADMAP queue 1): the scan rollout, the
+conv torso, the target-only and splat views, multi-device training, the
+world curriculum and Adam's bf16 first moment. ``train_acro`` (the state
+learner) waits in the same queue.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fpyv_tpu_torch.device import resolve_device
+from fpyv_tpu_torch.envs.acro import AcroEnv
+from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv
+from fpyv_tpu_torch.models.policy import PixelActorCritic
+from fpyv_tpu_torch.ops.policy_kernel import PP, acro_state_to_cols, make_kernel_vision_ppo_parts
+from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.rl.ppo import PpoConfig, make_ppo, scan_train
+from fpyv_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from fpyv_tpu_torch.utils.metrics import MetricsLogger
+from fpyv_tpu_torch.utils.profiling import Throughput
+
+
+@dataclass
+class TrainResult:
+    iterations: int
+    mean_reward_first: float
+    mean_reward_last: float
+    steps_per_second: float
+
+
+def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, start_iter,
+                scan_chunk, log_dir, print_every, checkpoint_dir,
+                checkpoint_every) -> TrainResult:
+    """The chunked host loop: ``scan_chunk`` iterations, then ONE
+    device-to-host read of their infos, which also ends the chunk's device
+    work before the meter counts it. The first chunk is left out of the
+    rate (warm-up)."""
+    logger = MetricsLogger(log_dir, print_every=print_every)
+    meter = Throughput()
+    first_reward = last_reward = float("nan")
+    it = start_iter
+    end = start_iter + num_iterations
+    first_chunk = True
+    while it < end:
+        n = min(scan_chunk, end - it)
+        state, infos = scan_train(train_iteration, state, n)
+        keys = list(infos)
+        host = torch.stack([infos[k].to(torch.float32) for k in keys]).cpu().numpy()
+        rewards = host[keys.index("mean_reward")].astype(np.float64)
+        if first_chunk:
+            first_reward = float(rewards[0])
+            meter.reset()
+            first_chunk = False
+        else:
+            meter.add(num_envs * num_steps * n)
+        last_reward = float(rewards[-1])
+        for i in range(n):
+            logger.log(it + i, {k: host[j, i] for j, k in enumerate(keys)})
+        it += n
+        if checkpoint_dir and (it % checkpoint_every == 0 or it == end):
+            save_checkpoint(checkpoint_dir, it, state)
+    logger.close()
+    return TrainResult(iterations=num_iterations, mean_reward_first=first_reward,
+                       mean_reward_last=last_reward, steps_per_second=meter.rate())
+
+
+def _generators(seed: int):
+    """Four independent CPU generators (worlds, env resets, net init,
+    training), as the JAX trainer splits its key four ways."""
+    seeds = np.random.SeedSequence(seed).generate_state(4)
+    return [torch.Generator().manual_seed(int(s)) for s in seeds]
+
+
+@dataclass
+class VisionTrainer:
+    """The kernel-rollout trainer's pieces: the PPO state (the net, Adam,
+    the (N, 18) env matrix, the bootstrap obs, the generator), one
+    iteration, and the rollout alone (one K7 launch and the bootstrap
+    frame), which the iteration runs first."""
+
+    state: object
+    train_iteration: object
+    rollout_fn: object
+
+
+def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0,
+                        randomize_worlds: bool = True, rig=None, learning_rate: float = 3e-4,
+                        num_minibatches: int = 8, update_epochs: int = 2,
+                        compute_dtype: str = "bf16", patch_pool: int = 1,
+                        kernel_exact_logprob: bool = False, device=None) -> VisionTrainer:
+    """train_vision's kernel path, ready to run: the env bank in its worlds,
+    the net, the PPO learner around the K7 rollout (arguments as
+    :func:`train_vision`'s)."""
+    if compute_dtype not in ("bf16", "f32"):
+        raise ValueError(f"compute_dtype must be 'bf16' or 'f32', got {compute_dtype!r}")
+    cdt = torch.bfloat16 if compute_dtype == "bf16" else None
+    device = resolve_device(device)
+    # the kernel integrates attitude as a quaternion; the obs carries none
+    venv = VisionAcroEnv(acro=AcroEnv(params=DroneParams(att_mode="quat")), renderer="raycast",
+                         target_only=False, pixel_dtype="u8",
+                         **({"rig": rig} if rig is not None else {}))
+    g_world, g_env, g_net, g_train = _generators(seed)
+    if randomize_worlds:
+        worlds, bank = venv.make_randomized_worlds(g_world, num_envs, device=device)
+    else:
+        worlds, bank = venv.make_world(device=device)
+    W, H = venv.rig.resolution
+    net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PP, torso="patch",
+                           prepatched=True, compute_dtype=cdt, patch_pool=patch_pool,
+                           device=device).init_params(g_net)
+    config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
+                       num_minibatches=num_minibatches, update_epochs=update_epochs)
+    apply_fn, make_rollout_fn, obs_from_cols = make_kernel_vision_ppo_parts(
+        venv, worlds, net, num_envs)
+    env_state, _ = venv.reset_batched(g_env, worlds, bank, num_envs)
+    cols = acro_state_to_cols(env_state)
+    rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
+                                 exact_logprob=kernel_exact_logprob)
+    init, train_iteration = make_ppo(apply_fn, None, config, rollout_fn=rollout_fn)
+    return VisionTrainer(init(net, cols, obs_from_cols(cols), g_train), train_iteration,
+                         rollout_fn)
+
+
+def _not_ported(what: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet (ROADMAP queue 1); the port trains the "
+                      "kernel rollout: torso='patch', renderer='raycast', one device")
+
+
+def train_vision(
+    num_envs: int = 1024,
+    num_iterations: int = 100,
+    num_steps: int = 32,
+    seed: int = 0,
+    distributed: bool = False,
+    log_dir: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 50,
+    resume: bool = False,
+    randomize_worlds: bool = True,
+    rig=None,
+    learning_rate: float = 3e-4,
+    print_every: int = 10,
+    scan_chunk: int = 20,
+    num_minibatches: int = 8,
+    update_epochs: int = 2,
+    renderer: str = "raycast",
+    target_only: bool = False,
+    compute_dtype: str = "bf16",  # actor compute: "bf16" | "f32"
+    torso: str = "patch",
+    curriculum_iters: Optional[int] = None,
+    patch_pool: int = 1,  # consecutive patch embeddings mixed per fc block
+    adam_mu_dtype: Optional[str] = None,
+    kernel_exact_logprob: bool = False,  # True recomputes log_prob/value with
+    #   the learner's forward over the stored obs (epoch-0 ratio exactly 1);
+    #   False trusts the kernel's own, as the JAX trainer's default
+    rollout: str = "auto",  # "auto" and "kernel": the K7 rollout
+    device=None,  # CUDA unless "cpu" (the kernels' plain versions)
+) -> TrainResult:
+    """Pixels-to-action PPO on ``VisionAcroEnv``'s full-world depth view:
+    every env in its own randomized world (``randomize_worlds``), or all in
+    params.yaml's world. Returns the rewards of the first and last
+    iteration and the trained env-steps/s after the first chunk."""
+    if rollout not in ("auto", "kernel"):
+        raise _not_ported(f"rollout={rollout!r}")
+    if torso != "patch":
+        raise _not_ported(f"torso={torso!r}")
+    if renderer not in ("raycast", "raycast_pallas") or target_only:
+        raise _not_ported(f"renderer={renderer!r}, target_only={target_only}")
+    if distributed:
+        raise _not_ported("distributed=True")
+    if curriculum_iters:
+        raise _not_ported("curriculum_iters")
+    if adam_mu_dtype is not None:
+        raise _not_ported(f"adam_mu_dtype={adam_mu_dtype!r}")
+    trainer = make_vision_trainer(
+        num_envs=num_envs, num_steps=num_steps, seed=seed, randomize_worlds=randomize_worlds,
+        rig=rig, learning_rate=learning_rate, num_minibatches=num_minibatches,
+        update_epochs=update_epochs, compute_dtype=compute_dtype, patch_pool=patch_pool,
+        kernel_exact_logprob=kernel_exact_logprob, device=device)
+    state, start_iter = trainer.state, 0
+    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
+        start_iter = latest_step(checkpoint_dir)
+        state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
+        print(f"resumed from checkpoint at iteration {start_iter}")
+    return _train_loop(state, trainer.train_iteration, num_envs=num_envs, num_steps=num_steps,
+                       num_iterations=num_iterations, start_iter=start_iter,
+                       scan_chunk=scan_chunk, log_dir=log_dir, print_every=print_every,
+                       checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)

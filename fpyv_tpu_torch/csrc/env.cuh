@@ -74,6 +74,38 @@ __device__ __forceinline__ void target_centers(const float* wm, int S, int i, fl
   }
 }
 
+// The auto-reset pose of iteration i (AcroEnv._sample_drone distributions,
+// draws 0..9) into s[0..9]: position, velocity, attitude quaternion.
+// Returns the distance from the fresh position to (tx, ty, tz).
+__device__ __forceinline__ float reset_pose(const EnvConsts& c, uint32_t lane, int i, float tx,
+                                            float ty, float tz, float s[]) {
+  const uint32_t base = (static_cast<uint32_t>(i) + 1u) * 32u;
+  const float rpx = c.pos_low[0] + uniform01(lane, base + 0u) * c.pos_span[0];
+  const float rpy = c.pos_low[1] + uniform01(lane, base + 1u) * c.pos_span[1];
+  const float rpz = c.pos_low[2] + uniform01(lane, base + 2u) * c.pos_span[2];
+  float z0, z1, z2, unused;
+  normal_pair(lane, base + 3u, base + 4u, &z0, &z1);
+  normal_pair(lane, base + 5u, base + 6u, &z2, &unused);
+  const float h0 = (2.0f * uniform01(lane, base + 7u) - 1.0f) * c.half_ypr;
+  const float h1 = (2.0f * uniform01(lane, base + 8u) - 1.0f) * c.half_ypr;
+  const float h2 = (2.0f * uniform01(lane, base + 9u) - 1.0f) * c.half_ypr;
+  const float cr = cosf(h0), sr = sinf(h0);
+  const float cp = cosf(h1), sp_ = sinf(h1);
+  const float cyw = cosf(h2), syw = sinf(h2);
+  s[0] = rpx;
+  s[1] = rpy;
+  s[2] = rpz;
+  s[3] = c.vel_scale * z0;
+  s[4] = c.vel_scale * z1;
+  s[5] = c.vel_scale * z2;
+  s[6] = cyw * cp * cr + syw * sp_ * sr;  // rot.euler_to_quat
+  s[7] = cyw * cp * sr - syw * sp_ * cr;
+  s[8] = cyw * sp_ * cr + syw * cp * sr;
+  s[9] = syw * cp * cr - cyw * sp_ * sr;
+  const float rdx = rpx - tx, rdy = rpy - ty, rdz = rpz - tz;
+  return sqrtf(rdx * rdx + rdy * rdy + rdz * rdz);
+}
+
 // Everything of an env step after the physics: s holds the 24 env rows of
 // the step's start and receives the next ones, phys the physics rows after
 // the step, (tx, ty, tz) the chased target. Returns the reward; *dist gets
@@ -94,37 +126,15 @@ __device__ __forceinline__ float env_advance(const EnvConsts& c, uint32_t lane, 
   *reset = done > 0.5f;
 
   if (*reset) {
-    // ---- auto-reset (AcroEnv._sample_drone distributions), draws 0..16
+    // ---- auto-reset: the pose (draws 0..9), then DR and gusts (10..16)
     const uint32_t base = (static_cast<uint32_t>(i) + 1u) * 32u;
-    const float rpx = c.pos_low[0] + uniform01(lane, base + 0u) * c.pos_span[0];
-    const float rpy = c.pos_low[1] + uniform01(lane, base + 1u) * c.pos_span[1];
-    const float rpz = c.pos_low[2] + uniform01(lane, base + 2u) * c.pos_span[2];
-    float z0, z1, z2, unused;
-    normal_pair(lane, base + 3u, base + 4u, &z0, &z1);
-    normal_pair(lane, base + 5u, base + 6u, &z2, &unused);
-    const float h0 = (2.0f * uniform01(lane, base + 7u) - 1.0f) * c.half_ypr;
-    const float h1 = (2.0f * uniform01(lane, base + 8u) - 1.0f) * c.half_ypr;
-    const float h2 = (2.0f * uniform01(lane, base + 9u) - 1.0f) * c.half_ypr;
-    const float cr = cosf(h0), sr = sinf(h0);
-    const float cp = cosf(h1), sp_ = sinf(h1);
-    const float cyw = cosf(h2), syw = sinf(h2);
-    s[0] = rpx;
-    s[1] = rpy;
-    s[2] = rpz;
-    s[3] = c.vel_scale * z0;
-    s[4] = c.vel_scale * z1;
-    s[5] = c.vel_scale * z2;
-    s[6] = cyw * cp * cr + syw * sp_ * sr;  // rot.euler_to_quat
-    s[7] = cyw * cp * sr - syw * sp_ * cr;
-    s[8] = cyw * sp_ * cr + syw * cp * sr;
-    s[9] = syw * cp * cr - cyw * sp_ * sr;
+    s[16] = reset_pose(c, lane, i, tx, ty, tz, s);
     s[10] = s[11] = s[12] = 0.0f;  // rates
     s[13] = 0.0f;                  // thrust
     s[14] = 0.0f;                  // done
     s[15] = 0.0f;                  // t
-    const float rdx = rpx - tx, rdy = rpy - ty, rdz = rpz - tz;
-    s[16] = sqrtf(rdx * rdx + rdy * rdy + rdz * rdz);
-    s[17] = 0.0f;  // episode_return
+    s[17] = 0.0f;                  // episode_return
+    float unused;
     if (kDR) {
       s[18] = c.mass_lo + uniform01(lane, base + 10u) * c.mass_span;
       s[19] = c.drag_lo + uniform01(lane, base + 11u) * c.drag_span;

@@ -65,11 +65,14 @@ __device__ __forceinline__ float lt0(float x) { return x < 0.0f ? 1.0f : 0.0f; }
 // (qw, qx, qy, qz, |F|): the attitude quaternion is replaced before any use
 // and |F| is the applied thrust, while the rates and thrust memories still
 // update from act. Without it (K2-K4) the code is what it was.
+// accel_z, when given, receives the world-z acceleration of the step
+// (_step_components' with_accel_z, which K7 keeps as a state column).
 template <bool kDR, bool kWind, bool kOverride = false>
 __device__ __forceinline__ void step_components(const StepConsts& k, const Spheres& sph,
                                                 const Cylinders& cyl, float s[kStateRows],
                                                 const float act[4], const EnvPhysics& ep,
-                                                const float* ov = nullptr) {
+                                                const float* ov = nullptr,
+                                                float* accel_z = nullptr) {
   const float px = s[0], py = s[1], pz = s[2];
   const float vx = s[3], vy = s[4], vz = s[5];
   float qw = s[6], qx = s[7], qy = s[8], qz = s[9];
@@ -194,6 +197,7 @@ __device__ __forceinline__ void step_components(const StepConsts& k, const Spher
   const float acx = (tx + dx + cfx) * inv_m;
   const float acy = (ty + dy + cfy) * inv_m;
   const float acz = (tz + dz + gz + cfz) * inv_m;
+  if (accel_z != nullptr) *accel_z = acz;
 
   // --- integrate: position first (kinematics.py:21-22)
   s[0] = px + vx * k.dt;

@@ -1,0 +1,382 @@
+// K7: the policy-in-kernel vision rollout of the pixel PPO trainer.
+//
+// Replaces fpyv_tpu/ops/pallas_policy.py:_kernel (pallas_policy_vision_rollout).
+// Per step and env: render the full-world depth view in patch-major pixel
+// order (render.cuh), run the patch actor (patch embed (64 -> 128) + ReLU,
+// optional pooled mixer (pool*128 -> 128) + ReLU, fc (NP/pool*128 + 5 ->
+// hidden) + ReLU, float32 mean and value heads), sample the Gaussian action
+// with the counter RNG (draws 20..23) with its log-prob, then the AcroEnv
+// step of the in-kernel trainer: K1 against the env's own world, static
+// targets, the reward to sphere 0, truncation at t + 1 >= max_steps and the
+// auto-reset (draws 0..9, env.cuh). Frames leave as uint8 levels, proprio
+// and [a0..a3, reward, crashed, value, log_prob] as float32 rows per step.
+//
+// Layout: one block of 256 threads owns kEnvs = 8 envs for all K steps (the
+// TPU's (env block, step) grid with its VMEM carry becomes a loop over
+// steps); the last block may hold fewer. Thread e < 8 holds env e's 18
+// state columns in registers and runs its camera, sampling and env step.
+// All threads render the block's frames into shared memory (one byte a
+// pixel), then the actor runs patch group by patch group: the group's
+// embeddings of the 8 envs go to shared memory and thread h adds the
+// group's 128 rows of the fc weights into its 8 float32 accumulators of
+// hidden unit h, so the (8, 13952) fc input never exists.
+// The fc weights (7.1 MB in bf16) do not fit in shared memory; every block
+// streams them from L2 once per step. Per-env worlds: each env's world
+// columns sit in shared memory for the render, and a copy in the row layout
+// of physics.cuh for K1, so K1 itself is unchanged.
+//
+// Products are written by hand on the CUDA cores, no library. Rounding
+// follows Flax's Dense(dtype=bf16) and the Pallas kernel: float32
+// accumulation in row order, rounded to bf16, the bias added in bf16, ReLU;
+// the policy input is bf16(level / 255.0f) by true division. A bf16 product
+// is exact in float32, so its accumulation uses an explicit fma; float32
+// weights accumulate by multiply then add (built with --fmad=false), as
+// the plain version in ops/policy_kernel.py does, so the two agree bit for
+// bit. The RNG lane is the global env index.
+//
+// Bound on the H100 at 1024 envs, 96x72, K = 32, per-env worlds of 1 sphere
+// and 4 cylinders: the render's ~270 counted float32 operations a pixel
+// (6.1e10 a launch, 0.92 ms at 67 TFLOP/s) set it; the products, 2 (NP*64*128
+// + (NP*128 + 5)*256 + 256*5) = 8.9e6 flops an env-step, would take 0.29 ms
+// on the bf16 tensor cores. This first version runs the products on the
+// CUDA cores as well (2.9e11 flops, at least 4.3 ms at the float32 rate):
+// right first, the tensor cores are a later step (PERF.md, ROADMAP 2b).
+#include "env.cuh"
+#include "render.cuh"
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+#include <cstring>
+
+using fpyv::Cylinders;
+using fpyv::EnvConsts;
+using fpyv::EnvPhysics;
+using fpyv::kStateRows;
+using fpyv::RenderConsts;
+using fpyv::Spheres;
+using fpyv::StepConsts;
+using fpyv::WorldRay;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kEnvs = 8;    // envs a block owns
+constexpr int kRows = 18;   // 0:3 pos, 3:6 vel, 6:10 quat, 10:13 rates, 13 thrust,
+                            // 14 done, 15 t, 16 prev_dist, 17 accel_z
+constexpr int kPatch = 64;  // pixels of an 8x8 patch
+constexpr int kEmbed = 128;
+constexpr int kOut = 8;     // extra and aux columns
+constexpr int kCam = 16;
+
+// Field order must match PolicyConstants.as_array() in ops/policy_kernel.py.
+struct PolicyConsts {
+  EnvConsts env;  // K4's reward and reset scalars (no DR, no wind here)
+  float inv_max_rates, inv_30, inv_max_force;
+  float log_2pi2;  // 2 log(2 pi): the four action dims' normaliser
+  float mount[9], rel[3];
+};
+
+__device__ __forceinline__ float wload(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float wload(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Rounding to the compute type (identity in float32).
+template <bool kBF16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kBF16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+
+// acc + x w. In bf16 both factors carry 8 significant bits, so the product
+// is exact and one fma rounds as multiply-then-add does.
+template <bool kBF16>
+__device__ __forceinline__ float madd(float acc, float x, float w) {
+  if constexpr (kBF16) {
+    return __fmaf_rn(x, w, acc);
+  } else {
+    return acc + x * w;
+  }
+}
+
+template <typename W, bool kBF16>
+__global__ void __launch_bounds__(kThreads)
+    policy_vision_rollout_kernel(StepConsts k, PolicyConsts c, RenderConsts rc, int seed,
+                                 const float* __restrict__ state_in,
+                                 const float* __restrict__ wcol, int wcols,
+                                 const float* __restrict__ dcam, int hw,
+                                 const W* __restrict__ we, const W* __restrict__ be,
+                                 const W* __restrict__ wp, const W* __restrict__ bp,
+                                 const W* __restrict__ wf, const W* __restrict__ bfc, int hidden,
+                                 const float* __restrict__ wm, const float* __restrict__ bm,
+                                 const float* __restrict__ stdv, int pool,
+                                 uint8_t* __restrict__ frames, float* __restrict__ extra,
+                                 float* __restrict__ aux, float* __restrict__ state_out, int n,
+                                 int n_steps) {
+  const int S = static_cast<int>(rc.n_spheres);
+  const int C = static_cast<int>(rc.n_cylinders);
+  const int G = static_cast<int>(rc.n_gates);
+  const int NPG = hw / kPatch / pool;  // patch groups the fc sees
+  const int prow = 5 * S + 6 * C;      // one env's physics rows
+  constexpr int E = kEnvs;
+
+  extern __shared__ float sh[];
+  float* lut = sh;                     // (256,) bf16(level / 255)
+  float* cam_s = lut + 256;            // (E, 16)
+  float* prop_s = cam_s + E * kCam;    // (E, 8) proprio
+  float* mm_s = prop_s + E * kOut;     // (E, 8) heads
+  float* ws = mm_s + E * kOut;         // (E, wcols) world columns
+  float* phys_s = ws + E * wcols;      // (E, 5S + 6C) physics rows
+  float* fcin_s = phys_s + E * prow;   // (128, E) the fc input of one group
+  float* h_s = fcin_s + kEmbed * E;    // (E, hidden)
+  float* emb_s = h_s + E * hidden;     // (E * pool, 128) when pool > 1
+  uint8_t* frame_s = reinterpret_cast<uint8_t*>(emb_s + (pool > 1 ? E * pool * kEmbed : 0));
+
+  const int tid = threadIdx.x;
+  const int env0 = blockIdx.x * E;
+  const int ne = min(E, n - env0);  // envs of this block (the last may hold fewer)
+  const bool owner = tid < ne;      // thread e owns env env0 + e
+  for (int j = tid; j < 256; j += kThreads) lut[j] = rnd<kBF16>(static_cast<float>(j) / 255.0f);
+  // rows of absent envs stay zero: the actor runs all E, their outputs go nowhere
+  for (int j = tid; j < E * kOut; j += kThreads) prop_s[j] = 0.0f;
+  for (int j = ne * hw + tid; j < E * hw; j += kThreads) frame_s[j] = 0;
+  fpyv::load_shared(ws, wcol + static_cast<size_t>(env0) * wcols, ne * wcols);
+  __syncthreads();
+
+  float s[kRows];
+  uint32_t lane = 0u;
+  if (owner) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = state_in[static_cast<size_t>(env0 + tid) * kRows + r];
+    lane = fpyv::env_lane(env0 + tid, seed);
+    const float* w = ws + tid * wcols;
+    float* pr = phys_s + tid * prow;
+    for (int i = 0; i < S; ++i)
+      for (int f = 0; f < 5; ++f) pr[f * S + i] = w[5 * i + f];
+    for (int i = 0; i < C; ++i)
+      for (int f = 0; f < 6; ++f) pr[5 * S + f * C + i] = w[5 * S + 6 * i + f];
+  }
+
+  for (int step = 0; step < n_steps; ++step) {
+    const size_t row0 = static_cast<size_t>(step) * n + env0;  // (step, env0) output row
+    if (owner) {
+      fpyv::camera_pose(c.mount, c.rel, s, cam_s + tid * kCam);
+      float* pp = prop_s + tid * kOut;
+      pp[0] = s[10] * c.inv_max_rates;
+      pp[1] = s[11] * c.inv_max_rates;
+      pp[2] = s[12] * c.inv_max_rates;
+      pp[3] = s[17] * c.inv_30;
+      pp[4] = s[13] * c.inv_max_force;
+      pp[5] = pp[6] = pp[7] = 0.0f;
+      float* ex = extra + (row0 + tid) * kOut;
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) ex[j] = pp[j];
+    }
+    __syncthreads();
+
+    // ---- render the block's frames, patch-major pixel order
+    for (int idx = tid; idx < ne * hw; idx += kThreads) {
+      const int e = idx / hw, q = idx - e * hw;
+      const WorldRay r = fpyv::world_ray(cam_s + e * kCam, dcam[q], dcam[hw + q], dcam[2 * hw + q]);
+      const float t = fpyv::render_t(rc, S, C, G, r, ws + e * wcols);
+      const uint8_t lev = static_cast<uint8_t>(fpyv::depth_level(t, rc.max_depth));
+      frame_s[idx] = lev;
+      frames[(row0 + e) * hw + q] = lev;
+    }
+    __syncthreads();
+
+    // ---- actor, one patch group at a time
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.0f;
+    for (int g = 0; g < NPG; ++g) {
+      // patch embed of the group's pool patches: row r = e * pool + j
+      for (int idx = tid; idx < E * pool * kEmbed; idx += kThreads) {
+        const int o = idx & (kEmbed - 1), r = idx >> 7;
+        const int e = r / pool, j = r - e * pool;
+        const uint8_t* px = frame_s + e * hw + (g * pool + j) * kPatch;
+        float a = 0.0f;
+        for (int kk = 0; kk < kPatch; ++kk) a = madd<kBF16>(a, lut[px[kk]], wload(we + kk * kEmbed + o));
+        const float v = fmaxf(rnd<kBF16>(rnd<kBF16>(a) + wload(be + o)), 0.0f);
+        if (pool == 1) {
+          fcin_s[o * E + e] = v;
+        } else {
+          emb_s[r * kEmbed + o] = v;
+        }
+      }
+      __syncthreads();
+      if (pool > 1) {  // pooled mixer over the group's concatenated embeddings
+        for (int idx = tid; idx < E * kEmbed; idx += kThreads) {
+          const int o = idx & (kEmbed - 1), e = idx >> 7;
+          const float* x = emb_s + e * pool * kEmbed;
+          float a = 0.0f;
+          for (int i = 0; i < pool * kEmbed; ++i) a = madd<kBF16>(a, x[i], wload(wp + i * kEmbed + o));
+          fcin_s[o * E + e] = fmaxf(rnd<kBF16>(rnd<kBF16>(a) + wload(bp + o)), 0.0f);
+        }
+        __syncthreads();
+      }
+      if (tid < hidden) {  // the group's 128 fc rows into hidden unit tid
+        const W* wrow = wf + static_cast<size_t>(g) * kEmbed * hidden + tid;
+        for (int i = 0; i < kEmbed; ++i) {
+          const float w = wload(wrow + static_cast<size_t>(i) * hidden);
+          const float* x = fcin_s + i * E;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[e] = madd<kBF16>(acc[e], x[e], w);
+        }
+      }
+      __syncthreads();
+    }
+    if (tid < hidden) {  // proprio rows, bias, ReLU
+      const W* wrow = wf + static_cast<size_t>(NPG) * kEmbed * hidden + tid;
+      for (int i = 0; i < 5; ++i) {
+        const float w = wload(wrow + static_cast<size_t>(i) * hidden);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = madd<kBF16>(acc[e], rnd<kBF16>(prop_s[e * kOut + i]), w);
+      }
+      const float b = wload(bfc + tid);
+#pragma unroll
+      for (int e = 0; e < E; ++e) h_s[e * hidden + tid] = fmaxf(rnd<kBF16>(rnd<kBF16>(acc[e]) + b), 0.0f);
+    }
+    __syncthreads();
+    if (tid < E * 5) {  // float32 heads: cols 0:4 the mean, 4 the value
+      const int e = tid / 5, col = tid - 5 * (tid / 5);
+      const float* h = h_s + e * hidden;
+      float a = 0.0f;
+      for (int j = 0; j < hidden; ++j) a = a + h[j] * wm[j * kOut + col];
+      mm_s[e * kOut + col] = a + bm[col];
+    }
+    __syncthreads();
+
+    // ---- sample, env step, auto-reset
+    if (owner) {
+      const float* mm = mm_s + tid * kOut;
+      const uint32_t base = (static_cast<uint32_t>(step) + 1u) * 32u;
+      float z0, z1, z2, z3;
+      fpyv::normal_pair(lane, base + 20u, base + 21u, &z0, &z1);
+      fpyv::normal_pair(lane, base + 22u, base + 23u, &z2, &z3);
+      const float act[4] = {mm[0] + stdv[0] * z0, mm[1] + stdv[1] * z1, mm[2] + stdv[2] * z2,
+                            mm[3] + stdv[3] * z3};
+      // the z draws are the normalised residuals of the sample
+      const float log_prob = -0.5f * (z0 * z0 + z1 * z1 + z2 * z2 + z3 * z3) -
+                             (stdv[4] + stdv[5] + stdv[6] + stdv[7]) - c.log_2pi2;
+
+      const float* pr = phys_s + tid * prow;
+      const Spheres sp{pr, pr + S, pr + 2 * S, pr + 3 * S, pr + 4 * S, S};
+      const Cylinders cv{pr + 5 * S, C};
+      float phys[kStateRows];
+#pragma unroll
+      for (int r = 0; r < kStateRows; ++r) phys[r] = s[r];
+      float az;
+      fpyv::step_components<false, false>(k, sp, cv, phys, act, EnvPhysics{}, nullptr, &az);
+
+      const float* tgt = ws + tid * wcols;  // sphere 0 of the env's own world
+      const float crashed = phys[14];
+      const float ddx = phys[0] - tgt[0], ddy = phys[1] - tgt[1], ddz = phys[2] - tgt[2];
+      const float dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+      const float rates_pen = act[0] * act[0] + act[1] * act[1] + act[2] * act[2];
+      const float reward = c.env.w_progress * (s[16] - dist) + c.env.w_alive -
+                           c.env.w_crash * crashed - c.env.w_rates * rates_pen;
+      const float t_next = s[15] + 1.0f;
+      const float truncated = t_next >= c.env.max_steps ? 1.0f : 0.0f;
+      const float done = fmaxf(crashed, truncated);
+      float* ax = aux + (row0 + tid) * kOut;
+      ax[0] = act[0];
+      ax[1] = act[1];
+      ax[2] = act[2];
+      ax[3] = act[3];
+      ax[4] = reward;
+      ax[5] = crashed;
+      ax[6] = mm[4];
+      ax[7] = log_prob;
+      if (done > 0.5f) {
+        s[16] = fpyv::reset_pose(c.env, lane, step, tgt[0], tgt[1], tgt[2], s);
+#pragma unroll
+        for (int r = 10; r < 16; ++r) s[r] = 0.0f;
+        s[17] = 0.0f;
+      } else {
+#pragma unroll
+        for (int r = 0; r < 14; ++r) s[r] = phys[r];
+        s[14] = 0.0f;
+        s[15] = t_next;
+        s[16] = dist;
+        s[17] = az;
+      }
+    }
+  }
+  if (owner) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) state_out[static_cast<size_t>(env0 + tid) * kRows + r] = s[r];
+  }
+}
+
+template <typename T>
+bool read_consts(const float* host, int count, T* out) {
+  if (count != static_cast<int>(sizeof(T) / sizeof(float))) return false;
+  std::memcpy(out, host, sizeof(T));
+  return true;
+}
+
+template <typename W, bool kBF16>
+int launch(const StepConsts& k, const PolicyConsts& c, const RenderConsts& rc, int seed,
+           const float* state, const float* wcol, int wcols, const float* dcam, int hw,
+           const void* we, const void* be, const void* wp, const void* bp, const void* wf,
+           const void* bfc, int hidden, const float* wm, const float* bm, const float* stdv,
+           int pool, uint8_t* frames, float* extra, float* aux, float* state_out, int n,
+           int n_steps, cudaStream_t stream) {
+  const int S = static_cast<int>(rc.n_spheres), C = static_cast<int>(rc.n_cylinders);
+  const size_t floats = 256 + static_cast<size_t>(kEnvs) * (kCam + 2 * kOut + wcols + 5 * S +
+                                                           6 * C + kEmbed + hidden +
+                                                           (pool > 1 ? pool * kEmbed : 0));
+  const size_t shmem = floats * sizeof(float) + static_cast<size_t>(kEnvs) * hw;
+  auto kernel = policy_vision_rollout_kernel<W, kBF16>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(shmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n + kEnvs - 1) / kEnvs, kThreads, shmem, stream>>>(
+      k, c, rc, seed, state, wcol, wcols, dcam, hw, static_cast<const W*>(we),
+      static_cast<const W*>(be), static_cast<const W*>(wp), static_cast<const W*>(bp),
+      static_cast<const W*>(wf), static_cast<const W*>(bfc), hidden, wm, bm, stdv, pool, frames,
+      extra, aux, state_out, n, n_steps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the cudaError_t of the launch (0 on success).
+int fpyv_policy_vision_rollout(const float* step_consts, int n_step_consts,
+                               const float* policy_consts, int n_policy_consts,
+                               const float* render_consts, int n_render_consts, int seed,
+                               const float* state, const float* wcol, int wcols,
+                               const float* dcam, int hw, const void* we, const void* be,
+                               const void* wp, const void* bp, const void* wf, const void* bfc,
+                               int hidden, const float* wm, const float* bm, const float* stdv,
+                               int pool, int bf16, uint8_t* frames, float* extra, float* aux,
+                               float* state_out, int n, int n_steps, void* stream) {
+  StepConsts k;
+  PolicyConsts c;
+  RenderConsts rc;
+  if (!read_consts(step_consts, n_step_consts, &k) ||
+      !read_consts(policy_consts, n_policy_consts, &c) ||
+      !read_consts(render_consts, n_render_consts, &rc) || n < 1 || hw % kPatch || pool < 1 ||
+      (hw / kPatch) % pool || hidden < 1 || hidden > kThreads || rc.n_spheres < 1.0f ||
+      n_steps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16, true>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp,
+                                       bp, wf, bfc, hidden, wm, bm, stdv, pool, frames, extra,
+                                       aux, state_out, n, n_steps, st);
+  return launch<float, false>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp, bp, wf,
+                              bfc, hidden, wm, bm, stdv, pool, frames, extra, aux, state_out, n,
+                              n_steps, st);
+}
+
+}  // extern "C"

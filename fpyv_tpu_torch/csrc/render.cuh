@@ -4,8 +4,8 @@
 // Follows fpyv_tpu/ops/pallas_vision.py:_render_tiles and _encode_levels
 // operation by operation (built with --fmad=false, no fast math), so a
 // kernel's levels equal the plain PyTorch version's. Shared by K5 (the
-// batched render), K6 (the chase render of the target alone) and the later
-// policy kernels that render inside their step.
+// batched render), K6 (the chase render of the target alone) and K7 (the
+// policy rollout, which renders the full world inside its step).
 //
 // Camera: cam[0..2] position, cam[3..11] the camera-to-world rotation, row
 // major. The pixel's camera-frame direction (dx, dy, dz) comes from the
@@ -120,12 +120,85 @@ __device__ __forceinline__ float hit_gate(const WorldRay& r, const float* g, flo
   return ok ? t : kBig;
 }
 
+// The uint8 depth level floor(255 (1 - t / max)), clipped to [0, 255], as
+// an integer-valued float (pallas_policy.py:267-269).
+__device__ __forceinline__ float depth_level(float t, float max_depth) {
+  const float tc = fminf(t, max_depth);
+  const float lev = floorf(255.0f * (1.0f - tc / max_depth));
+  return fminf(fmaxf(lev, 0.0f), 255.0f);
+}
+
 // Depth level as a float in [0, 1]: floor(255 (1 - t / max)) / 255, with the
 // clip of _encode_levels.
 __device__ __forceinline__ float encode_level(float t, float max_depth) {
-  const float tc = fminf(t, max_depth);
-  const float lev = floorf(255.0f * (1.0f - tc / max_depth));
-  return fminf(fmaxf(lev, 0.0f), 255.0f) * (1.0f / 255.0f);
+  return depth_level(t, max_depth) * (1.0f / 255.0f);
+}
+
+// Field order must match RenderConfig.as_array() in ops/vision_kernel.py.
+struct RenderConsts {
+  float n_spheres, n_cylinders, n_gates;
+  float spheres, cylinders, ground, gates;  // 1.0 where included
+  float max_depth;
+  float clip_ground, ground_extent;
+  float frame_width;
+};
+
+// Nearest t over the world columns w of one env (layout of
+// pallas_vision.py:_world_cols): spheres s*5 + [cx cy cz r active],
+// cylinders 5S + c*6 + [cx cy cz r h active], gates 5S + 6C + g*15 + [...],
+// ground last.
+__device__ __forceinline__ float render_t(const RenderConsts& rc, int S, int C, int G,
+                                          const WorldRay& r, const float* w) {
+  float t_min = kBig;
+  if (rc.spheres > 0.5f) {
+    const float a = ray_a(r);
+    for (int s = 0; s < S; ++s) {
+      const float* q = w + 5 * s;
+      t_min = fminf(t_min, hit_sphere(r, a, q[0], q[1], q[2], q[3], q[4] > 0.5f));
+    }
+  }
+  if (rc.cylinders > 0.5f) {
+    for (int c = 0; c < C; ++c) {
+      const float* q = w + 5 * S + 6 * c;
+      t_min = fminf(t_min, hit_cylinder(r, q[0], q[1], q[2], q[3], q[4], q[5] > 0.5f));
+    }
+  }
+  const float* gates = w + 5 * S + 6 * C;
+  if (rc.ground > 0.5f) {
+    t_min = fminf(t_min, hit_ground(r, gates[15 * G] > 0.5f, rc.clip_ground > 0.5f,
+                                    rc.ground_extent));
+  }
+  if (rc.gates > 0.5f) {
+    for (int g = 0; g < G; ++g) t_min = fminf(t_min, hit_gate(r, gates + 15 * g, rc.frame_width));
+  }
+  return t_min;
+}
+
+// Camera pose from the drone state s (position s[0..2], quaternion s[6..9];
+// components.py:501-503): cam_R = R mount, cam_pos = p + R rel, into
+// cam[0..11]. mount is the row-major mount rotation, rel the camera
+// position on the frame.
+__device__ __forceinline__ void camera_pose(const float mount[9], const float rel[3],
+                                            const float s[], float cam[12]) {
+  const float qw = s[6], qx = s[7], qy = s[8], qz = s[9];
+  float B[9];  // the body rotation R, row major
+  B[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+  B[1] = 2.0f * (qx * qy - qz * qw);
+  B[2] = 2.0f * (qx * qz + qy * qw);
+  B[3] = 2.0f * (qx * qy + qz * qw);
+  B[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
+  B[5] = 2.0f * (qy * qz - qx * qw);
+  B[6] = 2.0f * (qx * qz - qy * qw);
+  B[7] = 2.0f * (qy * qz + qx * qw);
+  B[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      cam[3 + 3 * r + c] =
+          B[3 * r] * mount[c] + B[3 * r + 1] * mount[3 + c] + B[3 * r + 2] * mount[6 + c];
+    cam[r] = s[r] + B[3 * r] * rel[0] + B[3 * r + 1] * rel[1] + B[3 * r + 2] * rel[2];
+  }
 }
 
 }  // namespace fpyv

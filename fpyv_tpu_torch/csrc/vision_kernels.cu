@@ -44,6 +44,7 @@ using fpyv::EnvPhysics;
 using fpyv::kEnvRows;
 using fpyv::kStateRows;
 using fpyv::kWorldRows;
+using fpyv::RenderConsts;
 using fpyv::Spheres;
 using fpyv::StepConsts;
 using fpyv::WorldRay;
@@ -56,47 +57,6 @@ namespace {
 
 constexpr int kRenderBlock = 256;
 constexpr int kCamCols = 16;
-
-// Field order must match RenderConstants.as_array() in ops/vision_kernel.py.
-struct RenderConsts {
-  float n_spheres, n_cylinders, n_gates;
-  float spheres, cylinders, ground, gates;  // 1.0 where included
-  float max_depth;
-  float clip_ground, ground_extent;
-  float frame_width;
-};
-
-// Nearest t over the world columns w of one env (layout of
-// pallas_vision.py:_world_cols): spheres s*5 + [cx cy cz r active],
-// cylinders 5S + c*6 + [cx cy cz r h active], gates 5S + 6C + g*15 + [...],
-// ground last.
-__device__ __forceinline__ float render_t(const RenderConsts& rc, int S, int C, int G,
-                                          const WorldRay& r, const float* w) {
-  float t_min = fpyv::kBig;
-  if (rc.spheres > 0.5f) {
-    const float a = fpyv::ray_a(r);
-    for (int s = 0; s < S; ++s) {
-      const float* q = w + 5 * s;
-      t_min = fminf(t_min, fpyv::hit_sphere(r, a, q[0], q[1], q[2], q[3], q[4] > 0.5f));
-    }
-  }
-  if (rc.cylinders > 0.5f) {
-    for (int c = 0; c < C; ++c) {
-      const float* q = w + 5 * S + 6 * c;
-      t_min = fminf(t_min, fpyv::hit_cylinder(r, q[0], q[1], q[2], q[3], q[4], q[5] > 0.5f));
-    }
-  }
-  const float* gates = w + 5 * S + 6 * C;
-  if (rc.ground > 0.5f) {
-    t_min = fminf(t_min, fpyv::hit_ground(r, gates[15 * G] > 0.5f, rc.clip_ground > 0.5f,
-                                          rc.ground_extent));
-  }
-  if (rc.gates > 0.5f) {
-    for (int g = 0; g < G; ++g) t_min = fminf(t_min, fpyv::hit_gate(r, gates + 15 * g,
-                                                                    rc.frame_width));
-  }
-  return t_min;
-}
 
 __global__ void __launch_bounds__(kRenderBlock)
     render_depth_kernel(RenderConsts rc, const float* __restrict__ dcam, int hw,
@@ -122,7 +82,7 @@ __global__ void __launch_bounds__(kRenderBlock)
     __syncthreads();
     if (p < hw) {
       const WorldRay r = fpyv::world_ray(cs, dx, dy, dz);
-      const float t = render_t(rc, S, C, G, r, ws);
+      const float t = fpyv::render_t(rc, S, C, G, r, ws);
       out[static_cast<size_t>(e) * hw + p] = fpyv::encode_level(t, rc.max_depth);
     }
   }
@@ -195,30 +155,6 @@ __device__ __forceinline__ void quat_from_R(const float m[9], float q[4]) {
   const float sign = q[0] < 0.0f ? -1.0f : 1.0f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) q[j] = q[j] * sign;
-}
-
-// Camera pose from the drone pose (components.py:501-503): cam_R = R mount,
-// cam_pos = p + R rel, into cam[12].
-__device__ __forceinline__ void camera_pose(const ChaseConsts& p, const float s[], float cam[12],
-                                            float B[9]) {
-  const float qw = s[6], qx = s[7], qy = s[8], qz = s[9];
-  B[0] = 1.0f - 2.0f * (qy * qy + qz * qz);
-  B[1] = 2.0f * (qx * qy - qz * qw);
-  B[2] = 2.0f * (qx * qz + qy * qw);
-  B[3] = 2.0f * (qx * qy + qz * qw);
-  B[4] = 1.0f - 2.0f * (qx * qx + qz * qz);
-  B[5] = 2.0f * (qy * qz - qx * qw);
-  B[6] = 2.0f * (qx * qz - qy * qw);
-  B[7] = 2.0f * (qy * qz + qx * qw);
-  B[8] = 1.0f - 2.0f * (qx * qx + qy * qy);
-  const float* m = p.mount;
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      cam[3 + 3 * r + c] = B[3 * r] * m[c] + B[3 * r + 1] * m[3 + c] + B[3 * r + 2] * m[6 + c];
-    cam[r] = s[r] + B[3 * r] * p.rel[0] + B[3 * r + 1] * p.rel[1] + B[3 * r + 2] * p.rel[2];
-  }
 }
 
 // The guidance pilot of one step (pallas_vision.py:554-631). s: the state
@@ -331,13 +267,12 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
   const Cylinders cv{cm, C};
   const float zero_act[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float rsum = 0.0f, crashes = 0.0f, contacts = 0.0f;
-  float B[9];
   __syncthreads();
 
   for (int i = 0; i < n_steps; ++i) {
     if (lead) {
       fpyv::target_centers(wm, S, i, cen, 0, 1);
-      camera_pose(p, s, cam, B);
+      fpyv::camera_pose(p.mount, p.rel, s, cam);
       tgt[0] = cen[0];
       tgt[1] = cen[S];
       tgt[2] = cen[2 * S];

@@ -13,6 +13,13 @@ Batched (per-env) worlds, whose every field carries a leading (N,) axis,
 go through :func:`world_from_numpy` and :func:`world_to_numpy` unchanged.
 The chase loop's result, (state, world, reward sums, crash counts, contact
 counts), goes through :func:`chase_to_numpy` and :func:`chase_from_numpy`.
+
+Policy weights carry across through :func:`policy_params_from_numpy` and
+:func:`policy_params_to_numpy`: the Flax tree ``{"params": {"patch_embed",
+"patch_pool"?, "fc0", "pi_mean", "v_out", "log_std"}}`` of numpy arrays
+against :class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`'s
+``state_dict``. A Flax ``kernel`` is ``(in, out)`` and an ``nn.Linear``
+weight ``(out, in)``, so kernels are transposed.
 """
 
 from __future__ import annotations
@@ -91,6 +98,43 @@ def chase_to_numpy(result) -> dict:
     state, world, *counts = result
     return dict(state=to_numpy_tree(state), world=to_numpy_tree(world),
                 **{k: _numpy(v) for k, v in zip(CHASE_FIELDS[2:], counts)})
+
+
+def _layer_key(name: str) -> str:
+    """Flax layer name -> the module attribute holding it."""
+    return "patch_pool_layer" if name == "patch_pool" else name
+
+
+def policy_params_from_numpy(tree: dict, device=None) -> dict:
+    """A Flax ``PixelActorCritic`` parameter tree of numpy arrays -> a
+    ``state_dict`` on ``device`` (CUDA unless told)."""
+    device = resolve_device(device)
+    p = tree["params"] if "params" in tree else tree
+    out = {}
+    for name, leaf in p.items():
+        if name == "log_std":
+            out["log_std"] = _tensor(leaf, device)
+            continue
+        out[f"{_layer_key(name)}.weight"] = _tensor(np.asarray(leaf["kernel"]).T, device)
+        out[f"{_layer_key(name)}.bias"] = _tensor(leaf["bias"], device)
+    return out
+
+
+def policy_params_to_numpy(net) -> dict:
+    """A ``PixelActorCritic`` (or its ``state_dict``) -> the Flax tree
+    ``{"params": {...}}`` of numpy arrays."""
+    sd = net.state_dict() if hasattr(net, "state_dict") else net
+    params = {}
+    for key, value in sd.items():
+        if key == "log_std":
+            params["log_std"] = _numpy(value)
+            continue
+        layer, kind = key.rsplit(".", 1)
+        name = "patch_pool" if layer == "patch_pool_layer" else layer
+        arr = _numpy(value)
+        params.setdefault(name, {})["kernel" if kind == "weight" else "bias"] = (
+            np.ascontiguousarray(arr.T) if kind == "weight" else arr)
+    return {"params": params}
 
 
 def chase_from_numpy(d: dict, device=None):

@@ -1,6 +1,6 @@
 """Math and kernels (mirrors ``fpyv_tpu.ops``): rotations, polynomials,
 and the fused CUDA kernels with their plain PyTorch versions
-(``step_kernel``, ``env_kernel``, ``vision_kernel``), camera math
+(``step_kernel``, ``env_kernel``, ``vision_kernel``, ``policy_kernel``), camera math
 (``camera_ops``). Importing this package builds nothing:
 kernels compile at first launch (``_build``)."""
 

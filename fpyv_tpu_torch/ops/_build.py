@@ -28,7 +28,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("step_kernels.cu", "env_kernels.cu", "vision_kernels.cu")
+SOURCES = ("step_kernels.cu", "env_kernels.cu", "vision_kernels.cu", "policy_kernels.cu")
 HEADERS = ("physics.cuh", "env.cuh", "render.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
@@ -36,7 +36,8 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
 
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {"drone_step": 0, "rollout": 0, "env_rollout": 0,
-                                  "render_depth": 0, "vision_env_rollout": 0}
+                                  "render_depth": 0, "vision_env_rollout": 0,
+                                  "policy_vision_rollout": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -117,8 +118,12 @@ def library() -> ctypes.CDLL:
         lib.fpyv_render_depth.argtypes = [P, I, P, I, P, P, I, I, P, I, P]
         lib.fpyv_vision_env_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, I, I,
                                                 P, P, P, P, I, I, I, I, P]
+        lib.fpyv_policy_vision_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, P, P,
+                                                   P, P, P, I, P, P, P, I, I, P, P, P, P, I,
+                                                   I, P]
         for fn in (lib.fpyv_drone_step, lib.fpyv_rollout, lib.fpyv_env_rollout,
-                   lib.fpyv_render_depth, lib.fpyv_vision_env_rollout):
+                   lib.fpyv_render_depth, lib.fpyv_vision_env_rollout,
+                   lib.fpyv_policy_vision_rollout):
             fn.restype = I
         lib.fpyv_error_string.argtypes = [I]
         lib.fpyv_error_string.restype = ctypes.c_char_p

@@ -234,6 +234,33 @@ def env_world_matrix(world: World) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def reset_pose(c: EnvConstants, lane_id: torch.Tensor, i: int, tx, ty, tz):
+    """The auto-reset pose of iteration ``i`` (``AcroEnv._sample_drone``
+    distributions, draws 0..9): ([px, py, pz, vx, vy, vz, qw, qx, qy, qz],
+    distance from the fresh position to (tx, ty, tz))."""
+    base = (i + 1) * 32
+
+    def u(d):
+        return uniform_01(lane_id, base + d)
+
+    rpx = c.pos_low[0] + u(0) * c.pos_span[0]
+    rpy = c.pos_low[1] + u(1) * c.pos_span[1]
+    rpz = c.pos_low[2] + u(2) * c.pos_span[2]
+    z0, z1 = normal_pair(lane_id, base + 3, base + 4)
+    z2, _ = normal_pair(lane_id, base + 5, base + 6)
+    h0 = (2.0 * u(7) - 1.0) * c.half_ypr
+    h1 = (2.0 * u(8) - 1.0) * c.half_ypr
+    h2 = (2.0 * u(9) - 1.0) * c.half_ypr
+    cr, sr = torch.cos(h0), torch.sin(h0)
+    cp, sp = torch.cos(h1), torch.sin(h1)
+    cy_, sy_ = torch.cos(h2), torch.sin(h2)
+    rdx, rdy, rdz = rpx - tx, rpy - ty, rpz - tz
+    return ([rpx, rpy, rpz, c.vel_scale * z0, c.vel_scale * z1, c.vel_scale * z2,
+             cy_ * cp * cr + sy_ * sp * sr, cy_ * cp * sr - sy_ * sp * cr,
+             cy_ * sp * cr + sy_ * cp * sr, sy_ * cp * cr - cy_ * sp * sr],
+            torch.sqrt(rdx * rdx + rdy * rdy + rdz * rdz))
+
+
 def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor,
                           action_mat: Optional[torch.Tensor], world_mat: torch.Tensor,
                           n_steps: int, seed: int = 0, cyl_mat: Optional[torch.Tensor] = None,
@@ -315,25 +342,7 @@ def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor,
         def u(d):
             return uniform_01(lane_id, base + d)
 
-        rpx = c.pos_low[0] + u(0) * c.pos_span[0]
-        rpy = c.pos_low[1] + u(1) * c.pos_span[1]
-        rpz = c.pos_low[2] + u(2) * c.pos_span[2]
-        z0, z1 = normal_pair(lane_id, base + 3, base + 4)
-        z2, _ = normal_pair(lane_id, base + 5, base + 6)
-        rvx, rvy, rvz = c.vel_scale * z0, c.vel_scale * z1, c.vel_scale * z2
-        h0 = (2.0 * u(7) - 1.0) * c.half_ypr
-        h1 = (2.0 * u(8) - 1.0) * c.half_ypr
-        h2 = (2.0 * u(9) - 1.0) * c.half_ypr
-        cr, sr = torch.cos(h0), torch.sin(h0)
-        cp, sp = torch.cos(h1), torch.sin(h1)
-        cy_, sy_ = torch.cos(h2), torch.sin(h2)
-        rqw = cy_ * cp * cr + sy_ * sp * sr
-        rqx = cy_ * cp * sr - sy_ * sp * cr
-        rqy = cy_ * sp * cr + sy_ * cp * sr
-        rqz = sy_ * cp * cr - cy_ * sp * sr
-        rdx, rdy, rdz = rpx - tx, rpy - ty, rpz - tz
-        dist_r = torch.sqrt(rdx * rdx + rdy * rdy + rdz * rdz)
-
+        pose, dist_r = reset_pose(c, lane_id, i, tx, ty, tz)
         ones = torch.ones_like(crashed)
         if c.randomize:
             rms = c.mass_lo + u(10) * c.mass_span
@@ -352,9 +361,8 @@ def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor,
 
         zeros = torch.zeros_like(crashed)
         live = phys[:14] + [zeros, t, dist, st[17] + reward] + st[18:24] + list(pilot or [])
-        reset = [rpx, rpy, rpz, rvx, rvy, rvz, rqw, rqx, rqy, rqz,
-                 zeros, zeros, zeros, zeros, zeros, zeros, dist_r, zeros,
-                 rms, rds, rts, rwx, rwy, rwz] + [zeros] * n_pilot_rows
+        reset = pose + [zeros, zeros, zeros, zeros, zeros, zeros, dist_r, zeros,
+                        rms, rds, rts, rwx, rwy, rwz] + [zeros] * n_pilot_rows
         sel = done > 0.5
         st = [torch.where(sel, r, l) for r, l in zip(reset, live)]
         rsum = rsum + reward

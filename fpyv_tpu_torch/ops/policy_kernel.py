@@ -1,0 +1,522 @@
+"""Policy-in-kernel vision rollout: CUDA kernel K7 with its plain PyTorch
+version (mirrors ``fpyv_tpu.ops.pallas_policy``).
+
+One launch runs K steps of the pixel PPO trainer's rollout over the whole
+env bank: per step it renders the full-world depth view (K5's ray math) in
+patch-major pixel order, runs the patch actor
+(:class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`, ``torso="patch"``)
+in bf16 or float32, samples a Gaussian action with the counter RNG and its
+log-prob, and steps the in-kernel ``AcroEnv`` (static targets, per-env
+worlds, reward to sphere 0, truncation, auto-reset). It streams out what
+PPO's learner needs.
+
+- State: the (N, 18) env-major float32 matrix of :func:`acro_state_to_cols`
+  (0:3 pos, 3:6 vel, 6:10 quat, 10:13 rates, 13 thrust, 14 done, 15 t,
+  16 prev_dist, 17 accel_z).
+- Outputs: frames (K, N, H*W) uint8 depth levels in patch-major order (the
+  order :func:`prepatch_pixels` gives a row-major image), extra (K, N, 8)
+  the normalised proprio [rates / max (3), accel_z / 30, thrust / max, 0,
+  0, 0], aux (K, N, 8) [a0..a3, reward, crashed, value, log_prob], and the
+  final state.
+- RNG: K4's murmur3 stream, lane id ``fmix(env ^ fmix(seed))``; step k of a
+  launch uses draws ``(k + 1) * 32 + d``: d = 0..9 for the reset pose,
+  d = 20..23 for the action noise. The draws match the Pallas kernel's bit
+  for bit, so the plain version matches it across resets.
+
+The plain version (:func:`policy_vision_rollout_reference`) accumulates
+every product in row order, as the kernel does, so on the card the two
+agree bit for bit. A CPU tensor runs the plain version; a CUDA tensor
+launches the kernel, and anything the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from fpyv_tpu_torch.device import divisor
+from fpyv_tpu_torch.envs.acro import AcroEnv, AcroState
+from fpyv_tpu_torch.ops import _build
+from fpyv_tpu_torch.ops.env_kernel import (
+    env_constants,
+    env_constants_array,
+    lane_ids,
+    normal_pair,
+    reset_pose,
+)
+from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
+from fpyv_tpu_torch.ops.step_kernel import (
+    _f32,
+    check_cuda_inputs,
+    step_components,
+    step_constants,
+    step_constants_array,
+)
+from fpyv_tpu_torch.ops.vision_kernel import (
+    RenderConfig,
+    camera_rows,
+    depth_levels,
+    fused_render_depth,
+    render_tiles,
+    world_cols,
+)
+from fpyv_tpu_torch.physics.world import World
+from fpyv_tpu_torch.vision.camera import CameraRig, camera_pose, pixel_ray_grid
+
+ROWS = 18
+PATCH = 8
+PP = PATCH * PATCH  # pixels per patch (the embed contraction)
+N_OUT = 8  # extra / aux columns
+INCLUDE = ("spheres", "cylinders", "ground", "gates")
+
+
+def patch_major_ray_grid(rig: CameraRig) -> np.ndarray:
+    """(3, H*W) camera-frame ray directions in patch-major pixel order:
+    patches row-major over the (H/8, W/8) grid, pixels row-major within each
+    patch (the net's own space-to-depth order)."""
+    d = pixel_ray_grid(rig)  # (3, H, W)
+    W, H = rig.resolution
+    d = d.reshape(3, H // PATCH, PATCH, W // PATCH, PATCH)
+    d = np.moveaxis(d, 2, 3)  # (3, H/8, W/8, 8, 8)
+    return np.ascontiguousarray(d.reshape(3, -1))
+
+
+def prepatch_pixels(img: torch.Tensor) -> torch.Tensor:
+    """Row-major (..., H, W) image -> patch-major flat (..., NP*64), the
+    kernel's frame order."""
+    H, W = img.shape[-2], img.shape[-1]
+    lead = tuple(img.shape[:-2])
+    x = img.reshape(lead + (H // PATCH, PATCH, W // PATCH, PATCH)).movedim(-3, -2)
+    return x.reshape(lead + ((H // PATCH) * (W // PATCH) * PP,))
+
+
+# ---------------------------------------------------------------------------
+# Weights and constants
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PolicyWeights:
+    """The actor's weights laid out for the kernel (``pallas_policy``'s
+    tuple), built per rollout from the live module."""
+
+    we: torch.Tensor  # (64, embed)
+    be: torch.Tensor  # (1, embed)
+    wp: torch.Tensor  # (pool*embed, embed), or an (8, embed) zero dummy at pool 1
+    bp: torch.Tensor  # (1, embed), zeros at pool 1
+    wf: torch.Tensor  # (KF_pad, hidden): rows [patch-flat, proprio, zero pad]
+    bf: torch.Tensor  # (1, hidden)
+    wm: torch.Tensor  # (hidden, 8) float32: cols 0:4 pi_mean, col 4 v_out
+    bm: torch.Tensor  # (1, 8) float32, same columns
+    std: torch.Tensor  # (1, 8) float32: cols 0:4 exp(clipped log_std), 4:8 the clipped log_std
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        return None if self.we.dtype == torch.float32 else self.we.dtype
+
+
+def build_policy_weights(net, compute_dtype: Optional[torch.dtype] = torch.bfloat16
+                         ) -> PolicyWeights:
+    """:class:`PolicyWeights` from a ``PixelActorCritic`` (patch torso, one
+    fc layer); ``compute_dtype`` None means float32."""
+    if len(net.hidden) != 1:
+        raise ValueError("the kernel rollout takes one fc hidden layer")
+    dt = torch.float32 if compute_dtype is None else compute_dtype
+    f = torch.float32
+
+    def kernel(layer):  # Flax's (in, out) kernel and the bias, detached
+        return layer.weight.detach().T.to(dt).contiguous(), layer.bias.detach().to(dt)[None, :]
+
+    we, be = kernel(net.patch_embed)
+    embed, dev = we.shape[1], we.device
+    if net.patch_pool > 1:
+        wp, bp = kernel(net.patch_pool_layer)
+    else:
+        wp = torch.zeros(8, embed, dtype=dt, device=dev)
+        bp = torch.zeros(1, embed, dtype=dt, device=dev)
+    wf_raw, bf = kernel(net.fc0)  # (NP*embed + proprio, hidden)
+    kf, hidden = wf_raw.shape
+    wf = torch.zeros(-(-kf // 128) * 128, hidden, dtype=dt, device=dev)
+    wf[:kf] = wf_raw
+    pi_w, pi_b = net.pi_mean.weight.detach().to(f), net.pi_mean.bias.detach().to(f)
+    v_w, v_b = net.v_out.weight.detach().to(f), net.v_out.bias.detach().to(f)
+    wm = torch.zeros(hidden, N_OUT, dtype=f, device=dev)
+    wm[:, :4] = pi_w.T
+    wm[:, 4] = v_w[0]
+    bm = torch.zeros(1, N_OUT, dtype=f, device=dev)
+    bm[0, :4] = pi_b
+    bm[0, 4] = v_b[0]
+    log_std = torch.clamp(net.log_std.detach().to(f), net.log_std_min, net.log_std_max)
+    std = torch.zeros(1, N_OUT, dtype=f, device=dev)
+    std[0, :4] = torch.exp(log_std)
+    std[0, 4:8] = log_std
+    return PolicyWeights(we=we, be=be, wp=wp, bp=bp, wf=wf, bf=bf, wm=wm, bm=bm, std=std)
+
+
+@dataclass(frozen=True)
+class PolicyConstants:
+    """float32 launch constants in the order of ``PolicyConsts`` in
+    ``csrc/policy_kernels.cu``: K4's env scalars, the proprio scales, the
+    log-prob normaliser and the camera mount."""
+
+    env: Tuple[float, ...]  # env_constants(env).as_array()
+    inv_max_rates: float
+    inv_30: float
+    inv_max_force: float
+    log_2pi2: float
+    mount: Tuple[float, ...]  # 9, row major
+    rel: Tuple[float, float, float]
+
+    def as_array(self) -> np.ndarray:
+        vals = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            vals.extend(v if isinstance(v, tuple) else [v])
+        return np.asarray(vals, np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def policy_constants(env: AcroEnv, rig: CameraRig) -> PolicyConstants:
+    """Each Python-float constant of the Pallas kernel rounded once to
+    float32 (``pallas_policy._kernel``)."""
+    return PolicyConstants(
+        env=tuple(float(x) for x in env_constants_array(env)),
+        inv_max_rates=_f32(1.0 / float(env.params.max_rates)), inv_30=_f32(1.0 / 30.0),
+        inv_max_force=_f32(1.0 / float(env.params.thrust_curve.max_force)),
+        log_2pi2=_f32(2.0 * math.log(2.0 * math.pi)),
+        mount=tuple(_f32(x) for x in np.asarray(rig.mount_rotation).reshape(-1)),
+        rel=tuple(_f32(x) for x in rig.rel_position))
+
+
+# ---------------------------------------------------------------------------
+# Layouts
+# ---------------------------------------------------------------------------
+
+
+def acro_state_to_cols(state: AcroState) -> torch.Tensor:
+    """AcroState (batched, quat mode) -> (N, 18) env-major float32 matrix."""
+    d = state.drone
+    f = torch.float32
+    return torch.cat([d.pos.to(f), d.vel.to(f), d.att.to(f), d.rates.to(f),
+                      d.thrust.to(f)[:, None], d.done.to(f)[:, None], state.t.to(f)[:, None],
+                      state.prev_dist.to(f)[:, None], d.accel[:, 2:3].to(f)], dim=1).contiguous()
+
+
+def cols_to_acro_state(mat: torch.Tensor, template: AcroState) -> AcroState:
+    """(N, 18) -> AcroState (accel carries only its z; x and y are zero)."""
+    d = template.drone
+    accel = torch.zeros_like(d.accel)
+    accel[:, 2] = mat[:, 17]
+    return template.replace(
+        drone=d.__class__(pos=mat[:, 0:3].clone(), vel=mat[:, 3:6].clone(),
+                          att=mat[:, 6:10].clone(), rates=mat[:, 10:13].clone(),
+                          thrust=mat[:, 13].clone(), accel=accel, done=mat[:, 14] > 0.5),
+        t=mat[:, 15].to(torch.int32), prev_dist=mat[:, 16].clone())
+
+
+def _env_supported(env: AcroEnv) -> bool:
+    return (env.params.att_mode == "quat" and env.dtype == torch.float32 and not env.randomize
+            and float(env.wind_scale) == 0.0 and all(w == 0.0 for w in env.wind))
+
+
+def policy_rollout_supported(env: AcroEnv, world: World) -> bool:
+    return _env_supported(env) and bool(world.has_ground.all())
+
+
+def policy_world_cols(world: World, n: int) -> torch.Tensor:
+    """(N, n_cols) per-env world columns (a shared world repeated)."""
+    return world_cols(world).expand(n, -1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version of K7
+# ---------------------------------------------------------------------------
+
+
+def _rounder(dtype: Optional[torch.dtype]):
+    if dtype is None:
+        return lambda x: x
+    return lambda x: x.to(dtype).to(torch.float32)
+
+
+def policy_forward_reference(w: PolicyWeights, levels: torch.Tensor, proprio, pool: int):
+    """The kernel's actor on depth levels (N, H*W) (float, patch-major) and
+    the 5 proprio rows (N,): float32 products accumulated in row order,
+    rounded to the compute type where the kernel rounds. Returns the heads
+    (N, 5): mean (4), value."""
+    rnd = _rounder(w.compute_dtype)
+    f = torch.float32
+    n = levels.shape[0]
+    x = rnd(levels / divisor(255.0, levels)).reshape(n, -1, PP)  # (N, NP, 64)
+    we, wp, wf = w.we.to(f), w.wp.to(f), w.wf.to(f)
+    emb = torch.zeros(n, x.shape[1], we.shape[1], dtype=f, device=levels.device)
+    for k in range(PP):
+        emb = emb + x[:, :, k:k + 1] * we[k]
+    emb = torch.clamp_min(rnd(rnd(emb) + w.be.to(f)[0]), 0.0)
+    if pool > 1:
+        grouped = emb.reshape(n, -1, pool * we.shape[1])
+        acc = torch.zeros(n, grouped.shape[1], we.shape[1], dtype=f, device=levels.device)
+        for i in range(grouped.shape[2]):
+            acc = acc + grouped[:, :, i:i + 1] * wp[i]
+        emb = torch.clamp_min(rnd(rnd(acc) + w.bp.to(f)[0]), 0.0)
+    fc_in = emb.reshape(n, -1)
+    acc = torch.zeros(n, wf.shape[1], dtype=f, device=levels.device)
+    for i in range(fc_in.shape[1]):
+        acc = acc + fc_in[:, i:i + 1] * wf[i]
+    for i in range(5):
+        acc = acc + rnd(proprio[i])[:, None] * wf[fc_in.shape[1] + i]
+    h = torch.clamp_min(rnd(rnd(acc) + w.bf.to(f)[0]), 0.0)
+    mm = torch.zeros(n, 5, dtype=f, device=levels.device)
+    for j in range(h.shape[1]):
+        mm = mm + h[:, j:j + 1] * w.wm[j, :5]
+    return mm + w.bm[0, :5]
+
+
+def policy_vision_rollout_reference(env: AcroEnv, rig: CameraRig, state_cols: torch.Tensor,
+                                    wcol: torch.Tensor, cfg: RenderConfig, weights: PolicyWeights,
+                                    n_steps: int, seed: int, patch_pool: int = 1,
+                                    forced_actions: Optional[torch.Tensor] = None):
+    """Plain version of K7, line by line as ``pallas_policy._kernel``.
+    Returns (frames (K, N, H*W) uint8, extra (K, N, 8), aux (K, N, 8),
+    state (N, 18)).
+
+    ``forced_actions`` (K, N, 4) teacher-forces the env: each step still
+    renders, runs the actor and samples (the aux row holds that sample,
+    value and log-prob), but the env advances with the given action, the
+    reward's rates penalty included."""
+    k = step_constants(env.params)
+    pc = policy_constants(env, rig)
+    c = env_constants(env)
+    dev = state_cols.device
+    n = state_cols.shape[0]
+    lane = lane_ids(n, seed, dev)
+    dcam = torch.from_numpy(patch_major_ray_grid(rig)).to(dev)
+    S, C = cfg.n_spheres, cfg.n_cylinders
+    wc = list(wcol.unbind(1))
+    spheres = [tuple(wc[s * 5 + j] for j in range(5)) for s in range(S)]
+    cyls = [tuple(wc[S * 5 + i * 6 + j] for j in range(6)) for i in range(C)]
+    tx, ty, tz = spheres[0][:3]
+    std = [float(v) for v in weights.std[0].tolist()]
+    st = list(state_cols.unbind(1))
+    frames, extras, auxs = [], [], []
+    for i in range(n_steps):
+        cR, (cx, cy, cz) = camera_rows(pc.mount, pc.rel, st)
+        zero = torch.zeros_like(cx)
+        cam = torch.stack([cx, cy, cz] + cR + [zero] * 4, dim=1)
+        levels = depth_levels(render_tiles(cfg, dcam, cam, wcol), cfg.max_depth)
+        frames.append(levels.to(torch.uint8))
+        prop = [st[10] * pc.inv_max_rates, st[11] * pc.inv_max_rates, st[12] * pc.inv_max_rates,
+                st[17] * pc.inv_30, st[13] * pc.inv_max_force]
+        extras.append(torch.stack(prop + [zero] * 3, dim=1))
+        mm = policy_forward_reference(weights, levels, prop, patch_pool)
+
+        base = (i + 1) * 32
+        z0, z1 = normal_pair(lane, base + 20, base + 21)
+        z2, z3 = normal_pair(lane, base + 22, base + 23)
+        z = (z0, z1, z2, z3)
+        a = [mm[:, j] + std[j] * z[j] for j in range(4)]
+        log_prob = (-0.5 * (z0 * z0 + z1 * z1 + z2 * z2 + z3 * z3)
+                    - _f32(_f32(_f32(std[4] + std[5]) + std[6]) + std[7]) - pc.log_2pi2)
+        act = a if forced_actions is None else list(forced_actions[i].unbind(1))
+        phys = step_components(k, spheres, st[:15], act, cyls=cyls, with_accel_z=True)
+        crashed = phys[14]
+        ddx, ddy, ddz = phys[0] - tx, phys[1] - ty, phys[2] - tz
+        dist = torch.sqrt(ddx * ddx + ddy * ddy + ddz * ddz)
+        rates_pen = act[0] * act[0] + act[1] * act[1] + act[2] * act[2]
+        reward = (c.w_progress * (st[16] - dist) + c.w_alive - c.w_crash * crashed
+                  - c.w_rates * rates_pen)
+        t_next = st[15] + 1.0
+        done = torch.maximum(crashed, (t_next >= c.max_steps).to(torch.float32))
+        auxs.append(torch.stack(a + [reward, crashed, mm[:, 4], log_prob], dim=1))
+
+        pose, dist_r = reset_pose(c, lane, i, tx, ty, tz)
+        live = phys[:14] + [zero, t_next, dist, phys[15]]
+        reset = pose + [zero] * 6 + [dist_r, zero]
+        sel = done > 0.5
+        st = [torch.where(sel, r, l) for r, l in zip(reset, live)]
+    return (torch.stack(frames), torch.stack(extras), torch.stack(auxs),
+            torch.stack(st, dim=1).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# CUDA launch
+# ---------------------------------------------------------------------------
+
+
+def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch.Tensor,
+                                 wcol: torch.Tensor, cfg: RenderConfig, weights: PolicyWeights,
+                                 n_steps: int, seed: int, patch_pool: int = 1):
+    """K7 on the card; returns what :func:`policy_vision_rollout_reference`
+    returns."""
+    device = state_cols.device
+    if device.type != "cuda":
+        raise ValueError(f"policy_vision_rollout launches on a CUDA device, got {device}")
+    if not _env_supported(env):
+        raise ValueError("the kernel rollout needs a quat, float32 env without DR or wind")
+    dt = weights.we.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"policy weights must be float32 or bfloat16, got {dt}")
+    check_cuda_inputs(device, state=state_cols, world_cols=wcol, wm=weights.wm, bm=weights.bm,
+                      std=weights.std)
+    for name in ("we", "be", "wp", "bp", "wf", "bf"):
+        t = getattr(weights, name)
+        if t.device != device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"weight {name} must be a contiguous {dt} tensor on {device}")
+    n = state_cols.shape[0]
+    W, H = rig.resolution
+    hw = W * H
+    n_patches = hw // PP
+    if state_cols.shape != (n, ROWS) or wcol.shape != (n, cfg.n_cols):
+        raise ValueError(f"state / world columns must be (N, {ROWS}) / (N, {cfg.n_cols})")
+    if W % PATCH or H % PATCH:
+        raise ValueError(f"the rig's {W}x{H} must split into 8x8 patches")
+    if patch_pool < 1 or n_patches % patch_pool:
+        raise ValueError(f"patch_pool={patch_pool} must divide {n_patches} patches")
+    embed, hidden = weights.we.shape[1], weights.wf.shape[1]
+    if (weights.we.shape[0] != PP or embed != 128 or hidden > 256
+            or weights.wf.shape[0] < n_patches // patch_pool * embed + 5):
+        raise ValueError("the kernel takes 8x8 patches, embed 128, hidden <= 256")
+    if cfg.n_spheres < 1:
+        raise ValueError("the reward needs sphere 0")
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+    lib = _build.library()
+    kc = step_constants_array(env.params)
+    pc = policy_constants(env, rig).as_array()
+    rc = cfg.as_array()
+    dcam = torch.from_numpy(patch_major_ray_grid(rig)).to(device)
+    frames = torch.empty(n_steps, n, hw, dtype=torch.uint8, device=device)
+    extra = torch.empty(n_steps, n, N_OUT, dtype=torch.float32, device=device)
+    aux = torch.empty_like(extra)
+    state_out = torch.empty_like(state_cols)
+    w = weights
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = lib.fpyv_policy_vision_rollout(
+            kc.ctypes.data, kc.size, pc.ctypes.data, pc.size, rc.ctypes.data, rc.size,
+            int(np.int64(seed).astype(np.int32)), state_cols.data_ptr(), wcol.data_ptr(),
+            cfg.n_cols, dcam.data_ptr(), hw, w.we.data_ptr(), w.be.data_ptr(), w.wp.data_ptr(),
+            w.bp.data_ptr(), w.wf.data_ptr(), w.bf.data_ptr(), hidden, w.wm.data_ptr(),
+            w.bm.data_ptr(), w.std.data_ptr(), patch_pool, int(dt == torch.bfloat16),
+            frames.data_ptr(), extra.data_ptr(), aux.data_ptr(), state_out.data_ptr(), n,
+            n_steps, stream)
+    _build.check(err, "policy_vision_rollout")
+    _build.launch_counts["policy_vision_rollout"] += 1
+    return frames, extra, aux, state_out
+
+
+def fused_policy_vision_rollout(
+    env: AcroEnv,
+    rig: CameraRig,
+    state_cols: torch.Tensor,  # (N, 18) from acro_state_to_cols
+    worlds: World,  # per-env batched (or shared) world
+    weights: PolicyWeights,
+    n_steps: int,
+    seed: int,
+    max_depth: float,
+    include: Tuple[str, ...] = INCLUDE,
+    ground_extent: Optional[float] = None,
+    frame_width: float = 0.08,
+    patch_pool: int = 1,
+):
+    """K policy-driven env steps in one launch on CUDA tensors, the plain
+    version on CPU tensors. The compute type is the weights' (bf16 or
+    float32). Returns (frames (K, N, H*W) uint8, extra (K, N, 8), aux
+    (K, N, 8), state (N, 18))."""
+    if not policy_rollout_supported(env, worlds):
+        raise ValueError("the kernel rollout needs a quat, float32 env without DR or wind, "
+                         "over ground")
+    n = state_cols.shape[0]
+    cfg = RenderConfig.for_world(worlds, max_depth, include, ground_extent, frame_width)
+    wcol = policy_world_cols(worlds, n)
+    if state_cols.device.type == "cpu":
+        return policy_vision_rollout_reference(env, rig, state_cols, wcol, cfg, weights, n_steps,
+                                               seed, patch_pool)
+    return launch_policy_vision_rollout(env, rig, state_cols, wcol, cfg, weights, n_steps, seed,
+                                        patch_pool)
+
+
+# ---------------------------------------------------------------------------
+# PPO integration: a rollout_fn for rl.ppo.make_ppo
+# ---------------------------------------------------------------------------
+
+
+def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
+    """(apply_fn, make_rollout_fn, obs_from_cols) of the kernel-rollout
+    vision PPO trainer (``apps.train.train_vision``, rollout "kernel").
+
+    - ``apply_fn(net, obs)`` runs the obs dict {pixels: (..., NP*64) uint8
+      patch-major, proprio: (..., 5)} through ``net``, a ``prepatched``
+      ``PixelActorCritic``.
+    - ``make_rollout_fn(num_steps, compute_dtype, exact_logprob)`` gives
+      ``rollout_fn(state) -> (env_state, last_obs, traj)``: K steps in one
+      launch (:func:`fused_policy_vision_rollout`), the kernel's seed drawn
+      from ``state.generator``. ``exact_logprob`` recomputes log_prob and
+      value with one batched (T*N) forward of ``net`` (the epoch-0 ratio is
+      then exactly 1); otherwise the kernel's own are used.
+    - the PPO ``env_state`` is the raw (N, 18) state matrix.
+    """
+    from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
+
+    env, rig = venv.acro, venv.rig
+    if not policy_rollout_supported(env, worlds):
+        raise ValueError("the kernel rollout needs a quat, float32 env without DR or wind, "
+                         "over ground")
+    if net.torso != "patch" or not net.prepatched:
+        raise ValueError("the kernel rollout pairs with PixelActorCritic(torso='patch', "
+                         "prepatched=True)")
+
+    def apply_fn(params, obs):
+        px = obs["pixels"]
+        px = px.reshape(px.shape[:-1] + (px.shape[-1] // PP, PP))
+        return params(px, obs["proprio"])
+
+    def obs_from_cols(cols):
+        """The observation of a state matrix (the GAE bootstrap obs, the one
+        frame an iteration the kernel does not emit): K5's frame as uint8
+        levels, the proprio by true division."""
+        cam_pos, cam_R = camera_pose(rig, cols[:, 0:3], quat_to_rotmat(cols[:, 6:10]))
+        img = fused_render_depth(rig, cam_pos, cam_R, worlds, max_depth=venv.max_depth,
+                                 include=INCLUDE, ground_extent=venv.ground_extent,
+                                 frame_width=venv.frame_width)
+        levels = torch.round(img * 255.0).to(torch.uint8)
+        proprio = torch.cat([cols[:, 10:13] / divisor(float(env.params.max_rates), cols),
+                             cols[:, 17:18] / divisor(30.0, cols),
+                             cols[:, 13:14] / divisor(float(env.params.thrust_curve.max_force),
+                                                       cols)], dim=1)
+        return {"pixels": prepatch_pixels(levels), "proprio": proprio}
+
+    def make_rollout_fn(num_steps: int, compute_dtype=torch.bfloat16,
+                        exact_logprob: bool = True):
+        def rollout_fn(state):
+            seed = int(torch.randint(0, 2**31 - 1, (), generator=state.generator,
+                                     device=state.generator.device))
+            weights = build_policy_weights(state.params, compute_dtype)
+            frames, extra, aux, cols_out = fused_policy_vision_rollout(
+                env, rig, state.env_state, worlds, weights, num_steps, seed, venv.max_depth,
+                ground_extent=venv.ground_extent, frame_width=venv.frame_width,
+                patch_pool=net.patch_pool)
+            obs = {"pixels": frames, "proprio": extra[..., :5]}
+            action = aux[..., 0:4]
+            T, N = frames.shape[0], frames.shape[1]
+            if exact_logprob:
+                flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
+                mean, log_std, value = apply_fn(state.params, flat)
+                log_prob = gaussian_log_prob(mean, log_std, action.reshape(-1, 4)).reshape(T, N)
+                value = value.reshape(T, N)
+            else:
+                value, log_prob = aux[..., 6], aux[..., 7]
+            # terminations only: GAE bootstraps across time-limit truncations
+            traj = Transition(obs=obs, action=action, log_prob=log_prob, value=value,
+                              reward=aux[..., 4], done=aux[..., 5] > 0.5)
+            return cols_out, obs_from_cols(cols_out), traj
+
+        return rollout_fn
+
+    return apply_fn, make_rollout_fn, obs_from_cols

@@ -192,13 +192,14 @@ def _lt0(x: torch.Tensor) -> torch.Tensor:
 
 def step_components(k: StepConstants, spheres, comps: Sequence[torch.Tensor],
                     acts: Sequence[torch.Tensor], cyls=(), dr=None, wind=None,
-                    override=None) -> List[torch.Tensor]:
+                    override=None, with_accel_z: bool = False) -> List[torch.Tensor]:
     """One physics step over 15 state rows of shape (N,), line by line as
     ``fpyv_tpu.ops.pallas_step._step_components``. ``spheres`` is a list of
     (cx, cy, cz, r, active) and ``cyls`` of (cx, cy, cz, r, h, active),
     scalars or tensors broadcasting against the rows; ``dr`` is
     (mass, drag, thrust) scales, ``wind`` (wx, wy, wz), ``override``
-    (qw, qx, qy, qz, |F|). Returns the 15 next-state rows."""
+    (qw, qx, qy, qz, |F|). Returns the 15 next-state rows, and with
+    ``with_accel_z`` the world-z acceleration of the step as a 16th."""
     px, py, pz, vx, vy, vz, qw, qx, qy, qz, r0, r1, r2, thrust_prev, done = comps
     mr = k.max_rates
     rc0 = torch.clamp(-acts[0] * mr, -mr, mr)
@@ -328,7 +329,8 @@ def step_components(k: StepConstants, spheres, comps: Sequence[torch.Tensor],
     qw, qx, qy, qz = qw * qn, qx * qn, qy * qn, qz * qn
 
     done = torch.maximum(done, crashed)
-    return [px, py, pz, vx, vy, vz, qw, qx, qy, qz, n0, n1, n2, thrust, done]
+    out = [px, py, pz, vx, vy, vz, qw, qx, qy, qz, n0, n1, n2, thrust, done]
+    return out + [acz] if with_accel_z else out
 
 
 def sphere_list(centers: torch.Tensor, radius: torch.Tensor, active: torch.Tensor):

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from fpyv_tpu_torch.device import divisor
 from fpyv_tpu_torch.envs.acro import AcroEnv, AcroState
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops.env_kernel import (
@@ -76,7 +77,7 @@ def flat_dcam(rig: CameraRig) -> np.ndarray:
 @dataclass(frozen=True)
 class RenderConfig:
     """Static render configuration, in the order of ``RenderConsts`` in
-    ``csrc/vision_kernels.cu``."""
+    ``csrc/render.cuh``."""
 
     n_spheres: int
     n_cylinders: int
@@ -257,19 +258,12 @@ def render_tiles(cfg: RenderConfig, dcam: torch.Tensor, cam: torch.Tensor,
     return t_min
 
 
-def _divisor(x: float, like: torch.Tensor) -> torch.Tensor:
-    """``x`` as a tensor on ``like``'s device. PyTorch's CUDA division by a
-    Python scalar multiplies by its reciprocal, which rounds otherwise than
-    the kernels' true division; a divisor on the device divides."""
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
-
-
 def depth_levels(t_min: torch.Tensor, max_depth: float) -> torch.Tensor:
     """The uint8 depth levels ``floor(255 (1 - t / max_depth))``, clipped to
     [0, 255], as float32 (components.py:626-628; empty -> 0)."""
     md = _f32(max_depth)
     t = torch.clamp_max(t_min, md)
-    lev = torch.floor(255.0 * (1.0 - t / _divisor(md, t)))
+    lev = torch.floor(255.0 * (1.0 - t / divisor(md, t)))
     return torch.clamp(lev, 0.0, 255.0)
 
 
@@ -475,6 +469,24 @@ def quat_cols_from_R(m):
     return tuple(qi * sign for qi in q)
 
 
+def camera_rows(mount, rel, st):
+    """Camera pose from the state rows (position st[0:3], quaternion
+    st[6:10]) with float32 ``mount`` (9, row major) and ``rel`` (3) as
+    ``csrc/render.cuh::camera_pose``: cam_R = R mount (9 rows, R the body
+    rotation) and the camera position (cx, cy, cz)."""
+    px, py, pz, qw, qx, qy, qz = st[0], st[1], st[2], st[6], st[7], st[8], st[9]
+    m, rp = mount, rel
+    B = [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw),
+         2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qx * qw),
+         2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx * qx + qy * qy)]
+    cR = [B[3 * r] * m[c] + B[3 * r + 1] * m[3 + c] + B[3 * r + 2] * m[6 + c]
+          for r in range(3) for c in range(3)]
+    cx = px + B[0] * rp[0] + B[1] * rp[1] + B[2] * rp[2]
+    cy = py + B[3] * rp[0] + B[4] * rp[1] + B[5] * rp[2]
+    cz = pz + B[6] * rp[0] + B[7] * rp[1] + B[8] * rp[2]
+    return cR, (cx, cy, cz)
+
+
 def chase_action_fn(p: ChaseConstants, dcam: torch.Tensor, width: int):
     """The per-step pilot for :func:`env_rollout_reference`'s ``action_fn``,
     line by line as ``pallas_vision._make_chase_action_fn``: camera pose,
@@ -484,22 +496,15 @@ def chase_action_fn(p: ChaseConstants, dcam: torch.Tensor, width: int):
     hw = dcam.shape[1]
     idx = torch.arange(hw, dtype=torch.float32, device=dcam.device)[None, :]
     wf = float(width)
-    u_row = idx - torch.floor(idx / _divisor(wf, idx)) * wf + 0.5
-    v_row = torch.floor(idx / _divisor(wf, idx)) + 0.5
-    dt = _divisor(p.dt, idx)
+    u_row = idx - torch.floor(idx / divisor(wf, idx)) * wf + 0.5
+    v_row = torch.floor(idx / divisor(wf, idx)) + 0.5
+    dt = divisor(p.dt, idx)
     dxr, dyr, dzr = dcam[0:1], dcam[1:2], dcam[2:3]
     m, rp, gz = p.mount, p.rel, p.gz
 
     def action_fn(i, st, centers, sphere_r):
-        px, py, pz, vx, vy, vz, qw, qx, qy, qz = st[:10]
-        B = [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw), 2 * (qx * qz + qy * qw),
-             2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qx * qw),
-             2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw), 1 - 2 * (qx * qx + qy * qy)]
-        cR = [B[3 * r] * m[c] + B[3 * r + 1] * m[3 + c] + B[3 * r + 2] * m[6 + c]
-              for r in range(3) for c in range(3)]
-        cx = px + B[0] * rp[0] + B[1] * rp[1] + B[2] * rp[2]
-        cy = py + B[3] * rp[0] + B[4] * rp[1] + B[5] * rp[2]
-        cz = pz + B[6] * rp[0] + B[7] * rp[1] + B[8] * rp[2]
+        px, py, pz, vx, vy, vz = st[:6]
+        cR, (cx, cy, cz) = camera_rows(m, rp, st)
         tx, ty, tz, tr = centers[0][0], centers[1][0], centers[2][0], sphere_r[0]
 
         # target-only render (sphere 0, active) and the mask centroid

@@ -1,0 +1,9 @@
+"""Checkpointing, timing and metrics (mirrors ``fpyv_tpu.utils``)."""
+
+from fpyv_tpu_torch.utils.checkpoint import (  # noqa: F401
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from fpyv_tpu_torch.utils.metrics import MetricsLogger  # noqa: F401
+from fpyv_tpu_torch.utils.profiling import Throughput, timeit  # noqa: F401

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K2-K6 against their plain PyTorch versions on
+"""The port's CUDA kernels K2-K7 against their plain PyTorch versions on
 the card. Imports neither JAX nor ``fpyv_tpu``, so it runs where only the
 port is installed:
 
@@ -14,9 +14,14 @@ one step, 1e-4 after 64 chained steps, 1e-3 on 64-step reward sums. The step
 counter t, and with it every reset decision, is equal exactly. K5's depth
 levels are equal. K6 (the chase) holds pos 1e-4, velocity and attitude 1e-3
 and reward sums 2e-3 after K = 64 steps (tests/test_pallas_vision.py's
-tolerances); its t, crash and contact counts are equal.
+tolerances); its t, crash and contact counts are equal. K7 (the policy
+rollout) sums its products in the plain version's order: frames, crash
+flags and t equal, everything else within the CPU tests' tolerances
+(tests/test_torch_policy_kernel.py); teacher-forced in bf16, the policy's
+mean and value within 1e-3 of the kernel's.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +31,7 @@ from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv, default_vision_rig
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as ek
 from fpyv_tpu_torch.ops import step_kernel as sk
+from fpyv_tpu_torch.ops import policy_kernel as pk
 from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
 from fpyv_tpu_torch.world.generators import WorldSpec, build_world
@@ -100,9 +106,14 @@ def test_cuda_entry_points_launch_and_count(cuda_device):
         _, obs = VisionAcroEnv(acro=env, renderer=renderer, target_only=False).reset_batched(
             torch.Generator().manual_seed(1), w, None, 64)
     chased = vk.fused_vision_env_rollout(env, st, w, 4, seed=1)
+    pw, pst, pnet = _policy_setup(cuda_device, 64, 8, pool=1, bf16=True)
+    frames, _, aux, _ = pk.fused_policy_vision_rollout(pw[0], pw[1], pst, pw[2],
+                                                       pk.build_policy_weights(pnet), 4, 1, 25.0)
     torch.cuda.synchronize()
     assert _build.launch_counts == {"drone_step": 1, "rollout": 1, "env_rollout": 1,
-                                    "render_depth": 2, "vision_env_rollout": 1}
+                                    "render_depth": 2, "vision_env_rollout": 1,
+                                    "policy_vision_rollout": 1}
+    assert frames.is_cuda and torch.isfinite(aux).all()
     assert obs["pixels"].is_cuda and chased[0].drone.pos.is_cuda
     assert stepped.pos.is_cuda and rolled.pos.is_cuda and out.drone.pos.is_cuda
     assert rsum.shape == (64,) and torch.isfinite(rsum).all()
@@ -181,3 +192,85 @@ def test_cuda_k6_matches_plain_across_resets(cuda_device, world, kw):
                          .amax(0))
     assert qerr.max().item() < 1e-3
     torch.testing.assert_close(rsum, ref_rsum, atol=2e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K7: the policy rollout
+# ---------------------------------------------------------------------------
+
+
+def _policy_setup(device, n, max_steps, pool, bf16, seed=0):
+    """(env, rig, worlds), the (N, 18) state and a Flax-initialised net on
+    per-env sample_worlds with 1 sphere and 4 cylinders."""
+    from fpyv_tpu_torch.models.policy import PixelActorCritic
+    from fpyv_tpu_torch.world.randomize import sample_worlds
+
+    env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=max_steps)
+    rig = default_vision_rig()
+    g = torch.Generator().manual_seed(seed)
+    worlds = sample_worlds(g, n, n_spheres=1, n_cylinders=4, device=device)
+    st, _ = env.reset(g, worlds, (n,))
+    net = PixelActorCritic(action_dim=4, n_patches=108, torso="patch", prepatched=True,
+                           compute_dtype=torch.bfloat16 if bf16 else None, patch_pool=pool,
+                           device=device).init_params(g)
+    with torch.no_grad():  # a std that samples, and a mean head that steers
+        net.log_std.fill_(-0.3)
+        net.pi_mean.weight.mul_(30.0)
+    return (env, rig, worlds), pk.acro_state_to_cols(st), net
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool,bf16,n", [(1, False, 64), (4, False, 64), (1, True, 64),
+                                         (1, False, 13)])  # 13: a last block of 5 envs
+def test_cuda_k7_matches_plain_across_resets(cuda_device, pool, bf16, n):
+    (env, rig, worlds), cols, net = _policy_setup(cuda_device, n, 8, pool, bf16)
+    w = pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+    cfg = vk.RenderConfig.for_world(worlds, 25.0)
+    wcol = pk.policy_world_cols(worlds, n)
+    out = pk.launch_policy_vision_rollout(env, rig, cols, wcol, cfg, w, 16, 5, pool)
+    torch.cuda.synchronize()
+    ref = pk.policy_vision_rollout_reference(env, rig, cols, wcol, cfg, w, 16, 5, pool)
+    frames, extra, aux, state = out
+    assert torch.equal(frames, ref[0])
+    assert torch.equal(aux[..., 5], ref[2][..., 5]) and torch.equal(state[:, 14:16],
+                                                                    ref[3][:, 14:16])
+    assert (state[:, 15] < 16).all()  # premise: every env reset
+    torch.testing.assert_close(extra, ref[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux[..., :4], ref[2][..., :4], atol=5e-5, rtol=0)
+    torch.testing.assert_close(aux[..., 4], ref[2][..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux[..., 6:], ref[2][..., 6:], atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, ref[3], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_k7_bf16_teacher_forced(cuda_device):
+    """bf16 at 256 envs: the plain policy on the kernel's own frames gives
+    the kernel's mean and value; the plain env on the kernel's own actions
+    gives its rewards, crash flags and final state."""
+    (env, rig, worlds), cols, net = _policy_setup(cuda_device, 256, 1000, 1, True, seed=1)
+    w = pk.build_policy_weights(net, torch.bfloat16)
+    cfg = vk.RenderConfig.for_world(worlds, 25.0)
+    wcol = pk.policy_world_cols(worlds, 256)
+    frames, extra, aux, state = pk.launch_policy_vision_rollout(env, rig, cols, wcol, cfg, w, 8,
+                                                                3)
+    torch.cuda.synchronize()
+    rf, rex, raux, rstate = pk.policy_vision_rollout_reference(
+        env, rig, cols, wcol, cfg, w, 8, 3, forced_actions=aux[..., :4])
+    assert torch.equal(frames, rf) and torch.equal(aux[..., 5], raux[..., 5])
+    torch.testing.assert_close(rex, extra, atol=1e-6, rtol=0)
+    torch.testing.assert_close(raux[..., :4], aux[..., :4], atol=1e-3, rtol=0)
+    torch.testing.assert_close(raux[..., 6], aux[..., 6], atol=1e-3, rtol=0)
+    torch.testing.assert_close(raux[..., 4], aux[..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(rstate, state, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_train_vision_launches_k7(cuda_device):
+    from fpyv_tpu_torch.apps.train import train_vision
+
+    _build.reset_launch_counts()
+    res = train_vision(num_envs=64, num_iterations=3, scan_chunk=1, print_every=0)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["policy_vision_rollout"] == 3
+    assert _build.launch_counts["render_depth"] >= 3
+    assert np.isfinite(res.mean_reward_last)

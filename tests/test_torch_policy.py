@@ -1,0 +1,306 @@
+"""The port's learner against the JAX package: ``PixelActorCritic`` with
+carried weights, the Flax <-> state_dict interop, ``compute_gae`` and one
+PPO update of ``make_ppo`` on a fixed trajectory.
+
+Tolerances:
+- float32 nets: 1e-6 absolute (the same float32 products, summed in another
+  order by the two libraries' matrix products);
+- bf16 nets: 1e-3 of the output's largest magnitude. The layers round to
+  bf16 after float32 sums taken in another order, so a hidden unit can land
+  one bf16 step (2^-8 relative) away, which the float32 heads carry scaled
+  by their weights (measured: 1e-9 on the mean, 1e-7 on the value);
+- GAE: 1e-6 (the same recursion in float32);
+- one PPO update in float32: loss terms and approx_kl 1e-6 absolute plus
+  1e-5 relative, updated weights 1e-6 (Adam's first step moves each weight
+  by about the learning rate whatever the gradient's size, so gradient
+  rounding moves the weights by far less).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fpyv_tpu.models.policy import PixelActorCritic as JNet
+from fpyv_tpu.rl.gae import compute_gae as jgae
+from fpyv_tpu.rl.ppo import PpoConfig as JConfig, Transition as JTransition, make_ppo as jmake
+from fpyv_tpu_torch import interop
+from fpyv_tpu_torch.models.policy import PixelActorCritic as TNet
+from fpyv_tpu_torch.rl.gae import compute_gae
+from fpyv_tpu_torch.rl import ppo as tppo
+from fpyv_tpu_torch.rl.ppo import PpoConfig, Transition, make_ppo
+
+H, W, NP = 24, 32, 12
+N = 16
+
+
+def _nets(pool=1, prepatched=False, bf16=False, seed=0):
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
+    jnet = JNet(action_dim=4, torso="patch", prepatched=prepatched, compute_dtype=jdt,
+                patch_pool=pool)
+    px = jnp.zeros((1, NP, 64) if prepatched else (1, H, W), jnp.float32)
+    params = jnet.init(jax.random.key(seed), px, jnp.zeros((1, 5), jnp.float32))
+    params = jax.tree.map(np.asarray, params)
+    tnet = TNet(action_dim=4, n_patches=NP, torso="patch", prepatched=prepatched,
+                compute_dtype=tdt, patch_pool=pool, device="cpu")
+    tnet.load_state_dict(interop.policy_params_from_numpy(params, "cpu"))
+    return jnet, params, tnet
+
+
+def _inputs(seed, u8, prepatched, n=N):
+    rng = np.random.default_rng(seed)
+    lev = rng.integers(0, 256, size=(n, H, W)).astype(np.uint8)
+    if prepatched:
+        lev = lev.reshape(n, H // 8, 8, W // 8, 8).transpose(0, 1, 3, 2, 4).reshape(n, NP, 64)
+    px = lev if u8 else (lev.astype(np.float32) / np.float32(255.0))
+    proprio = rng.normal(size=(n, 5)).astype(np.float32)
+    return px, proprio
+
+
+@pytest.mark.parametrize("prepatched", [False, True])
+@pytest.mark.parametrize("pool", [1, 4])
+@pytest.mark.parametrize("u8", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_pixel_actor_critic_matches_flax(prepatched, pool, u8, bf16):
+    jnet, params, tnet = _nets(pool, prepatched, bf16)
+    px, proprio = _inputs(1, u8, prepatched)
+    jm, jls, jv = jnet.apply(params, jnp.asarray(px), jnp.asarray(proprio))
+    with torch.no_grad():
+        tm, tls, tv = tnet(torch.from_numpy(px), torch.from_numpy(proprio))
+    assert tm.dtype == tv.dtype == torch.float32
+    if bf16:
+        tol_m, tol_v = 1e-3 * np.abs(np.asarray(jm)).max(), 1e-3 * np.abs(np.asarray(jv)).max()
+    else:
+        tol_m = tol_v = 1e-6
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=tol_m, rtol=0)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=tol_v, rtol=0)
+    np.testing.assert_array_equal(tls.detach().numpy(), np.asarray(jls))
+    assert np.abs(np.asarray(jm)).max() > 1e-3  # premise: the heads are not all zero
+
+
+def test_prepatched_matches_standard():
+    """The patch-major path and the (H, W) path share parameters and give
+    the same outputs (float32)."""
+    _, params, std = _nets(prepatched=False)
+    pre = TNet(action_dim=4, n_patches=NP, torso="patch", prepatched=True, compute_dtype=None,
+               device="cpu")
+    pre.load_state_dict(std.state_dict())
+    px, proprio = _inputs(2, True, False)
+    with torch.no_grad():
+        a = std(torch.from_numpy(px), torch.from_numpy(proprio))
+        b = pre(std.patchify(torch.from_numpy(px)), torch.from_numpy(proprio))
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("pool", [1, 4])
+def test_interop_round_trip(pool):
+    _, params, tnet = _nets(pool)
+    back = interop.policy_params_to_numpy(tnet)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    again = interop.policy_params_from_numpy(back, "cpu")
+    for k, v in tnet.state_dict().items():
+        torch.testing.assert_close(again[k], v, atol=0, rtol=0)
+
+
+def test_init_follows_flax_distributions():
+    net = TNet(action_dim=4, n_patches=108, torso="patch", device="cpu")
+    net.init_params(torch.Generator().manual_seed(0))
+    w = net.fc0.weight.detach()  # fan_in 13829
+    std = 1.0 / np.sqrt(w.shape[1])
+    assert abs(w.std().item() / std - 1.0) < 0.01
+    assert w.abs().max().item() <= 2.0 * std / 0.87962566103423978 + 1e-6  # truncated at 2 sigma
+    pm = net.pi_mean.weight.detach().double()  # (4, 256): orthonormal rows x 0.01
+    torch.testing.assert_close(pm @ pm.T, 1e-4 * torch.eye(4, dtype=torch.float64), atol=1e-9,
+                               rtol=0)
+    assert torch.equal(net.log_std.detach(), torch.full((4,), -0.5))
+    for layer in (net.patch_embed, net.fc0, net.pi_mean, net.v_out):
+        assert not layer.bias.detach().any()
+
+
+def test_unported_options_raise():
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TNet(action_dim=4, n_patches=NP, torso="conv", device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        TNet(action_dim=4, n_patches=NP, torso="patch", gru=32, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        PpoConfig(adam_mu_dtype="bf16")
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gae_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    T, n = 32, 64
+    r = rng.normal(size=(T, n)).astype(np.float32)
+    v = rng.normal(size=(T, n)).astype(np.float32)
+    d = rng.random((T, n)) < 0.1
+    last = rng.normal(size=(n,)).astype(np.float32)
+    ja, jt = jgae(jnp.asarray(r), jnp.asarray(v), jnp.asarray(d), jnp.asarray(last), 0.99, 0.95)
+    ta, tt = compute_gae(*map(torch.from_numpy, (r, v, d, last)), 0.99, 0.95)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# One PPO update on a fixed trajectory
+# ---------------------------------------------------------------------------
+
+T_PPO = 4
+LOSS_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl")
+
+
+def _trajectory(jnet, params, seed, reward_scale):
+    rng = np.random.default_rng(seed)
+    px = rng.integers(0, 256, size=(T_PPO + 1, N, NP * 64)).astype(np.uint8)
+    pr = rng.normal(size=(T_PPO + 1, N, 5)).astype(np.float32)
+    mean, log_std, value = jnet.apply(params, jnp.asarray(px[:T_PPO].reshape(T_PPO, N, NP, 64)),
+                                      jnp.asarray(pr[:T_PPO]))
+    mean, value = np.asarray(mean), np.asarray(value)
+    action = (mean + np.exp(np.asarray(log_std)) * rng.normal(size=mean.shape)).astype(np.float32)
+    # stored log-probs and values off the current net's, so the ratio and the
+    # value clip have work to do
+    lp = np.asarray(jnp.sum(-0.5 * ((action - mean) / np.exp(np.asarray(log_std)))**2
+                            - np.asarray(log_std) - 0.5 * np.log(2 * np.pi), -1))
+    lp = (lp + 0.05 * rng.normal(size=lp.shape)).astype(np.float32)
+    value = (value + 0.3 * rng.normal(size=value.shape)).astype(np.float32)
+    return dict(px=px, pr=pr, action=action, log_prob=lp, value=value,
+                reward=(reward_scale * rng.normal(size=(T_PPO, N))).astype(np.float32),
+                done=rng.random((T_PPO, N)) < 0.2)
+
+
+@pytest.mark.parametrize("case,max_grad_norm,reward_scale", [("clip fires", 1e-3, 1.0),
+                                                             ("no clip", 1e3, 10.0)])
+def test_ppo_update_matches_jax(case, max_grad_norm, reward_scale, monkeypatch):
+    jnet, params, tnet = _nets(prepatched=True)
+    tr = _trajectory(jnet, params, 3, reward_scale)
+    kw = dict(num_envs=N, num_steps=T_PPO, update_epochs=1, num_minibatches=1,
+              max_grad_norm=max_grad_norm)
+
+    def j_apply(p, obs):
+        px = obs["pixels"]
+        return jnet.apply(p, px.reshape(px.shape[:-1] + (NP, 64)), obs["proprio"])
+
+    jtraj = JTransition(obs={"pixels": jnp.asarray(tr["px"][:T_PPO]),
+                             "proprio": jnp.asarray(tr["pr"][:T_PPO])},
+                        action=jnp.asarray(tr["action"]), log_prob=jnp.asarray(tr["log_prob"]),
+                        value=jnp.asarray(tr["value"]), reward=jnp.asarray(tr["reward"]),
+                        done=jnp.asarray(tr["done"]))
+    jlast = {"pixels": jnp.asarray(tr["px"][T_PPO]), "proprio": jnp.asarray(tr["pr"][T_PPO])}
+    jinit, jiter = jmake(j_apply, None, JConfig(**kw),
+                         rollout_fn=lambda s: (s.env_state, jlast, s.key, jtraj))
+    jstate, jinfo = jiter(jinit(params, jnp.zeros(1), jlast, jax.random.key(0)))
+
+    def t_apply(net, obs):
+        px = obs["pixels"]
+        return net(px.reshape(px.shape[:-1] + (NP, 64)), obs["proprio"])
+
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in tr.items()}
+    ttraj = Transition(obs={"pixels": t["px"][:T_PPO], "proprio": t["pr"][:T_PPO]},
+                       action=t["action"], log_prob=t["log_prob"], value=t["value"],
+                       reward=t["reward"], done=t["done"])
+    tlast = {"pixels": t["px"][T_PPO], "proprio": t["pr"][T_PPO]}
+    norms = []
+
+    def clip_spy(ps, max_norm):
+        norm = real_clip(ps, max_norm)
+        norms.append(norm.item())
+        return norm
+
+    real_clip = tppo.clip_by_global_norm_
+    monkeypatch.setattr(tppo, "clip_by_global_norm_", clip_spy)
+    tinit, titer = make_ppo(t_apply, None, PpoConfig(**kw),
+                            rollout_fn=lambda s: (s.env_state, tlast, ttraj))
+    tstate, tinfo = titer(tinit(tnet, torch.zeros(1), tlast, torch.Generator().manual_seed(0)))
+
+    for k in LOSS_KEYS:
+        np.testing.assert_allclose(tinfo[k].item(), float(jinfo[k]), atol=1e-6, rtol=1e-5,
+                                   err_msg=k)
+    np.testing.assert_allclose(tinfo["mean_reward"].item(), float(jinfo["mean_reward"]),
+                               rtol=1e-6)
+    new = jax.tree.leaves(interop.policy_params_to_numpy(tstate.params))
+    ref = jax.tree.leaves(jax.tree.map(np.asarray, jstate.params))
+    for a, b in zip(new, ref):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    moved = max(np.abs(b - p0).max() for b, p0 in zip(ref, jax.tree.leaves(params)))
+    assert moved > 1e-4  # premise: the update moved the weights (lr 3e-4)
+    # premise: the clip fires, or not, as the case says
+    assert len(norms) == 1 and (norms[0] >= max_grad_norm) == (case == "clip fires")
+    # premise: the advantage std matters: with torch's default Bessel-corrected
+    # std the policy loss would differ from the JAX one by 10x its tolerance
+    last_v = torch.from_numpy(np.array(j_apply(params, jlast)[2]))
+    adv = compute_gae(t["reward"], t["value"], t["done"], last_v, 0.99, 0.95)[0].reshape(-1)
+    m, ls, _ = j_apply(params, jtraj.obs)
+    ratio = torch.from_numpy(np.array(jnp.exp(
+        jnp.sum(-0.5 * ((jtraj.action - m) / jnp.exp(ls))**2 - ls - 0.5 * np.log(2 * np.pi), -1)
+        - jtraj.log_prob))).reshape(-1)
+    bessel = (adv - adv.mean()) / (adv.std() + 1e-8)
+    pg_bessel = -torch.mean(torch.minimum(ratio * bessel, torch.clamp(ratio, 0.8, 1.2) * bessel))
+    pg_tol = 1e-6 + 1e-5 * abs(float(jinfo["pg_loss"]))
+    assert abs(pg_bessel.item() - float(jinfo["pg_loss"])) > 10 * pg_tol
+
+
+def test_default_rollout_runs_a_toy_env():
+    """make_ppo's own per-step rollout (no rollout_fn) on a point-mass env:
+    shapes, a finite loss, and the generator drives the action noise."""
+
+    class Lin(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mu = torch.nn.Linear(2, 1)
+            self.v = torch.nn.Linear(2, 1)
+            self.log_std = torch.nn.Parameter(torch.zeros(1))
+
+        def forward(self, obs):
+            return self.mu(obs), self.log_std, self.v(obs)[..., 0]
+
+    def env_step(x, action, generator):
+        x = x + 0.1 * torch.cat([action, -action], -1)
+        reward = -(x * x).sum(-1)
+        done = reward < -4.0
+        x = torch.where(done[:, None], torch.zeros_like(x), x)
+        return x, x, reward, done
+
+    def run(seed):
+        cfg = PpoConfig(num_envs=32, num_steps=8, update_epochs=2, num_minibatches=4,
+                        shuffle_block=8)
+        init, it = make_ppo(lambda net, obs: net(obs), env_step, cfg)
+        torch.manual_seed(0)
+        net = Lin()
+        x0 = torch.zeros(32, 2)
+        state = init(net, x0, x0, torch.Generator().manual_seed(seed))
+        for _ in range(3):
+            state, info = it(state)
+        return state, info
+
+    s1, info = run(0)
+    s2, _ = run(0)
+    s3, _ = run(1)
+    assert s1.update_count == 3 and s1.env_state.shape == (32, 2)
+    assert all(np.isfinite(v.item()) for v in info.values())
+    assert torch.equal(s1.env_state, s2.env_state)  # same generator seed, same run
+    assert not torch.equal(s1.env_state, s3.env_state)
+
+
+def test_metrics_and_throughput(tmp_path):
+    """The port's own copies of the JAX utils: the JSONL logger, the
+    env-steps/s meter and the mean +- std timer."""
+    import json
+
+    from fpyv_tpu_torch.utils.metrics import MetricsLogger
+    from fpyv_tpu_torch.utils.profiling import Throughput, timeit
+
+    log = MetricsLogger(str(tmp_path), print_every=0)
+    log.log(3, {"loss": np.float32(0.5), "vec": np.arange(4.0)})
+    log.close()
+    rec = json.loads((tmp_path / "metrics.jsonl").read_text())
+    assert rec["step"] == 3 and rec["loss"] == 0.5 and rec["vec"] == 1.5
+    meter = Throughput()
+    meter.add(1000)
+    assert meter.rate() > 0 and meter.report().endswith("env-steps/s")
+    meter.reset()
+    assert meter.rate() == 0.0
+    out, (mean, std) = timeit(lambda x: x + 1, n=3)(1)
+    assert out == 2 and mean >= 0 and std >= 0
