@@ -59,7 +59,21 @@ each:
    (first chunk left out); one iteration split with CUDA events into the
    rollout (K7 + the bootstrap frame) and the learner, and traced under
    ``torch.profiler``: the device's busy share and its top kernels. K7's
-   row joins the ``kernels`` line: its time at 1024 envs and K = 32.
+   row joins the ``kernels`` line: its time at 1024 envs and K = 32;
+13. K8 (the race rollout) against ``race_vision_rollout_reference``: (a)
+   float32 weights, 64 envs, 96x72, K = 3 frames, 3 obstacles, T = 16,
+   8-step episodes (every env ends): frames (the stacks), env ends, t, next
+   gate, gates passed and the flush flag equal, the rest at the CPU tests'
+   tolerances; (b) bf16 at the race trainer's shape, 1024 envs, K = 4,
+   T = 32, no obstacles, teacher-forced as K7's check (that plain run, timed,
+   is K8's plain_ms);
+14. the race trainer main path with its counters at 0: ``train_vision_race``
+   at ``bench.py::measure_vision_race_trainer``'s recipe (1024 envs,
+   ``frame_stack=4``, ``gate_size=5.0``, 30 iterations, ``scan_chunk=10``):
+   one K8 launch an iteration, K5 for the bootstrap frames, finite losses,
+   trained env-steps/s, mean gates passed, the rollout/learner split and a
+   trace as in phase 12. K8's row joins the ``kernels`` line (K2-K8): its
+   time at 1024 envs, T = 32, K = 4, beside its time at K = 1 and 2.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -78,14 +92,22 @@ from pathlib import Path
 
 import torch
 
-from fpyv_tpu_torch.apps.train import make_vision_trainer, train_vision
+from fpyv_tpu_torch.apps.train import (
+    make_vision_race_trainer,
+    make_vision_trainer,
+    train_vision,
+    train_vision_race,
+)
 from fpyv_tpu_torch.config import SimulatorConfig
 from fpyv_tpu_torch.envs.acro import AcroEnv, vector_reset
+from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv
+from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
 from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv, default_vision_rig
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as ek
 from fpyv_tpu_torch.models.policy import PixelActorCritic
 from fpyv_tpu_torch.ops import policy_kernel as pk
+from fpyv_tpu_torch.ops import race_kernel as rk
 from fpyv_tpu_torch.ops import step_kernel as sk
 from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
@@ -104,6 +126,7 @@ PROBE_K = 1000
 TRAIN_ITERS = 30  # bench.py::measure_vision_trainer: 1024 envs, 30 iterations, chunks of 10
 TRAIN_CHUNK = 10
 K7_STEPS = 32  # the trainer's T
+RACE_STACK = 4  # bench.py::measure_vision_race_trainer: frame_stack=4, gate_size=5.0
 
 # H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
@@ -135,13 +158,15 @@ SOURCES = {"drone_step": "fpyv_tpu_torch/csrc/step_kernels.cu",
            "env_rollout": "fpyv_tpu_torch/csrc/env_kernels.cu",
            "render_depth": "fpyv_tpu_torch/csrc/vision_kernels.cu",
            "vision_env_rollout": "fpyv_tpu_torch/csrc/vision_kernels.cu",
-           "policy_vision_rollout": "fpyv_tpu_torch/csrc/policy_kernels.cu"}
+           "policy_vision_rollout": "fpyv_tpu_torch/csrc/policy_kernels.cu",
+           "race_vision_rollout": "fpyv_tpu_torch/csrc/race_kernels.cu"}
 REPLACES = {"drone_step": "fpyv_tpu/ops/pallas_step.py:313",
             "rollout": "fpyv_tpu/ops/pallas_step.py:326",
             "env_rollout": "fpyv_tpu/ops/pallas_env.py:325",
             "render_depth": "fpyv_tpu/ops/pallas_vision.py:297",
             "vision_env_rollout": "fpyv_tpu/ops/pallas_vision.py:661",
-           "policy_vision_rollout": "fpyv_tpu/ops/pallas_policy.py:194"}
+           "policy_vision_rollout": "fpyv_tpu/ops/pallas_policy.py:194",
+           "race_vision_rollout": "fpyv_tpu/ops/pallas_race.py:133"}
 
 
 def log(msg: str) -> None:
@@ -330,6 +355,83 @@ def policy_ops(hw: int, cfg, n_patches: int, S: int, C: int):
     ops = hw * render_ops(cfg, 0) + step_ops(S, C) + 2 * 13 + 20 + 30 + 41
     flops = 2 * (n_patches * 64 * 128 + (n_patches * 128 + 5) * 256 + 256 * 5)
     return ops, flops
+
+
+def race_setup(dev, gen, n: int, K: int, S: int, max_steps: int, bf16: bool):
+    """The race trainer's single-agent env (96x72, the 6-gate track of gate
+    size 5, S obstacles) on its track, n fresh races as the (N, 22) matrix, a
+    random history of levels and a Flax-initialised frame-stacked net whose
+    std samples and whose mean head steers."""
+    venv = VisionRaceEnv(race=MultiRaceEnv(n_agents=1, gate_size=5.0, max_episode_steps=max_steps,
+                                           n_obstacles=S), frame_stack=K)
+    world = venv.default_world(dev)
+    st, _ = venv.race.reset(gen, world, (n,))
+    hist = torch.randint(0, 256, (n, 108 * (K - 1) * 64), generator=gen, dtype=torch.uint8)
+    net = PixelActorCritic(action_dim=4, n_patches=108, proprio_dim=5 + venv.n_gates,
+                           torso="patch", prepatched=True,
+                           compute_dtype=torch.bfloat16 if bf16 else None, frame_stack=K,
+                           device=dev).init_params(gen)
+    with torch.no_grad():
+        net.log_std.fill_(-0.3)
+        net.pi_mean.weight.mul_(30.0)
+    w = pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+    return (venv, rk.race_state_to_cols(st), hist.to(dev), w, rk.race_world_cols(world),
+            rk.obstacle_cols(world, S))
+
+
+def race_ops(hw: int, cfg, n_patches: int, K: int, G: int):
+    """(float32 operations, bf16 flops) per env-step of K8: the render
+    (render_ops per pixel, every gate live), the camera, obstacle centres,
+    proprio, sampling, physics and the race step; the actor's products as
+    tensor-core work: the K*64-wide embed, fc over its real rows, heads."""
+    S = cfg.n_spheres
+    ops = (hw * render_ops(cfg, G) + 60 + 16 * S + 5 + 3 * G + 2 * 13 + 20 + 30
+           + step_ops(S, 0) + 60)
+    flops = 2 * (n_patches * K * 64 * 128 + (n_patches * 128 + 5 + G) * 256 + 256 * 5)
+    return ops, flops
+
+
+RACE_RESET_OPS = 4 * 13 + 2 * 8 + 6 + 20  # 4 draws, 2 Box-Muller pairs, jitter, gate-0 distances
+
+
+def trainer_split(label: str, trainer) -> None:
+    """One trainer iteration split with CUDA events into the rollout (one
+    kernel launch and the bootstrap frame) and the rest (the learner), best
+    of 3 after a warm-up, then one iteration traced under torch.profiler."""
+    tstate, _ = trainer.train_iteration(trainer.state)  # warm-up
+    split = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        trainer.rollout_fn(tstate)
+        ev[1].record()
+        ev[2].record()
+        tstate, _ = trainer.train_iteration(tstate)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append((ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])))
+    roll_ms, iter_ms = min(r for r, _ in split), min(i for _, i in split)
+    log(f"{label} iteration split (CUDA events, best of 3): rollout (kernel + bootstrap frame) "
+        f"{roll_ms:.6f} ms, whole iteration {iter_ms:.6f} ms, learner {iter_ms - roll_ms:.6f} "
+        f"ms; all {[[round(a, 6), round(b, 6)] for a, b in split]}")
+
+    def one_iteration():
+        nonlocal tstate
+        tstate, _ = trainer.train_iteration(tstate)
+        torch.cuda.synchronize()
+
+    busy, top = device_busy(one_iteration, top=8)
+    log(f"{label} trace: device busy {busy:.6f} of one iteration's wall time; top kernels by "
+        f"device time (ms): {json.dumps(top)}")
+
+
+def train_rows(label: str, log_dir: Path, iters: int):
+    """The trainer's metrics log: one finite row an iteration."""
+    rows = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != iters or not all(math.isfinite(r["loss"]) and
+                                     math.isfinite(r["mean_reward"]) for r in rows):
+        raise AssertionError(f"{label}: missing or non-finite losses or rewards")
+    return rows
 
 
 def main() -> int:
@@ -710,40 +812,12 @@ def main() -> int:
         raise AssertionError(f"trainer: expected {TRAIN_ITERS} K7 launches and at least as many "
                              f"K5 launches, saw {got}")
     launches["policy_vision_rollout"] = got["policy_vision_rollout"]
-    rows = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
-    if len(rows) != TRAIN_ITERS or not all(math.isfinite(r["loss"]) and
-                                           math.isfinite(r["mean_reward"]) for r in rows):
-        raise AssertionError("trainer: missing or non-finite losses or rewards")
+    rows = train_rows("trainer", log_dir, TRAIN_ITERS)
     log(f"trainer main path: {res.steps_per_second:.6e} trained env-steps/s (N={N_VISION}, "
         f"T={K7_STEPS}, {TRAIN_ITERS} iterations in chunks of {TRAIN_CHUNK}, first chunk left "
         f"out; {train_s:.3f} s in all), reward {res.mean_reward_first:.6f} -> "
         f"{res.mean_reward_last:.6f}, last loss {rows[-1]['loss']:.6f}, on {smi}")
-    trainer = make_vision_trainer(num_envs=N_VISION)
-    tstate, _ = trainer.train_iteration(trainer.state)  # warm-up
-    split = []
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        trainer.rollout_fn(tstate)
-        ev[1].record()
-        ev[2].record()
-        tstate, _ = trainer.train_iteration(tstate)
-        ev[3].record()
-        torch.cuda.synchronize()
-        split.append((ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])))
-    roll_ms, iter_ms = min(r for r, _ in split), min(i for _, i in split)
-    log(f"trainer iteration split (CUDA events, best of 3): rollout (K7 + bootstrap frame) "
-        f"{roll_ms:.6f} ms, whole iteration {iter_ms:.6f} ms, learner {iter_ms - roll_ms:.6f} "
-        f"ms; all {[[round(a, 6), round(b, 6)] for a, b in split]}")
-
-    def one_iteration():
-        nonlocal tstate
-        tstate, _ = trainer.train_iteration(tstate)
-        torch.cuda.synchronize()
-
-    busy, top = device_busy(one_iteration, top=8)
-    log(f"trainer trace: device busy {busy:.6f} of one iteration's wall time; top kernels by "
-        f"device time (ms): {json.dumps(top)}")
+    trainer_split("trainer", make_vision_trainer(num_envs=N_VISION))
 
     # K7's row: 1024 envs, K = 32, bf16, at the trainer's shapes
     n_patches = hw // 64
@@ -757,6 +831,102 @@ def main() -> int:
                 + 3 * hw * 4 + wbytes)
     row("policy_vision_rollout", ms, k7_plain_ms, N_VISION * K7_STEPS * ops + k7_crashes
         * reset_ops(False, False), k7_bytes, N_VISION * K7_STEPS * flops)
+
+    # ---- 13. K8 against its plain version ----------------------------------------------
+    # (a) float32 weights across resets, 3 obstacles, a 3-frame stack
+    venv8, rcols, rhist, rw32, rwcol, rocol = race_setup(dev, gen, 64, 3, 3, 8, bf16=False)
+    out = rk.launch_race_vision_rollout(venv8, rcols, rhist, rwcol, rocol, rw32, 16, 5)
+    torch.cuda.synchronize()
+    ref = rk.race_vision_rollout_reference(venv8, rcols, rhist, rwcol, rocol, rw32, 16, 5)
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[2][..., 5], ref[2][..., 5])
+            and all(torch.equal(out[3][:, c], ref[3][:, c]) for c in (14, 15, 16, 19, 21))):
+        raise AssertionError("K8 (float32): frames, env ends or gate counters differ")
+    ends_a = int(ref[2][..., 5].sum().item())
+    if not (ref[2][..., 5].sum(0) >= 2).all():
+        raise AssertionError("K8 (float32): expected every env to end at least twice")
+    e8 = max(max_err("extra", out[1], ref[1], TOL_K7["extra"]),
+             max_err("action", out[2][..., :4], ref[2][..., :4], TOL_K7["action"]),
+             max_err("reward", out[2][..., 4], ref[2][..., 4], TOL_K7["reward"]),
+             max_err("value", out[2][..., 6], ref[2][..., 6], TOL_K7["value"]),
+             max_err("log_prob", out[2][..., 7], ref[2][..., 7], TOL_K7["log_prob"]),
+             max_err("state", out[3], ref[3], TOL_K7["state"]))
+    log(f"K8 race_vision_rollout (float32, N=64, K=3 frames, 3 obstacles, T=16, 8-step "
+        f"episodes, {ends_a} env ends): frames, env ends and gate counters equal, max abs err "
+        f"{e8}")
+    # (b) bf16 at the race trainer's shape, teacher-forced
+    venvr, rcols, rhist, rwbf, rwcol, rocol = race_setup(dev, gen, N_VISION, RACE_STACK, 0, 2000,
+                                                         bf16=True)
+    frames, extra, aux, rstate_k = rk.launch_race_vision_rollout(venvr, rcols, rhist, rwcol,
+                                                                 rocol, rwbf, K7_STEPS, 9)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    rf, rex, raux, rstate = rk.race_vision_rollout_reference(
+        venvr, rcols, rhist, rwcol, rocol, rwbf, K7_STEPS, 9, forced_actions=aux[..., :4])
+    ev[1].record()
+    torch.cuda.synchronize()
+    k8_plain_ms = ev[0].elapsed_time(ev[1])
+    if not (torch.equal(frames, rf) and torch.equal(aux[..., 5], raux[..., 5])):
+        raise AssertionError("K8 (bf16, teacher-forced): frames or env ends differ")
+    k8_ends = int(aux[..., 5].sum().item())
+    eb = max(max_err("bf16 extra", extra, rex, TOL_K7["extra"]),
+             max_err("bf16 action", aux[..., :4], raux[..., :4], TOL_K7_BF16["action"]),
+             max_err("bf16 value", aux[..., 6], raux[..., 6], TOL_K7_BF16["value"]),
+             max_err("bf16 reward", aux[..., 4], raux[..., 4], TOL_K7_BF16["reward"]),
+             max_err("bf16 state", rstate_k, rstate, TOL_K7_BF16["state"]))
+    errors["race_vision_rollout"] = max(e8, eb)
+    if not (torch.isfinite(aux).all() and torch.isfinite(rstate_k).all()):
+        raise AssertionError("K8: non-finite outputs")
+    log(f"K8 race_vision_rollout (bf16, N={N_VISION}, K={RACE_STACK} frames, T={K7_STEPS}, "
+        f"teacher-forced, {k8_ends} env ends): frames and env ends equal, max abs err {eb}")
+
+    # ---- 14. race trainer main path, counters from 0 ------------------------------------
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "race_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_vision_race(num_envs=N_VISION, num_iterations=TRAIN_ITERS,
+                            frame_stack=RACE_STACK, gate_size=5.0, scan_chunk=TRAIN_CHUNK,
+                            print_every=0, log_dir=str(log_dir))
+    train_s = time.perf_counter() - t0
+    got = {}
+    read_counts("race trainer main path", ("race_vision_rollout", "render_depth"), got)
+    if got["race_vision_rollout"] != TRAIN_ITERS or got["render_depth"] < TRAIN_ITERS:
+        raise AssertionError(f"race trainer: expected {TRAIN_ITERS} K8 launches and at least as "
+                             f"many K5 launches, saw {got}")
+    launches["race_vision_rollout"] = got["race_vision_rollout"]
+    rows = train_rows("race trainer", log_dir, TRAIN_ITERS)
+    log(f"race trainer main path: {res.steps_per_second:.6e} trained env-steps/s "
+        f"(N={N_VISION}, T={K7_STEPS}, K={RACE_STACK} frames, gate size 5, {TRAIN_ITERS} "
+        f"iterations in chunks of {TRAIN_CHUNK}, first chunk left out; {train_s:.3f} s in all), "
+        f"reward {res.mean_reward_first:.6f} -> {res.mean_reward_last:.6f}, mean gates passed "
+        f"{rows[0]['mean_gates_passed']:.6f} -> {rows[-1]['mean_gates_passed']:.6f}, last loss "
+        f"{rows[-1]['loss']:.6f}, on {smi}")
+    trainer_split("race trainer", make_vision_race_trainer(num_envs=N_VISION,
+                                                           frame_stack=RACE_STACK))
+
+    # K8's row: 1024 envs, T = 32, K = 4, bf16, at the race trainer's shapes
+    ms = cuda_ms(lambda: rk.launch_race_vision_rollout(venvr, rcols, rhist, rwcol, rocol, rwbf,
+                                                       K7_STEPS, 9), 5)
+    rcfg = rk.race_render_config(venvr)
+    G = venvr.n_gates
+    ops, flops = race_ops(hw, rcfg, n_patches, RACE_STACK, G)
+    wbytes = sum(t.numel() * t.element_size() for t in (rwbf.we, rwbf.be, rwbf.bf, rwbf.wm,
+                                                        rwbf.bm, rwbf.std))
+    wbytes += (n_patches * 128 + 5 + G) * rwbf.wf.shape[1] * rwbf.wf.element_size()
+    k8_bytes = (K7_STEPS * N_VISION * (RACE_STACK * hw + (16 + 8) * 4)
+                + N_VISION * (2 * 22 * 4 + (RACE_STACK - 1) * hw) + 3 * hw * 4
+                + (15 * G + 1 + 8) * 4 + wbytes)
+    # what the stack costs: K8 at 1, 2 and 4 frames, same envs and steps
+    sweep = {}
+    for K in (1, 2, RACE_STACK):
+        sv, scols, shist, sw, swcol, socol = race_setup(dev, gen, N_VISION, K, 0, 2000, bf16=True)
+        sweep[K] = cuda_ms(lambda: rk.launch_race_vision_rollout(sv, scols, shist, swcol, socol,
+                                                                 sw, K7_STEPS, 9), 3)
+    log(f"K8 by frame stack (N={N_VISION}, T={K7_STEPS}, bf16, ms a launch): "
+        f"{json.dumps(sweep)} on {smi}")
+    row("race_vision_rollout", ms, k8_plain_ms, N_VISION * K7_STEPS * ops
+        + k8_ends * RACE_RESET_OPS, k8_bytes, N_VISION * K7_STEPS * flops)
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

@@ -1,5 +1,5 @@
-"""Pixel PPO trainer (mirrors ``fpyv_tpu.apps.train``'s ``train_vision``
-on its kernel rollout path).
+"""Pixel PPO trainers (mirrors ``fpyv_tpu.apps.train``'s ``train_vision``
+and ``train_vision_race`` on their kernel rollout paths).
 
 ``train_vision`` trains ``PixelActorCritic(torso="patch")`` on per-env
 randomized worlds with the policy-in-kernel rollout: every iteration is one
@@ -9,11 +9,18 @@ then the PyTorch PPO learner (:mod:`fpyv_tpu_torch.rl.ppo`). Checkpoints
 hold the full state (params, Adam, env matrix, last obs, generator), so a
 resumed run continues exactly as an unbroken one.
 
+``train_vision_race`` trains the single-drone gate racer from pixels: a
+frame-stacked ``PixelActorCritic`` over ``VisionRaceEnv``'s FPV view of the
+gate track (with orbiting obstacles where asked), one launch of K8 an
+iteration (:mod:`fpyv_tpu_torch.ops.race_kernel`), the bootstrap frame
+through K5, then the same learner. Its PPO carry is (state matrix, frame
+history), and checkpoints hold both.
+
 Not ported yet, and refused with a ValueError instead of the JAX trainer's
 silent fallback to its scan rollout (ROADMAP queue 1): the scan rollout, the
 conv torso, the target-only and splat views, multi-device training, the
-world curriculum and Adam's bf16 first moment. ``train_acro`` (the state
-learner) waits in the same queue.
+world curriculum, Adam's bf16 first moment, multi-agent racing and the GRU.
+``train_acro`` (the state learner) waits in the same queue.
 """
 
 from __future__ import annotations
@@ -26,9 +33,12 @@ import torch
 
 from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.envs.acro import AcroEnv
+from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv
 from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv
+from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
 from fpyv_tpu_torch.models.policy import PixelActorCritic
 from fpyv_tpu_torch.ops.policy_kernel import PP, acro_state_to_cols, make_kernel_vision_ppo_parts
+from fpyv_tpu_torch.ops.race_kernel import make_kernel_race_ppo_parts
 from fpyv_tpu_torch.physics.drone import DroneParams
 from fpyv_tpu_torch.rl.ppo import PpoConfig, make_ppo, scan_train
 from fpyv_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -89,10 +99,10 @@ def _generators(seed: int):
 
 @dataclass
 class VisionTrainer:
-    """The kernel-rollout trainer's pieces: the PPO state (the net, Adam,
-    the (N, 18) env matrix, the bootstrap obs, the generator), one
-    iteration, and the rollout alone (one K7 launch and the bootstrap
-    frame), which the iteration runs first."""
+    """A kernel-rollout trainer's pieces: the PPO state (the net, Adam, the
+    env carry, the bootstrap obs, the generator), one iteration, and the
+    rollout alone (one K7 or K8 launch and the bootstrap frame), which the
+    iteration runs first."""
 
     state: object
     train_iteration: object
@@ -192,6 +202,119 @@ def train_vision(
         num_envs=num_envs, num_steps=num_steps, seed=seed, randomize_worlds=randomize_worlds,
         rig=rig, learning_rate=learning_rate, num_minibatches=num_minibatches,
         update_epochs=update_epochs, compute_dtype=compute_dtype, patch_pool=patch_pool,
+        kernel_exact_logprob=kernel_exact_logprob, device=device)
+    state, start_iter = trainer.state, 0
+    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
+        start_iter = latest_step(checkpoint_dir)
+        state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
+        print(f"resumed from checkpoint at iteration {start_iter}")
+    return _train_loop(state, trainer.train_iteration, num_envs=num_envs, num_steps=num_steps,
+                       num_iterations=num_iterations, start_iter=start_iter,
+                       scan_chunk=scan_chunk, log_dir=log_dir, print_every=print_every,
+                       checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+
+
+def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0,
+                             rig=None, learning_rate: float = 3e-4, num_minibatches: int = 8,
+                             update_epochs: int = 2, gate_size: float = 5.0,
+                             max_episode_steps: int = 2000, frame_width: float = 0.35,
+                             compute_dtype: str = "bf16", ent_coef: float = 0.01,
+                             gate_onehot: bool = True, frame_stack: int = 1,
+                             n_obstacles: int = 0, obstacle_period: int = 600,
+                             patch_pool: int = 1, kernel_exact_logprob: bool = False,
+                             device=None) -> VisionTrainer:
+    """train_vision_race's kernel path, ready to run: the race bank on the
+    default track, the frame-stacked net, the PPO learner around the K8
+    rollout (arguments as :func:`train_vision_race`'s)."""
+    if compute_dtype not in ("bf16", "f32"):
+        raise ValueError(f"compute_dtype must be 'bf16' or 'f32', got {compute_dtype!r}")
+    cdt = torch.bfloat16 if compute_dtype == "bf16" else None
+    device = resolve_device(device)
+    venv = VisionRaceEnv(
+        race=MultiRaceEnv(n_agents=1, gate_size=gate_size, max_episode_steps=max_episode_steps,
+                          n_obstacles=n_obstacles, obstacle_period=obstacle_period),
+        frame_width=frame_width, gate_onehot=gate_onehot, frame_stack=frame_stack,
+        **({"rig": rig} if rig is not None else {}))
+    _, g_env, g_net, g_train = _generators(seed)
+    world = venv.default_world(device)
+    W, H = venv.rig.resolution
+    net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PP, proprio_dim=5 + venv.n_gates,
+                           torso="patch", prepatched=True, compute_dtype=cdt,
+                           patch_pool=patch_pool, frame_stack=frame_stack,
+                           device=device).init_params(g_net)
+    config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
+                       num_minibatches=num_minibatches, update_epochs=update_epochs,
+                       ent_coef=ent_coef)
+    apply_fn, make_rollout_fn, obs_from_carry, init_carry, race_metrics = (
+        make_kernel_race_ppo_parts(venv, world, net, num_envs))
+    carry = init_carry(g_env)
+    rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
+                                 exact_logprob=kernel_exact_logprob)
+    init, train_iteration = make_ppo(apply_fn, None, config, metrics_fn=race_metrics,
+                                     rollout_fn=rollout_fn)
+    return VisionTrainer(init(net, carry, obs_from_carry(carry), g_train), train_iteration,
+                         rollout_fn)
+
+
+def train_vision_race(
+    num_envs: int = 1024,
+    n_agents: int = 1,
+    num_iterations: int = 300,
+    num_steps: int = 32,
+    seed: int = 0,
+    distributed: bool = False,
+    log_dir: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
+    resume: bool = False,
+    learning_rate: float = 3e-4,
+    print_every: int = 10,
+    scan_chunk: int = 20,
+    num_minibatches: int = 8,
+    update_epochs: int = 2,
+    gate_size: float = 5.0,
+    max_episode_steps: int = 2000,
+    frame_width: float = 0.35,
+    torso: str = "patch",
+    compute_dtype: str = "bf16",
+    ent_coef: float = 0.01,  # pixels explore harder than state obs
+    gate_onehot: bool = True,  # False: race from the pixels and the IMU alone
+    frame_stack: int = 1,  # the last K depth frames as the pixel obs
+    n_obstacles: int = 0,  # obstacle spheres orbiting the track (contact = crash)
+    obstacle_period: int = 600,  # steps per obstacle revolution
+    rollout: str = "auto",  # "auto" and "kernel": the K8 rollout
+    patch_pool: int = 1,
+    adam_mu_dtype: Optional[str] = None,
+    kernel_exact_logprob: bool = False,
+    gru: int = 0,
+    rig=None,
+    device=None,  # CUDA unless "cpu" (the kernels' plain versions)
+) -> TrainResult:
+    """Gate racing from pixels: the single-drone ``MultiRaceEnv`` whose
+    observation is the FPV depth view of the gate track
+    (``VisionRaceEnv``), trained with the PPO recipe of ``train_vision``;
+    the metrics log gates passed. The multi-agent knobs of the JAX trainer
+    (collision radius, overtake reward, spawn permutation, opponents in
+    view) come with ``n_agents > 1``, which is not ported yet."""
+    if rollout not in ("auto", "kernel"):
+        raise _not_ported(f"rollout={rollout!r}")
+    if n_agents != 1:
+        raise _not_ported(f"n_agents={n_agents} (multi-agent racing)")
+    if gru:
+        raise _not_ported(f"gru={gru} (recurrent PPO)")
+    if torso != "patch":
+        raise _not_ported(f"torso={torso!r}")
+    if distributed:
+        raise _not_ported("distributed=True")
+    if adam_mu_dtype is not None:
+        raise _not_ported(f"adam_mu_dtype={adam_mu_dtype!r}")
+    trainer = make_vision_race_trainer(
+        num_envs=num_envs, num_steps=num_steps, seed=seed, rig=rig,
+        learning_rate=learning_rate, num_minibatches=num_minibatches,
+        update_epochs=update_epochs, gate_size=gate_size, max_episode_steps=max_episode_steps,
+        frame_width=frame_width, compute_dtype=compute_dtype, ent_coef=ent_coef,
+        gate_onehot=gate_onehot, frame_stack=frame_stack, n_obstacles=n_obstacles,
+        obstacle_period=obstacle_period, patch_pool=patch_pool,
         kernel_exact_logprob=kernel_exact_logprob, device=device)
     state, start_iter = trainer.state, 0
     if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:

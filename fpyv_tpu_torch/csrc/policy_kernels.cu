@@ -41,6 +41,7 @@
 // on the bf16 tensor cores. This first version runs the products on the
 // CUDA cores as well (2.9e11 flops, at least 4.3 ms at the float32 rate):
 // right first, the tensor cores are a later step (PERF.md, ROADMAP 2b).
+#include "actor.cuh"
 #include "env.cuh"
 #include "render.cuh"
 
@@ -52,6 +53,8 @@
 using fpyv::Cylinders;
 using fpyv::EnvConsts;
 using fpyv::EnvPhysics;
+using fpyv::kEmbed;
+using fpyv::kPatch;
 using fpyv::kStateRows;
 using fpyv::RenderConsts;
 using fpyv::Spheres;
@@ -60,12 +63,10 @@ using fpyv::WorldRay;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = fpyv::kActorThreads;
 constexpr int kEnvs = 8;    // envs a block owns
 constexpr int kRows = 18;   // 0:3 pos, 3:6 vel, 6:10 quat, 10:13 rates, 13 thrust,
                             // 14 done, 15 t, 16 prev_dist, 17 accel_z
-constexpr int kPatch = 64;  // pixels of an 8x8 patch
-constexpr int kEmbed = 128;
 constexpr int kOut = 8;     // extra and aux columns
 constexpr int kCam = 16;
 
@@ -76,34 +77,6 @@ struct PolicyConsts {
   float log_2pi2;  // 2 log(2 pi): the four action dims' normaliser
   float mount[9], rel[3];
 };
-
-__device__ __forceinline__ float wload(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float wload(const __nv_bfloat16* p) {
-  return __bfloat162float(
-      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-// Rounding to the compute type (identity in float32).
-template <bool kBF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (kBF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-// acc + x w. In bf16 both factors carry 8 significant bits, so the product
-// is exact and one fma rounds as multiply-then-add does.
-template <bool kBF16>
-__device__ __forceinline__ float madd(float acc, float x, float w) {
-  if constexpr (kBF16) {
-    return __fmaf_rn(x, w, acc);
-  } else {
-    return acc + x * w;
-  }
-}
 
 template <typename W, bool kBF16>
 __global__ void __launch_bounds__(kThreads)
@@ -142,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
   const int env0 = blockIdx.x * E;
   const int ne = min(E, n - env0);  // envs of this block (the last may hold fewer)
   const bool owner = tid < ne;      // thread e owns env env0 + e
-  for (int j = tid; j < 256; j += kThreads) lut[j] = rnd<kBF16>(static_cast<float>(j) / 255.0f);
+  fpyv::fill_level_table<kBF16>(lut);
   // rows of absent envs stay zero: the actor runs all E, their outputs go nowhere
   for (int j = tid; j < E * kOut; j += kThreads) prop_s[j] = 0.0f;
   for (int j = ne * hw + tid; j < E * hw; j += kThreads) frame_s[j] = 0;
@@ -191,67 +164,15 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // ---- actor, one patch group at a time
+    // ---- actor, one patch group at a time (actor.cuh)
     float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = 0.0f;
-    for (int g = 0; g < NPG; ++g) {
-      // patch embed of the group's pool patches: row r = e * pool + j
-      for (int idx = tid; idx < E * pool * kEmbed; idx += kThreads) {
-        const int o = idx & (kEmbed - 1), r = idx >> 7;
-        const int e = r / pool, j = r - e * pool;
-        const uint8_t* px = frame_s + e * hw + (g * pool + j) * kPatch;
-        float a = 0.0f;
-        for (int kk = 0; kk < kPatch; ++kk) a = madd<kBF16>(a, lut[px[kk]], wload(we + kk * kEmbed + o));
-        const float v = fmaxf(rnd<kBF16>(rnd<kBF16>(a) + wload(be + o)), 0.0f);
-        if (pool == 1) {
-          fcin_s[o * E + e] = v;
-        } else {
-          emb_s[r * kEmbed + o] = v;
-        }
-      }
-      __syncthreads();
-      if (pool > 1) {  // pooled mixer over the group's concatenated embeddings
-        for (int idx = tid; idx < E * kEmbed; idx += kThreads) {
-          const int o = idx & (kEmbed - 1), e = idx >> 7;
-          const float* x = emb_s + e * pool * kEmbed;
-          float a = 0.0f;
-          for (int i = 0; i < pool * kEmbed; ++i) a = madd<kBF16>(a, x[i], wload(wp + i * kEmbed + o));
-          fcin_s[o * E + e] = fmaxf(rnd<kBF16>(rnd<kBF16>(a) + wload(bp + o)), 0.0f);
-        }
-        __syncthreads();
-      }
-      if (tid < hidden) {  // the group's 128 fc rows into hidden unit tid
-        const W* wrow = wf + static_cast<size_t>(g) * kEmbed * hidden + tid;
-        for (int i = 0; i < kEmbed; ++i) {
-          const float w = wload(wrow + static_cast<size_t>(i) * hidden);
-          const float* x = fcin_s + i * E;
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[e] = madd<kBF16>(acc[e], x[e], w);
-        }
-      }
-      __syncthreads();
-    }
-    if (tid < hidden) {  // proprio rows, bias, ReLU
-      const W* wrow = wf + static_cast<size_t>(NPG) * kEmbed * hidden + tid;
-      for (int i = 0; i < 5; ++i) {
-        const float w = wload(wrow + static_cast<size_t>(i) * hidden);
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] = madd<kBF16>(acc[e], rnd<kBF16>(prop_s[e * kOut + i]), w);
-      }
-      const float b = wload(bfc + tid);
-#pragma unroll
-      for (int e = 0; e < E; ++e) h_s[e * hidden + tid] = fmaxf(rnd<kBF16>(rnd<kBF16>(acc[e]) + b), 0.0f);
-    }
-    __syncthreads();
-    if (tid < E * 5) {  // float32 heads: cols 0:4 the mean, 4 the value
-      const int e = tid / 5, col = tid - 5 * (tid / 5);
-      const float* h = h_s + e * hidden;
-      float a = 0.0f;
-      for (int j = 0; j < hidden; ++j) a = a + h[j] * wm[j * kOut + col];
-      mm_s[e * kOut + col] = a + bm[col];
-    }
-    __syncthreads();
+    for (int g = 0; g < NPG; ++g)
+      fpyv::actor_group<W, kBF16, E>(lut, frame_s + g * pool * kPatch, hw, kPatch, kPatch, we, be,
+                                     wp, bp, wf, hidden, g, pool, fcin_s, emb_s, acc);
+    fpyv::actor_heads<W, kBF16, E>(wf, bfc, hidden, NPG * kEmbed, prop_s, kOut, 5, acc, h_s, wm,
+                                   bm, mm_s);
 
     // ---- sample, env step, auto-reset
     if (owner) {

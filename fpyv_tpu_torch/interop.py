@@ -13,12 +13,15 @@ Batched (per-env) worlds, whose every field carries a leading (N,) axis,
 go through :func:`world_from_numpy` and :func:`world_to_numpy` unchanged.
 The chase loop's result, (state, world, reward sums, crash counts, contact
 counts), goes through :func:`chase_to_numpy` and :func:`chase_from_numpy`.
+Race states (``MultiRaceState``, and ``VisionRaceState`` with its frame
+history) go through :func:`race_state_from_numpy` and
+:func:`race_state_to_numpy`.
 
 Policy weights carry across through :func:`policy_params_from_numpy` and
 :func:`policy_params_to_numpy`: the Flax tree ``{"params": {"patch_embed",
 "patch_pool"?, "fc0", "pi_mean", "v_out", "log_std"}}`` of numpy arrays
 against :class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`'s
-``state_dict``. A Flax ``kernel`` is ``(in, out)`` and an ``nn.Linear``
+``state_dict``, a frame-stacked ``patch_embed`` (K*64, 128) included. A Flax ``kernel`` is ``(in, out)`` and an ``nn.Linear``
 weight ``(out, in)``, so kernels are transposed.
 """
 
@@ -31,6 +34,8 @@ import torch
 
 from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.envs.acro import AcroState
+from fpyv_tpu_torch.envs.multi_race import MultiRaceState
+from fpyv_tpu_torch.envs.vision_race import VisionRaceState
 from fpyv_tpu_torch.physics.drone import DomainRand, DroneState
 from fpyv_tpu_torch.physics.world import World
 
@@ -85,6 +90,22 @@ def acro_state_from_numpy(d: dict, device=None) -> AcroState:
 
 
 def acro_state_to_numpy(state: AcroState) -> dict:
+    return to_numpy_tree(state)
+
+
+def race_state_from_numpy(d: dict, device=None):
+    """A ``MultiRaceState`` dict, or a ``VisionRaceState`` one (``race`` and
+    ``frames``), -> the port's state on ``device`` (CUDA unless told)."""
+    device = resolve_device(device)
+    if "frames" in d:
+        return VisionRaceState(race=race_state_from_numpy(d["race"], device),
+                               frames=_tensor(d["frames"], device))
+    return MultiRaceState(drones=drone_state_from_numpy(d["drones"], device),
+                          **{f.name: _tensor(d[f.name], device)
+                             for f in dataclasses.fields(MultiRaceState) if f.name != "drones"})
+
+
+def race_state_to_numpy(state) -> dict:
     return to_numpy_tree(state)
 
 

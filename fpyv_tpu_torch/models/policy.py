@@ -4,7 +4,10 @@
 into 8x8 patches, each embeds through one dense layer, optional pooled
 mixing of consecutive patch embeddings, the flattened embeddings and the
 proprioceptive vector feed the fc stack, then f32 Gaussian-mean and value
-heads with a free, clipped ``log_std``.
+heads with a free, clipped ``log_std``. A ``frame_stack`` of K frames folds
+into the patch embed: each frame is split into patches and the K frames of a
+patch are concatenated, so the embed contracts K*64 pixels (one frame is
+the K = 1 case, with the same parameters and outputs).
 
 Layers are ``nn.Linear`` (weight ``(out, in)``; Flax's kernel is ``(in,
 out)``, :mod:`fpyv_tpu_torch.interop` transposes). A layer with
@@ -14,8 +17,8 @@ product is rounded to it, then the bias is added in it. Without a compute
 type the layer is float32, product then bias. :meth:`init_params` draws
 Flax's initial distributions from a ``torch.Generator``.
 
-The conv torso (the scan rollout's) and the GRU (racing's) are not ported
-yet (ROADMAP queue 1) and raise.
+The conv torso (the scan rollout's) and the GRU (recurrent PPO's) are not
+ported yet (ROADMAP queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -70,12 +73,14 @@ def orthogonal_(weight: torch.Tensor, scale: float, generator: torch.Generator) 
 class PixelActorCritic(nn.Module):
     """Patch torso over depth images + Gaussian policy and value heads.
 
-    ``n_patches`` (``(H/8)*(W/8)``) and ``proprio_dim`` fix the layer widths
-    that Flax infers at its first call. ``forward(pixels, proprio)`` takes
-    pixels (..., H, W), or (..., n_patches, 64) with ``prepatched=True``
-    (patch-major order, as the in-kernel rollout renders them), in [0, 1]
-    float or as uint8 levels (divided by 255 through float32); proprio
-    (..., P). Returns (mean (..., A), clipped log_std (A,), value (...,)).
+    ``n_patches`` (``(H/8)*(W/8)``), ``proprio_dim`` and ``frame_stack``
+    fix the layer widths that Flax infers at its first call.
+    ``forward(pixels, proprio)`` takes pixels (..., H, W), a stack
+    (..., K, H, W) of ``frame_stack`` frames (newest last), or (...,
+    n_patches, K*64) with ``prepatched=True`` (patch-stack-major order, as
+    the in-kernel rollouts emit them), in [0, 1] float or as uint8 levels
+    (divided by 255 through float32); proprio (..., P). Returns (mean (...,
+    A), clipped log_std (A,), value (...,)).
     """
 
     def __init__(self, action_dim: int, n_patches: int, proprio_dim: int = 5,
@@ -83,13 +88,13 @@ class PixelActorCritic(nn.Module):
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16, torso: str = "conv",
                  patch: int = 8, embed: int = 128, prepatched: bool = False,
                  patch_pool: int = 1, gru: int = 0, log_std_min: float = -5.0,
-                 log_std_max: float = 1.5, device=None):
+                 log_std_max: float = 1.5, frame_stack: int = 1, device=None):
         super().__init__()
         if torso != "patch":
             raise ValueError(f"torso={torso!r} is not ported yet (ROADMAP queue 1: the conv "
                              "torso rides with the scan rollout); use torso='patch'")
         if gru:
-            raise ValueError("gru > 0 is not ported yet (ROADMAP queue 1, slice 4: racing)")
+            raise ValueError("gru > 0 is not ported yet (ROADMAP queue 1: recurrent PPO)")
         if patch_pool < 1 or n_patches % patch_pool:
             raise ValueError(f"patch_pool={patch_pool} must divide n_patches={n_patches}")
         self.action_dim, self.n_patches, self.proprio_dim = action_dim, n_patches, proprio_dim
@@ -97,10 +102,11 @@ class PixelActorCritic(nn.Module):
         self.compute_dtype = compute_dtype
         self.torso, self.patch, self.embed = torso, patch, embed
         self.prepatched, self.patch_pool, self.gru = prepatched, patch_pool, gru
+        self.frame_stack = frame_stack
         self.log_std_init, self.log_std_min, self.log_std_max = (log_std_init, log_std_min,
                                                                   log_std_max)
         kw = dict(dtype=torch.float32, device=device)
-        self.patch_embed = nn.Linear(patch * patch, embed, **kw)
+        self.patch_embed = nn.Linear(frame_stack * patch * patch, embed, **kw)
         if patch_pool > 1:
             self.patch_pool_layer = nn.Linear(patch_pool * embed, embed, **kw)
         width = (n_patches // patch_pool) * embed + proprio_dim
@@ -135,23 +141,31 @@ class PixelActorCritic(nn.Module):
             self.log_std.fill_(float(self.log_std_init))
         return self
 
-    def patchify(self, pixels: torch.Tensor) -> torch.Tensor:
+    def patchify(self, pixels: torch.Tensor, stacked: bool = False) -> torch.Tensor:
         """(..., H, W) -> (..., NP, patch^2), patches row-major over the
-        (H/p, W/p) grid, pixels row-major within each patch."""
+        (H/p, W/p) grid, pixels row-major within each patch; with
+        ``stacked``, (..., K, H, W) -> (..., NP, K*patch^2), a patch's K
+        frames concatenated, oldest first."""
+        if not stacked:
+            pixels = pixels[..., None, :, :]
         p = self.patch
-        H, W = pixels.shape[-2], pixels.shape[-1]
+        K, H, W = pixels.shape[-3], pixels.shape[-2], pixels.shape[-1]
         if H % p or W % p:
             raise ValueError(f"patch torso needs H and W divisible by patch={p}, got {H}x{W}")
-        lead = pixels.shape[:-2]
-        x = pixels.reshape(lead + (H // p, p, W // p, p)).movedim(-3, -2)
-        return x.reshape(lead + ((H // p) * (W // p), p * p))
+        lead = pixels.shape[:-3]
+        x = pixels.reshape(lead + (K, H // p, p, W // p, p)).movedim(-3, -2)
+        x = x.reshape(lead + (K, (H // p) * (W // p), p * p)).movedim(-3, -2)
+        return x.reshape(lead + ((H // p) * (W // p), K * p * p))
 
     def forward(self, pixels: torch.Tensor, proprio: torch.Tensor):
         dt = self.compute_dtype
         if pixels.dtype == torch.uint8:
             # via float32 true division, as the kernel's policy input
             pixels = pixels.to(torch.float32) / divisor(255.0, pixels)
-        x = pixels if self.prepatched else self.patchify(pixels)
+        if self.prepatched:
+            x = pixels
+        else:
+            x = self.patchify(pixels, stacked=pixels.ndim >= 3 and proprio.ndim + 1 < pixels.ndim)
         lead = x.shape[:-2]
         if dt is not None:
             x = x.to(dt)

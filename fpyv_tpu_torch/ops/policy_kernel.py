@@ -106,11 +106,11 @@ class PolicyWeights:
     """The actor's weights laid out for the kernel (``pallas_policy``'s
     tuple), built per rollout from the live module."""
 
-    we: torch.Tensor  # (64, embed)
+    we: torch.Tensor  # (K*64, embed): K stacked frames of a patch (K = 1 in K7)
     be: torch.Tensor  # (1, embed)
     wp: torch.Tensor  # (pool*embed, embed), or an (8, embed) zero dummy at pool 1
     bp: torch.Tensor  # (1, embed), zeros at pool 1
-    wf: torch.Tensor  # (KF_pad, hidden): rows [patch-flat, proprio, zero pad]
+    wf: torch.Tensor  # (KF_pad, hidden): rows [patch-flat, proprio (5, or 5 + G in K8), zero pad]
     bf: torch.Tensor  # (1, hidden)
     wm: torch.Tensor  # (hidden, 8) float32: cols 0:4 pi_mean, col 4 v_out
     bm: torch.Tensor  # (1, 8) float32, same columns
@@ -246,17 +246,18 @@ def _rounder(dtype: Optional[torch.dtype]):
 
 
 def policy_forward_reference(w: PolicyWeights, levels: torch.Tensor, proprio, pool: int):
-    """The kernel's actor on depth levels (N, H*W) (float, patch-major) and
-    the 5 proprio rows (N,): float32 products accumulated in row order,
-    rounded to the compute type where the kernel rounds. Returns the heads
-    (N, 5): mean (4), value."""
+    """The kernels' actor (K7, K8) on depth levels (N, NP*K*64) (float,
+    patch-stack-major; K = 1 in K7) and the proprio rows (N,) (5 in K7,
+    5 + G in K8): float32 products accumulated in row order, rounded to the
+    compute type where the kernels round. Returns the heads (N, 5): mean
+    (4), value."""
     rnd = _rounder(w.compute_dtype)
     f = torch.float32
     n = levels.shape[0]
-    x = rnd(levels / divisor(255.0, levels)).reshape(n, -1, PP)  # (N, NP, 64)
+    x = rnd(levels / divisor(255.0, levels)).reshape(n, -1, w.we.shape[0])  # (N, NP, K*64)
     we, wp, wf = w.we.to(f), w.wp.to(f), w.wf.to(f)
     emb = torch.zeros(n, x.shape[1], we.shape[1], dtype=f, device=levels.device)
-    for k in range(PP):
+    for k in range(we.shape[0]):
         emb = emb + x[:, :, k:k + 1] * we[k]
     emb = torch.clamp_min(rnd(rnd(emb) + w.be.to(f)[0]), 0.0)
     if pool > 1:
@@ -269,7 +270,7 @@ def policy_forward_reference(w: PolicyWeights, levels: torch.Tensor, proprio, po
     acc = torch.zeros(n, wf.shape[1], dtype=f, device=levels.device)
     for i in range(fc_in.shape[1]):
         acc = acc + fc_in[:, i:i + 1] * wf[i]
-    for i in range(5):
+    for i in range(len(proprio)):
         acc = acc + rnd(proprio[i])[:, None] * wf[fc_in.shape[1] + i]
     h = torch.clamp_min(rnd(rnd(acc) + w.bf.to(f)[0]), 0.0)
     mm = torch.zeros(n, 5, dtype=f, device=levels.device)

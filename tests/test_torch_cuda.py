@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K2-K7 against their plain PyTorch versions on
+"""The port's CUDA kernels K2-K8 against their plain PyTorch versions on
 the card. Imports neither JAX nor ``fpyv_tpu``, so it runs where only the
 port is installed:
 
@@ -18,7 +18,9 @@ tolerances); its t, crash and contact counts are equal. K7 (the policy
 rollout) sums its products in the plain version's order: frames, crash
 flags and t equal, everything else within the CPU tests' tolerances
 (tests/test_torch_policy_kernel.py); teacher-forced in bf16, the policy's
-mean and value within 1e-3 of the kernel's.
+mean and value within 1e-3 of the kernel's. K8 (the race rollout) likewise:
+frames (the stacks), env ends, t, next gate, gates passed and the flush flag
+equal, the rest within K7's tolerances.
 """
 
 import numpy as np
@@ -32,6 +34,7 @@ from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as ek
 from fpyv_tpu_torch.ops import step_kernel as sk
 from fpyv_tpu_torch.ops import policy_kernel as pk
+from fpyv_tpu_torch.ops import race_kernel as rk
 from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
 from fpyv_tpu_torch.world.generators import WorldSpec, build_world
@@ -109,10 +112,14 @@ def test_cuda_entry_points_launch_and_count(cuda_device):
     pw, pst, pnet = _policy_setup(cuda_device, 64, 8, pool=1, bf16=True)
     frames, _, aux, _ = pk.fused_policy_vision_rollout(pw[0], pw[1], pst, pw[2],
                                                        pk.build_policy_weights(pnet), 4, 1, 25.0)
+    venv, world, cols, hist, rnet = _race_setup(cuda_device, 64, 2, 3, 8, bf16=True)
+    rframes, _, raux, _ = rk.fused_race_vision_rollout(venv, cols, hist, world,
+                                                       pk.build_policy_weights(rnet), 4, 1)
     torch.cuda.synchronize()
     assert _build.launch_counts == {"drone_step": 1, "rollout": 1, "env_rollout": 1,
                                     "render_depth": 2, "vision_env_rollout": 1,
-                                    "policy_vision_rollout": 1}
+                                    "policy_vision_rollout": 1, "race_vision_rollout": 1}
+    assert rframes.is_cuda and torch.isfinite(raux).all()
     assert frames.is_cuda and torch.isfinite(aux).all()
     assert obs["pixels"].is_cuda and chased[0].drone.pos.is_cuda
     assert stepped.pos.is_cuda and rolled.pos.is_cuda and out.drone.pos.is_cuda
@@ -272,5 +279,94 @@ def test_cuda_train_vision_launches_k7(cuda_device):
     res = train_vision(num_envs=64, num_iterations=3, scan_chunk=1, print_every=0)
     torch.cuda.synchronize()
     assert _build.launch_counts["policy_vision_rollout"] == 3
+    assert _build.launch_counts["render_depth"] >= 3
+    assert np.isfinite(res.mean_reward_last)
+
+
+# ---------------------------------------------------------------------------
+# K8: the race rollout
+# ---------------------------------------------------------------------------
+
+
+def _race_setup(device, n, K, S, max_steps, bf16, pool=1, seed=0):
+    """A single-agent VisionRaceEnv (96x72, 6 gates, S obstacles) on its
+    track, n fresh races as the (N, 22) state, a random history and a
+    Flax-initialised frame-stacked net."""
+    from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv
+    from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
+    from fpyv_tpu_torch.models.policy import PixelActorCritic
+
+    venv = VisionRaceEnv(race=MultiRaceEnv(n_agents=1, max_episode_steps=max_steps,
+                                           n_obstacles=S), frame_stack=K)
+    world = venv.default_world(device)
+    g = torch.Generator().manual_seed(seed)
+    st, _ = venv.race.reset(g, world, (n,))
+    hist = torch.randint(0, 256, (n, 108 * (K - 1) * 64), generator=g, dtype=torch.uint8)
+    net = PixelActorCritic(action_dim=4, n_patches=108, proprio_dim=11, torso="patch",
+                           prepatched=True, compute_dtype=torch.bfloat16 if bf16 else None,
+                           patch_pool=pool, frame_stack=K, device=device).init_params(g)
+    with torch.no_grad():  # a std that samples, and a mean head that steers
+        net.log_std.fill_(-0.3)
+        net.pi_mean.weight.mul_(30.0)
+    return venv, world, rk.race_state_to_cols(st), hist.to(device), net
+
+
+def _race_inputs(venv, world):
+    return rk.race_world_cols(world), rk.obstacle_cols(world, venv.race.n_obstacles)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,S,pool,bf16,n", [(2, 3, 1, False, 64), (1, 3, 4, False, 64),
+                                             (3, 3, 1, True, 64),
+                                             (4, 0, 1, False, 13)])  # 13: a last block of 5
+def test_cuda_k8_matches_plain_across_resets(cuda_device, K, S, pool, bf16, n):
+    venv, world, cols, hist, net = _race_setup(cuda_device, n, K, S, 6, bf16, pool)
+    w = pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+    wcol, ocol = _race_inputs(venv, world)
+    out = rk.launch_race_vision_rollout(venv, cols, hist, wcol, ocol, w, 16, 5, pool)
+    torch.cuda.synchronize()
+    ref = rk.race_vision_rollout_reference(venv, cols, hist, wcol, ocol, w, 16, 5, pool)
+    frames, extra, aux, state = out
+    assert torch.equal(frames, ref[0]) and torch.equal(aux[..., 5], ref[2][..., 5])
+    for c in (14, 15, 16, 19, 21):
+        assert torch.equal(state[:, c], ref[3][:, c]), c
+    assert (aux[..., 5].sum(0) >= 2).all()  # premise: every env ended twice
+    torch.testing.assert_close(extra, ref[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux[..., :4], ref[2][..., :4], atol=5e-5, rtol=0)
+    torch.testing.assert_close(aux[..., 4], ref[2][..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux[..., 6:], ref[2][..., 6:], atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, ref[3], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_k8_bf16_teacher_forced(cuda_device):
+    """bf16 at 256 envs, K = 4, 3 obstacles: the plain policy on the
+    kernel's own stacks gives its mean and value; the plain env on its own
+    actions gives its rewards, ends and final state."""
+    venv, world, cols, hist, net = _race_setup(cuda_device, 256, 4, 3, 2000, True, seed=1)
+    w = pk.build_policy_weights(net, torch.bfloat16)
+    wcol, ocol = _race_inputs(venv, world)
+    frames, extra, aux, state = rk.launch_race_vision_rollout(venv, cols, hist, wcol, ocol, w, 8,
+                                                              3)
+    torch.cuda.synchronize()
+    rf, rex, raux, rstate = rk.race_vision_rollout_reference(
+        venv, cols, hist, wcol, ocol, w, 8, 3, forced_actions=aux[..., :4])
+    assert torch.equal(frames, rf) and torch.equal(aux[..., 5], raux[..., 5])
+    torch.testing.assert_close(rex, extra, atol=1e-6, rtol=0)
+    torch.testing.assert_close(raux[..., :4], aux[..., :4], atol=1e-3, rtol=0)
+    torch.testing.assert_close(raux[..., 6], aux[..., 6], atol=1e-3, rtol=0)
+    torch.testing.assert_close(raux[..., 4], aux[..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(rstate, state, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_train_vision_race_launches_k8(cuda_device):
+    from fpyv_tpu_torch.apps.train import train_vision_race
+
+    _build.reset_launch_counts()
+    res = train_vision_race(num_envs=64, num_iterations=3, scan_chunk=1, print_every=0,
+                            frame_stack=4, n_obstacles=3)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["race_vision_rollout"] == 3
     assert _build.launch_counts["render_depth"] >= 3
     assert np.isfinite(res.mean_reward_last)
