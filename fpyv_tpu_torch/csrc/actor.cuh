@@ -1,21 +1,26 @@
-// The patch actor of the policy-in-kernel rollouts (K7, K8), written by hand
-// on the CUDA cores: patch embed (kp levels -> 128) + ReLU, the optional
-// pooled mixer (pool*128 -> 128) + ReLU, fc (NP/pool*128 + proprio ->
-// hidden) + ReLU, and the float32 mean and value heads.
+// The patch actor of the policy-in-kernel rollouts (K7, K8), written by hand:
+// patch embed (kp levels -> 128) + ReLU, the optional pooled mixer
+// (pool*128 -> 128) + ReLU, fc (NP/pool*128 + proprio -> hidden) + ReLU, and
+// the float32 mean and value heads. Two versions: the bf16 instantiations
+// run the embed and the fc on the tensor cores (the second half of this
+// file); the float32 instantiations run the CUDA-core actor below, summed in
+// the plain version's order, as the exact check.
 //
-// A block of 256 threads owns E envs. The actor runs one patch group (pool
-// consecutive patches) at a time: the group's embeddings of the E envs go to
-// shared memory and thread h adds the group's 128 fc rows into its E float32
-// accumulators of hidden unit h, so the (E, NP*128) fc input never exists
-// and the fc weights stream from L2 once a block and step.
-//
-// Rounding follows Flax's Dense(dtype=bf16) and the Pallas kernels: float32
-// accumulation in row order, rounded to bf16, the bias added in bf16, ReLU;
-// the input is bf16(level / 255.0f) by true division (a 256-entry table). A
-// bf16 product is exact in float32, so its accumulation uses an explicit
-// fma; float32 weights accumulate by multiply then add (built with
+// The CUDA-core actor: a block of 256 threads owns E envs and runs one patch
+// group (pool consecutive patches) at a time: the group's embeddings of the
+// E envs go to shared memory and thread h adds the group's 128 fc rows into
+// its E float32 accumulators of hidden unit h, so the (E, NP*128) fc input
+// never exists and the fc weights stream from L2 once a block and step. Its
+// products accumulate in row order by multiply then add (built with
 // --fmad=false), as ops/policy_kernel.py::policy_forward_reference does, so
 // kernel and plain version agree bit for bit.
+//
+// Rounding in bf16 (the tensor-core actor, and the heads' fc epilogue, which
+// both versions share) follows Flax's Dense(dtype=bf16) and the Pallas
+// kernels: float32 sums rounded to bf16, the bias added in bf16, ReLU; the
+// input is bf16(level / 255.0f) by true division (a 256-entry table). A bf16
+// product is exact in float32, so a bf16 accumulation on the CUDA cores uses
+// an explicit fma.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,15 +62,53 @@ __device__ __forceinline__ float madd(float acc, float x, float w) {
   }
 }
 
+// The phases of a step that the instrumented instantiations time.
+enum Phase { kPhRender = 0, kPhStack, kPhEmbed, kPhFc, kPhHeads, kPhStep, kPhases };
+
+// Per-phase clocks of an instrumented instantiation (kTimed): thread 0 of
+// each block reads %globaltimer at each phase boundary (right after a
+// barrier), sums the nanoseconds of each phase in registers and adds them
+// into a device array (kPhases entries) at the end of the launch. Empty, and
+// free, on every main path (kTimed false).
+template <bool kTimed>
+struct PhaseClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+template <>
+struct PhaseClock<true> {
+  unsigned long long last = 0, ns[kPhases] = {};
+  __device__ __forceinline__ static unsigned long long now() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+  }
+  __device__ __forceinline__ void start() { last = now(); }
+  __device__ __forceinline__ void mark(int ph) {
+    if (threadIdx.x == 0) {
+      const unsigned long long t = now();
+#pragma unroll
+      for (int i = 0; i < kPhases; ++i) ns[i] += i == ph ? t - last : 0ull;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < kPhases; ++i) atomicAdd(out + i, ns[i]);
+  }
+};
+
 // The level table: lut[j] = rnd(j / 255.0f), filled block-strided.
 template <bool kBF16>
 __device__ __forceinline__ void fill_level_table(float* lut) {
   for (int j = threadIdx.x; j < 256; j += blockDim.x) lut[j] = rnd<kBF16>(static_cast<float>(j) / 255.0f);
 }
 
-// Patch group g of the actor for E envs. The levels of patch j of the group
-// for env e are px + e * env_stride + j * patch_stride (kp of them, the
-// embed's contraction, a multiple of 64; strides multiples of 4 bytes).
+// Patch group g of the float32 actor for E envs. The levels of patch j of
+// the group for env e are px + e * env_stride + j * patch_stride (kp of them,
+// the embed's contraction, a multiple of 64; strides multiples of 4 bytes).
 // fcin_s (128, E) receives the group's fc input, emb_s (E * pool, 128) holds
 // the embeddings when pool > 1; thread tid < hidden adds the group's fc rows
 // into acc. Every thread calls it; it ends synchronised.
@@ -74,12 +117,13 @@ __device__ __forceinline__ void fill_level_table(float* lut) {
 // e * pool + j) at a time, r0, r0 + 2, r0 + 4, r0 + 6, so each weight it
 // loads serves four rows, and reads the levels four at a time as 32-bit
 // words; each row still sums its products in row order.
-template <typename W, bool kBF16, int E>
+template <int E, class Clock>
 __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px, int env_stride,
-                                            int patch_stride, int kp, const W* we, const W* be,
-                                            const W* wp, const W* bp, const W* wf, int hidden,
-                                            int g, int pool, float* fcin_s, float* emb_s,
-                                            float acc[E]) {
+                                            int patch_stride, int kp, const float* we,
+                                            const float* be, const float* wp, const float* bp,
+                                            const float* wf, int hidden, int g, int pool,
+                                            float* fcin_s, float* emb_s, float acc[E],
+                                            Clock& clk) {
   static_assert(kActorThreads == 2 * kEmbed && E % 4 == 0, "two rows per output a pass");
   const int tid = threadIdx.x;
   const int o = tid & (kEmbed - 1);
@@ -93,7 +137,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
       a[i] = 0.0f;
     }
     for (int k0 = 0; k0 < kp; k0 += kPatch) {  // a frame's 64 levels at a time
-      const W* w0 = we + k0 * kEmbed + o;
+      const float* w0 = we + k0 * kEmbed + o;
 #pragma unroll
       for (int k4 = 0; k4 < kPatch; k4 += 4) {
         uint32_t q[4];
@@ -103,7 +147,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
         for (int b = 0; b < 4; ++b) {
           const float w = wload(w0 + (k4 + b) * kEmbed);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = madd<kBF16>(a[i], lut[(q[i] >> (8 * b)) & 255u], w);
+          for (int i = 0; i < 4; ++i) a[i] = a[i] + lut[(q[i] >> (8 * b)) & 255u] * w;
         }
       }
     }
@@ -111,7 +155,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = r0 + 2 * i;
-      const float v = fmaxf(rnd<kBF16>(rnd<kBF16>(a[i]) + bias), 0.0f);
+      const float v = fmaxf(a[i] + bias, 0.0f);
       if (pool == 1) {
         fcin_s[o * E + r] = v;
       } else {
@@ -120,37 +164,40 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
     }
   }
   __syncthreads();
+  clk.mark(kPhEmbed);
   if (pool > 1) {  // pooled mixer over the group's concatenated embeddings
     for (int idx = tid; idx < E * kEmbed; idx += kActorThreads) {
       const int o = idx & (kEmbed - 1), e = idx >> 7;
       const float* x = emb_s + e * pool * kEmbed;
       float a = 0.0f;
-      for (int i = 0; i < pool * kEmbed; ++i) a = madd<kBF16>(a, x[i], wload(wp + i * kEmbed + o));
-      fcin_s[o * E + e] = fmaxf(rnd<kBF16>(rnd<kBF16>(a) + wload(bp + o)), 0.0f);
+      for (int i = 0; i < pool * kEmbed; ++i) a = a + x[i] * wload(wp + i * kEmbed + o);
+      fcin_s[o * E + e] = fmaxf(a + wload(bp + o), 0.0f);
     }
     __syncthreads();
+    clk.mark(kPhEmbed);
   }
   if (tid < hidden) {  // the group's 128 fc rows into hidden unit tid
-    const W* wrow = wf + static_cast<size_t>(g) * kEmbed * hidden + tid;
+    const float* wrow = wf + static_cast<size_t>(g) * kEmbed * hidden + tid;
     for (int i = 0; i < kEmbed; ++i) {
       const float w = wload(wrow + static_cast<size_t>(i) * hidden);
       const float* x = fcin_s + i * E;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] = madd<kBF16>(acc[e], x[e], w);
+      for (int e = 0; e < E; ++e) acc[e] = acc[e] + x[e] * w;
     }
   }
   __syncthreads();
+  clk.mark(kPhFc);
 }
 
 // After the last group: the n_prop proprio rows (fc rows from row0 on; env
 // e's values at prop_s + e * prop_stride), the bias and ReLU into h_s (E,
 // hidden), then the float32 heads into mm_s (E, 8): cols 0:4 the mean, 4
 // the value. Every thread calls it; it ends synchronised.
-template <typename W, bool kBF16, int E>
+template <typename W, bool kBF16, int E, class Clock>
 __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidden, int row0,
                                             const float* prop_s, int prop_stride, int n_prop,
                                             float acc[E], float* h_s, const float* wm,
-                                            const float* bm, float* mm_s) {
+                                            const float* bm, float* mm_s, Clock& clk) {
   const int tid = threadIdx.x;
   if (tid < hidden) {
     const W* wrow = wf + static_cast<size_t>(row0) * hidden + tid;
@@ -170,6 +217,250 @@ __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidde
     float a = 0.0f;
     for (int j = 0; j < hidden; ++j) a = a + h[j] * wm[j * 8 + col];
     mm_s[e * 8 + col] = a + bm[col];
+  }
+  __syncthreads();
+  clk.mark(kPhHeads);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 actor on the tensor cores (the bf16 instantiations of K7 and K8,
+// the trainers' path; the float32 instantiations keep the CUDA-core actor
+// above as the exact check).
+//
+// mma.sync.m16n8k16 (bf16 in, float32 sums), not wgmma: a block owns 8 envs,
+// which is exactly mma.sync's N = 8, while wgmma's 64-row tiles and its
+// shared-memory descriptors would buy nothing at these sizes (the products
+// are 0.3-0.5 ms of a launch at the tensor-core rate; feeding them is what
+// costs). Both products are computed transposed, so that N is the envs and
+// each warp owns 16 output rows:
+//
+// - embed, per patch p: D(o, env) = weT(o, kp) . levels(kp, env), warp w the
+//   16 channels o = 16w..16w+15. weT lives in shared memory for the whole
+//   launch (128 x (kp + 8) bf16, loaded once), the levels of a batch of PB
+//   patches are a bf16 tile (PB, 8 envs, kp + 8) filled through the level
+//   table; both reach the fragments by ldmatrix. Epilogue as Flax's
+//   Dense(dtype=bf16): round the sum to bf16, add the bias in bf16, ReLU,
+//   store bf16 into the fc input tile (E, PB/pool*128 + 8).
+// - fc, per batch: D(hidden, env) += wfT(hidden, PB/pool*128) . X(., env),
+//   warp w the hidden tiles w and w + 8 (16 rows each). Its A fragments come
+//   straight from device memory (L2) in the fragment order that
+//   ops/policy_kernel.py::fragment_order_fc lays out once per rollout: one
+//   16-byte load a lane per mma, the warp's 512 bytes contiguous, four
+//   k-tiles of the next loads in flight while four are multiplied. The fc
+//   weights (7.1 MB) cannot stay on the SM, so every block still streams
+//   them from L2 once a step; the 8 envs a block keep that stream at 7.1 MB
+//   a block and step.
+// - the pooled mixer (pool > 1) stays on the CUDA cores, reading the bf16
+//   embeddings (E, PB*128 + 8).
+//
+// A batch of PB patches costs two barriers (three with the mixer): fill the
+// levels tile | embed | fc, with the next batch's fill after the fc.
+// Padding every row by 8 bf16 (16 bytes) puts the 8 rows that one ldmatrix
+// reads in 8 different 16-byte bank groups.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowPad = 8;  // bf16 elements of padding a tile row
+
+// The tiles of the tensor-core actor in shared memory (see above).
+struct TcTiles {
+  __nv_bfloat16* we;  // (128, kp + 8) the embed weights, transposed
+  __nv_bfloat16* xe;  // (pb, E, kp + 8) a batch's levels
+  __nv_bfloat16* xf;  // (E, pb / pool * 128 + 8) a batch's fc input
+  __nv_bfloat16* xm;  // (E, pb * 128 + 8) a batch's embeddings when pool > 1
+  int kp, pb, pool;
+};
+
+// bf16 elements of the tiles (the launchers size shared memory with it).
+__host__ __device__ inline size_t tc_tile_elems(int E, int kp, int pb, int pool) {
+  const size_t xs = static_cast<size_t>(kp + kRowPad);
+  return kEmbed * xs + static_cast<size_t>(pb) * E * xs +
+         static_cast<size_t>(E) * (pb / pool * kEmbed + kRowPad) +
+         (pool > 1 ? static_cast<size_t>(E) * (pb * kEmbed + kRowPad) : 0);
+}
+
+// Carves the tiles out of shared memory from base (16-byte aligned).
+template <int E>
+__device__ __forceinline__ TcTiles tc_tiles(void* base, int kp, int pb, int pool) {
+  TcTiles t;
+  t.kp = kp;
+  t.pb = pb;
+  t.pool = pool;
+  t.we = static_cast<__nv_bfloat16*>(base);
+  t.xe = t.we + kEmbed * (kp + kRowPad);
+  t.xf = t.xe + pb * E * (kp + kRowPad);
+  t.xm = pool > 1 ? t.xf + E * (pb / pool * kEmbed + kRowPad) : t.xf;
+  return t;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += A (16x16 bf16, row) . B (16x8 bf16, col), float32 sums.
+__device__ __forceinline__ void mma_bf16(float d[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {  // x already a bf16 value
+  return __float_as_uint(x) >> 16;
+}
+
+// 16 levels (one 16-byte word) -> 16 bf16 policy inputs at dst (16-byte
+// aligned), through the table lut[j] = bf16(j / 255.0f).
+__device__ __forceinline__ void levels_to_bf16(const float* lut, uint4 v, __nv_bfloat16* dst) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t lo = (w[i] >> (16 * h)) & 255u, hi = (w[i] >> (16 * h + 8)) & 255u;
+      o[2 * i + h] = bf16_bits(lut[lo]) | (__float_as_uint(lut[hi]) & 0xffff0000u);
+    }
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  d[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// we (kp, 128) bf16 in device memory -> t.we (128, kp + 8), once a launch.
+// Every thread calls it; the caller synchronises.
+__device__ __forceinline__ void tc_load_we(const __nv_bfloat16* we, const TcTiles& t) {
+  for (int idx = threadIdx.x; idx < t.kp * kEmbed; idx += blockDim.x) {
+    const int k = idx >> 7, o = idx & (kEmbed - 1);
+    t.we[o * (t.kp + kRowPad) + k] = we[idx];
+  }
+}
+
+// The embed of a batch (levels in t.xe) into the fc input t.xf, through the
+// pooled mixer when pool > 1. Every thread calls it; it ends synchronised.
+template <int E>
+__device__ __forceinline__ void tc_embed(const TcTiles& t, const __nv_bfloat16* be,
+                                         const __nv_bfloat16* wp, const __nv_bfloat16* bp) {
+  static_assert(E == 8, "the envs of a block are the mma's N = 8");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int o0 = warp * 16;  // 8 warps x 16 channels
+  const int xs = t.kp + kRowPad;
+  const uint32_t a_base = smem_u32(t.we + (o0 + (lane & 15)) * xs + (lane >> 4) * 8);
+  const uint32_t b_base = smem_u32(t.xe + (lane & 7) * xs + (lane >> 3) * 8);
+  const float bias_lo = wload(be + o0 + g), bias_hi = wload(be + o0 + g + 8);
+  const int ds = t.pool > 1 ? t.pb * kEmbed + kRowPad : t.pb / t.pool * kEmbed + kRowPad;
+  __nv_bfloat16* dst = t.pool > 1 ? t.xm : t.xf;
+  for (int p = 0; p < t.pb; ++p) {
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const uint32_t bpatch = b_base + static_cast<uint32_t>(p * E * xs * 2);
+    for (int k = 0; k < t.kp; k += 32) {
+      uint32_t a[8], b[4];
+      ldsm_x4(a_base + k * 2, a[0], a[1], a[2], a[3]);
+      ldsm_x4(a_base + (k + 16) * 2, a[4], a[5], a[6], a[7]);
+      ldsm_x4(bpatch + k * 2, b[0], b[1], b[2], b[3]);
+      mma_bf16(d, a[0], a[1], a[2], a[3], b[0], b[1]);
+      mma_bf16(d, a[4], a[5], a[6], a[7], b[2], b[3]);
+    }
+    // d: (o0 + g, env 2tq), (o0 + g, 2tq + 1), (o0 + g + 8, 2tq), (o0 + g + 8, 2tq + 1)
+    __nv_bfloat16* out = dst + (2 * tq) * ds + p * kEmbed + o0 + g;
+    out[0] = __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(d[0]) + bias_lo), 0.0f));
+    out[ds] = __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(d[1]) + bias_lo), 0.0f));
+    out[8] = __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(d[2]) + bias_hi), 0.0f));
+    out[ds + 8] = __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(d[3]) + bias_hi), 0.0f));
+  }
+  __syncthreads();
+  if (t.pool > 1) {  // pooled mixer over each group's concatenated embeddings (CUDA cores)
+    const int ngb = t.pb / t.pool, gk = t.pool * kEmbed;
+    const int xfs = ngb * kEmbed + kRowPad;
+    for (int idx = threadIdx.x; idx < E * ngb * kEmbed; idx += blockDim.x) {
+      const int o = idx & (kEmbed - 1), r = idx >> 7, gl = r % ngb, e = r / ngb;
+      const __nv_bfloat16* x = t.xm + e * ds + gl * gk;
+      float a = 0.0f;
+      for (int i = 0; i < gk; ++i)
+        a = madd<true>(a, __bfloat162float(x[i]), wload(wp + i * kEmbed + o));
+      t.xf[e * xfs + gl * kEmbed + o] =
+          __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(a) + wload(bp + o)), 0.0f));
+    }
+    __syncthreads();
+  }
+}
+
+// The fc rows of a batch (its fc input in t.xf; global k-tiles kt0 ..
+// kt0 + pb / pool * 8 of KT) into acc: acc[m] is hidden tile warp + 8m of
+// n_mt. wft is the fragment-order copy of the fc's patch rows: (n_mt, KT,
+// 32 lanes, 8) bf16, lane l's 8 values its A fragment {a0, a1, a2, a3}.
+__device__ __forceinline__ void tc_fc(const TcTiles& t, const uint4* __restrict__ wft, int kt0,
+                                      int KT, int n_mt, float acc[2][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= n_mt) return;
+  const bool two = warp + 8 < n_mt;  // warp-uniform
+  const int nk = t.pb / t.pool * 8;  // a multiple of 8
+  const int xfs = t.pb / t.pool * kEmbed + kRowPad;
+  const uint32_t b_base = smem_u32(t.xf + (lane & 7) * xfs + (lane >> 3) * 8);
+  const uint4* p0 = wft + (static_cast<size_t>(warp) * KT + kt0) * 32 + lane;
+  const uint4* p1 = wft + (static_cast<size_t>(two ? warp + 8 : warp) * KT + kt0) * 32 + lane;
+  uint4 c0[4], c1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    c0[i] = __ldg(p0 + i * 32);
+    c1[i] = two ? __ldg(p1 + i * 32) : c0[i];
+  }
+  for (int j = 0; j < nk; j += 4) {
+    uint4 n0[4], n1[4];
+    const bool more = j + 4 < nk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the next four k-tiles in flight
+      n0[i] = more ? __ldg(p0 + (j + 4 + i) * 32) : c0[i];
+      n1[i] = (more && two) ? __ldg(p1 + (j + 4 + i) * 32) : c1[i];
+    }
+    uint32_t b[8];
+    ldsm_x4(b_base + j * 32, b[0], b[1], b[2], b[3]);
+    ldsm_x4(b_base + (j + 2) * 32, b[4], b[5], b[6], b[7]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mma_bf16(acc[0], c0[i].x, c0[i].y, c0[i].z, c0[i].w, b[2 * i], b[2 * i + 1]);
+      if (two) mma_bf16(acc[1], c1[i].x, c1[i].y, c1[i].z, c1[i].w, b[2 * i], b[2 * i + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      c0[i] = n0[i];
+      c1[i] = n1[i];
+    }
+  }
+}
+
+// After the last batch: the fc sums into h_s (E, hidden) float32, then each
+// thread tid < hidden takes its hidden unit's E sums back into acc (for
+// actor_heads). Every thread calls it; it ends synchronised.
+template <int E>
+__device__ __forceinline__ void tc_fc_gather(float acc2[2][4], int n_mt, int hidden,
+                                             float* h_s, float acc[E]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int mt = warp + 8 * m;
+    if (mt < n_mt) {
+      const int h = mt * 16 + g;
+      h_s[(2 * tq) * hidden + h] = acc2[m][0];
+      h_s[(2 * tq + 1) * hidden + h] = acc2[m][1];
+      h_s[(2 * tq) * hidden + h + 8] = acc2[m][2];
+      h_s[(2 * tq + 1) * hidden + h + 8] = acc2[m][3];
+    }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < hidden) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = h_s[e * hidden + threadIdx.x];
   }
   __syncthreads();
 }

@@ -25,22 +25,24 @@
 // columns sit in shared memory for the render, and a copy in the row layout
 // of physics.cuh for K1, so K1 itself is unchanged.
 //
-// Products are written by hand on the CUDA cores, no library. Rounding
-// follows Flax's Dense(dtype=bf16) and the Pallas kernel: float32
-// accumulation in row order, rounded to bf16, the bias added in bf16, ReLU;
-// the policy input is bf16(level / 255.0f) by true division. A bf16 product
-// is exact in float32, so its accumulation uses an explicit fma; float32
-// weights accumulate by multiply then add (built with --fmad=false), as
-// the plain version in ops/policy_kernel.py does, so the two agree bit for
-// bit. The RNG lane is the global env index.
+// Products are written by hand, no library (actor.cuh): in bf16 (the
+// trainer's path) the embed and the fc run on the tensor cores (mma.sync,
+// float32 sums in the hardware's order), a batch of pb patches a barrier
+// pass; in float32 the CUDA-core actor sums in row order, as the plain
+// version in ops/policy_kernel.py does, so the two agree bit for bit.
+// Rounding follows Flax's Dense(dtype=bf16) and the Pallas kernel: float32
+// sums, rounded to bf16, the bias added in bf16, ReLU; the policy input is
+// bf16(level / 255.0f) by true division. The RNG lane is the global env
+// index.
 //
 // Bound on the H100 at 1024 envs, 96x72, K = 32, per-env worlds of 1 sphere
 // and 4 cylinders: the render's ~270 counted float32 operations a pixel
 // (6.1e10 a launch, 0.92 ms at 67 TFLOP/s) set it; the products, 2 (NP*64*128
-// + (NP*128 + 5)*256 + 256*5) = 8.9e6 flops an env-step, would take 0.29 ms
-// on the bf16 tensor cores. This first version runs the products on the
-// CUDA cores as well (2.9e11 flops, at least 4.3 ms at the float32 rate):
-// right first, the tensor cores are a later step (PERF.md, ROADMAP 2b).
+// + (NP*128 + 5)*256 + 256*5) = 8.9e6 flops an env-step, take 0.29 ms on the
+// bf16 tensor cores. The render itself is now most of a launch (PERF.md).
+// Shared memory, bf16: the tensor-core tiles take 56,960 bytes (12 patches
+// a pass), the frames 55,296, of the 232,448 a block may use; ptxas'
+// registers are printed by chip_smoke.py.
 #include "actor.cuh"
 #include "env.cuh"
 #include "render.cuh"
@@ -69,6 +71,7 @@ constexpr int kRows = 18;   // 0:3 pos, 3:6 vel, 6:10 quat, 10:13 rates, 13 thru
                             // 14 done, 15 t, 16 prev_dist, 17 accel_z
 constexpr int kOut = 8;     // extra and aux columns
 constexpr int kCam = 16;
+constexpr int kSharedLimit = 232448;
 
 // Field order must match PolicyConstants.as_array() in ops/policy_kernel.py.
 struct PolicyConsts {
@@ -78,7 +81,7 @@ struct PolicyConsts {
   float mount[9], rel[3];
 };
 
-template <typename W, bool kBF16>
+template <typename W, bool kBF16, bool kTimed>
 __global__ void __launch_bounds__(kThreads)
     policy_vision_rollout_kernel(StepConsts k, PolicyConsts c, RenderConsts rc, int seed,
                                  const float* __restrict__ state_in,
@@ -87,11 +90,12 @@ __global__ void __launch_bounds__(kThreads)
                                  const W* __restrict__ we, const W* __restrict__ be,
                                  const W* __restrict__ wp, const W* __restrict__ bp,
                                  const W* __restrict__ wf, const W* __restrict__ bfc, int hidden,
+                                 const uint4* __restrict__ wft, int pb,
                                  const float* __restrict__ wm, const float* __restrict__ bm,
                                  const float* __restrict__ stdv, int pool,
                                  uint8_t* __restrict__ frames, float* __restrict__ extra,
                                  float* __restrict__ aux, float* __restrict__ state_out, int n,
-                                 int n_steps) {
+                                 int n_steps, unsigned long long* __restrict__ phase_ns) {
   const int S = static_cast<int>(rc.n_spheres);
   const int C = static_cast<int>(rc.n_cylinders);
   const int G = static_cast<int>(rc.n_gates);
@@ -99,17 +103,28 @@ __global__ void __launch_bounds__(kThreads)
   const int prow = 5 * S + 6 * C;      // one env's physics rows
   constexpr int E = kEnvs;
 
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) float sh[];
   float* lut = sh;                     // (256,) bf16(level / 255)
   float* cam_s = lut + 256;            // (E, 16)
   float* prop_s = cam_s + E * kCam;    // (E, 8) proprio
   float* mm_s = prop_s + E * kOut;     // (E, 8) heads
   float* ws = mm_s + E * kOut;         // (E, wcols) world columns
   float* phys_s = ws + E * wcols;      // (E, 5S + 6C) physics rows
-  float* fcin_s = phys_s + E * prow;   // (128, E) the fc input of one group
-  float* h_s = fcin_s + kEmbed * E;    // (E, hidden)
-  float* emb_s = h_s + E * hidden;     // (E * pool, 128) when pool > 1
-  uint8_t* frame_s = reinterpret_cast<uint8_t*>(emb_s + (pool > 1 ? E * pool * kEmbed : 0));
+  // float32: fcin_s (128, E) one group's fc input, h_s (E, hidden), emb_s
+  // (E * pool, 128) when pool > 1, frame_s (E, hw). bf16: h_s, the
+  // tensor-core tiles (16-byte aligned), frame_s.
+  float* fcin_s = phys_s + E * prow;
+  float* h_s = kBF16 ? fcin_s : fcin_s + kEmbed * E;
+  float* emb_s = h_s + E * hidden;
+  fpyv::TcTiles tt{};
+  uint8_t* frame_s;
+  if constexpr (kBF16) {
+    const int used = static_cast<int>(emb_s - sh);
+    tt = fpyv::tc_tiles<E>(sh + (used + 3) / 4 * 4, kPatch, pb, pool);
+    frame_s = reinterpret_cast<uint8_t*>(tt.we + fpyv::tc_tile_elems(E, kPatch, pb, pool));
+  } else {
+    frame_s = reinterpret_cast<uint8_t*>(emb_s + (pool > 1 ? E * pool * kEmbed : 0));
+  }
 
   const int tid = threadIdx.x;
   const int env0 = blockIdx.x * E;
@@ -120,6 +135,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = tid; j < E * kOut; j += kThreads) prop_s[j] = 0.0f;
   for (int j = ne * hw + tid; j < E * hw; j += kThreads) frame_s[j] = 0;
   fpyv::load_shared(ws, wcol + static_cast<size_t>(env0) * wcols, ne * wcols);
+  if constexpr (kBF16) fpyv::tc_load_we(we, tt);
   __syncthreads();
 
   float s[kRows];
@@ -136,6 +152,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int f = 0; f < 6; ++f) pr[5 * S + f * C + i] = w[5 * S + 6 * i + f];
   }
 
+  fpyv::PhaseClock<kTimed> clk;
+  clk.start();
   for (int step = 0; step < n_steps; ++step) {
     const size_t row0 = static_cast<size_t>(step) * n + env0;  // (step, env0) output row
     if (owner) {
@@ -163,16 +181,39 @@ __global__ void __launch_bounds__(kThreads)
       frames[(row0 + e) * hw + q] = lev;
     }
     __syncthreads();
+    clk.mark(fpyv::kPhRender);
 
-    // ---- actor, one patch group at a time (actor.cuh)
     float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = 0.0f;
-    for (int g = 0; g < NPG; ++g)
-      fpyv::actor_group<W, kBF16, E>(lut, frame_s + g * pool * kPatch, hw, kPatch, kPatch, we, be,
-                                     wp, bp, wf, hidden, g, pool, fcin_s, emb_s, acc);
+    if constexpr (kBF16) {
+      // ---- actor on the tensor cores (actor.cuh), a batch of pb patches a
+      // pass: the batch's levels into the bf16 tile in 16-byte words; embed; fc
+      float acc2[2][4] = {};
+      const int n_mt = hidden / 16, KT = NPG * 8, xs = kPatch + fpyv::kRowPad;
+      for (int p0 = 0; p0 < hw / kPatch; p0 += pb) {
+        for (int idx = tid; idx < E * pb * 4; idx += kThreads) {
+          const int w = idx & 3, r = idx >> 2, pl = r % pb, e = r / pb;
+          const uint4 v = *reinterpret_cast<const uint4*>(frame_s + e * hw + (p0 + pl) * kPatch +
+                                                          w * 16);
+          fpyv::levels_to_bf16(lut, v, tt.xe + (pl * E + e) * xs + w * 16);
+        }
+        __syncthreads();
+        clk.mark(fpyv::kPhStack);
+        fpyv::tc_embed<E>(tt, be, wp, bp);
+        clk.mark(fpyv::kPhEmbed);
+        fpyv::tc_fc(tt, wft, p0 / pool * 8, KT, n_mt, acc2);
+        if constexpr (kTimed) __syncthreads();
+        clk.mark(fpyv::kPhFc);
+      }
+      fpyv::tc_fc_gather<E>(acc2, n_mt, hidden, h_s, acc);
+    } else {  // ---- actor, one patch group at a time (actor.cuh)
+      for (int g = 0; g < NPG; ++g)
+        fpyv::actor_group<E>(lut, frame_s + g * pool * kPatch, hw, kPatch, kPatch, we,
+                                       be, wp, bp, wf, hidden, g, pool, fcin_s, emb_s, acc, clk);
+    }
     fpyv::actor_heads<W, kBF16, E>(wf, bfc, hidden, NPG * kEmbed, prop_s, kOut, 5, acc, h_s, wm,
-                                   bm, mm_s);
+                                   bm, mm_s, clk);
 
     // ---- sample, env step, auto-reset
     if (owner) {
@@ -229,7 +270,10 @@ __global__ void __launch_bounds__(kThreads)
         s[17] = az;
       }
     }
+    if constexpr (kTimed) __syncthreads();
+    clk.mark(fpyv::kPhStep);
   }
+  clk.flush(phase_ns);
   if (owner) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) state_out[static_cast<size_t>(env0 + tid) * kRows + r] = s[r];
@@ -243,27 +287,38 @@ bool read_consts(const float* host, int count, T* out) {
   return true;
 }
 
-template <typename W, bool kBF16>
+template <typename W, bool kBF16, bool kTimed>
 int launch(const StepConsts& k, const PolicyConsts& c, const RenderConsts& rc, int seed,
            const float* state, const float* wcol, int wcols, const float* dcam, int hw,
            const void* we, const void* be, const void* wp, const void* bp, const void* wf,
-           const void* bfc, int hidden, const float* wm, const float* bm, const float* stdv,
-           int pool, uint8_t* frames, float* extra, float* aux, float* state_out, int n,
-           int n_steps, cudaStream_t stream) {
+           const void* bfc, int hidden, const void* wft, int pb, const float* wm,
+           const float* bm, const float* stdv, int pool, uint8_t* frames, float* extra,
+           float* aux, float* state_out, int n, int n_steps, unsigned long long* phase_ns,
+           cudaStream_t stream) {
   const int S = static_cast<int>(rc.n_spheres), C = static_cast<int>(rc.n_cylinders);
-  const size_t floats = 256 + static_cast<size_t>(kEnvs) * (kCam + 2 * kOut + wcols + 5 * S +
-                                                           6 * C + kEmbed + hidden +
-                                                           (pool > 1 ? pool * kEmbed : 0));
-  const size_t shmem = floats * sizeof(float) + static_cast<size_t>(kEnvs) * hw;
-  auto kernel = policy_vision_rollout_kernel<W, kBF16>;
+  // mirrored by ops/policy_kernel.py::policy_shared_bytes
+  const size_t head = kCam + 2 * kOut + wcols + 5 * S + 6 * C;
+  size_t shmem;
+  if (kBF16) {
+    const size_t floats = (256 + kEnvs * (head + hidden) + 3) / 4 * 4;  // 16-byte aligned tiles
+    shmem = floats * sizeof(float) + fpyv::tc_tile_elems(kEnvs, kPatch, pb, pool) * 2 +
+            static_cast<size_t>(kEnvs) * hw;
+  } else {
+    const size_t floats =
+        256 + kEnvs * (head + kEmbed + hidden + (pool > 1 ? pool * kEmbed : 0));
+    shmem = floats * sizeof(float) + static_cast<size_t>(kEnvs) * hw;
+  }
+  if (shmem > static_cast<size_t>(kSharedLimit)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = policy_vision_rollout_kernel<W, kBF16, kTimed>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<(n + kEnvs - 1) / kEnvs, kThreads, shmem, stream>>>(
       k, c, rc, seed, state, wcol, wcols, dcam, hw, static_cast<const W*>(we),
       static_cast<const W*>(be), static_cast<const W*>(wp), static_cast<const W*>(bp),
-      static_cast<const W*>(wf), static_cast<const W*>(bfc), hidden, wm, bm, stdv, pool, frames,
-      extra, aux, state_out, n, n_steps);
+      static_cast<const W*>(wf), static_cast<const W*>(bfc), hidden,
+      static_cast<const uint4*>(wft), pb, wm, bm, stdv, pool, frames, extra, aux, state_out, n,
+      n_steps, phase_ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,9 +333,11 @@ int fpyv_policy_vision_rollout(const float* step_consts, int n_step_consts,
                                const float* state, const float* wcol, int wcols,
                                const float* dcam, int hw, const void* we, const void* be,
                                const void* wp, const void* bp, const void* wf, const void* bfc,
-                               int hidden, const float* wm, const float* bm, const float* stdv,
-                               int pool, int bf16, uint8_t* frames, float* extra, float* aux,
-                               float* state_out, int n, int n_steps, void* stream) {
+                               int hidden, const void* wft, int pb, const float* wm,
+                               const float* bm, const float* stdv, int pool, int bf16,
+                               uint8_t* frames, float* extra, float* aux, float* state_out,
+                               int n, int n_steps, unsigned long long* phase_ns,
+                               void* stream) {
   StepConsts k;
   PolicyConsts c;
   RenderConsts rc;
@@ -288,16 +345,26 @@ int fpyv_policy_vision_rollout(const float* step_consts, int n_step_consts,
       !read_consts(policy_consts, n_policy_consts, &c) ||
       !read_consts(render_consts, n_render_consts, &rc) || n < 1 || hw % kPatch || pool < 1 ||
       (hw / kPatch) % pool || hidden < 1 || hidden > kThreads || rc.n_spheres < 1.0f ||
-      n_steps < 1)
+      n_steps < 1 || (phase_ns && !bf16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // bf16: the tensor-core actor's batch of pb patches (a multiple of pool
+  // dividing the patches), 16-row hidden tiles, the fragment-order fc rows
+  if (bf16 && (pb < pool || pb % pool || (hw / kPatch) % pb || hidden % 16 || !wft))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (phase_ns)
+    return launch<__nv_bfloat16, true, true>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we,
+                                             be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm, stdv,
+                                             pool, frames, extra, aux, state_out, n, n_steps,
+                                             phase_ns, st);
   if (bf16)
-    return launch<__nv_bfloat16, true>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp,
-                                       bp, wf, bfc, hidden, wm, bm, stdv, pool, frames, extra,
-                                       aux, state_out, n, n_steps, st);
-  return launch<float, false>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp, bp, wf,
-                              bfc, hidden, wm, bm, stdv, pool, frames, extra, aux, state_out, n,
-                              n_steps, st);
+    return launch<__nv_bfloat16, true, false>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we,
+                                              be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm, stdv,
+                                              pool, frames, extra, aux, state_out, n, n_steps,
+                                              nullptr, st);
+  return launch<float, false, false>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp,
+                                     bp, wf, bfc, hidden, wft, pb, wm, bm, stdv, pool, frames,
+                                     extra, aux, state_out, n, n_steps, nullptr, st);
 }
 
 }  // extern "C"

@@ -23,13 +23,17 @@
 // may use. The K-1 older frames of a patch are read where they already are
 // in device memory: the history at step 0, the kernel's own previous
 // `frames` row after that (written by this block one step before, so still
-// in L2). The actor then assembles one patch group's stacks at a time
-// (8 x pool x K*64 bytes), streams them out and embeds them. Fewer envs a
-// block would have fit the stack instead, but every block reads the 7.1 MB
-// of fc weights from L2 once a step, so halving the envs doubles that
-// stream. The world is the shared track; each env's copy of it in shared
-// memory gets its obstacle columns rewritten every step (the render reads
-// them), and the obstacles at t + 1 go to K1's row layout.
+// in L2). bf16 (the trainer's path): the actor (actor.cuh, tensor cores)
+// takes a batch of pb patches a pass; their stacks are assembled in 16-byte
+// words (64 contiguous bytes a patch and slot), streamed out to `frames` in
+// 16-byte stores and converted straight into the bf16 levels tile of the
+// embed (pb x 8 x (K*64 + 8)). float32 (the exact check): the CUDA-core
+// actor, one patch group's stacks (8 x pool x K*64 bytes) at a time, byte by
+// byte. Fewer envs a block would have fit the stack instead, but every block
+// reads the 7.1 MB of fc weights from L2 once a step, so halving the envs
+// doubles that stream. The world is the shared track; each env's copy of it
+// in shared memory gets its obstacle columns rewritten every step (the
+// render reads them), and the obstacles at t + 1 go to K1's row layout.
 //
 // Obstacle centres follow the Pallas kernel's float formula
 // (2 pi mod(count0 + t, res)) / res with res >= 1; the next gate is indexed
@@ -37,11 +41,15 @@
 // result: the other terms are exact zeros).
 //
 // Bound on the H100 at 1024 envs, 96x72, T = 32, K = 4, 6 gates and ground:
-// the products, 2 (NP*256*128 + (NP*128 + 11)*256) = 1.42e7 flops an
-// env-step, 4.6e11 a launch (0.47 ms on the bf16 tensor cores, 6.9 ms at the
-// float32 CUDA-core rate they run at here), and the render's counted float32
-// operations (chip_smoke.py::render_ops) set it. Right first: the tensor
-// cores are later work (PERF.md, ROADMAP 2b).
+// the render's counted float32 operations (chip_smoke.py::render_ops, ~1.9
+// ms) set it; the products, 2 (NP*256*128 + (NP*128 + 11)*256) = 1.42e7
+// flops an env-step, 4.6e11 a launch, take 0.47 ms on the bf16 tensor cores.
+// The bf16 actor runs them there; what it still pays is the fc's 7.1 MB L2
+// stream a block and step, and the render itself is now most of a launch
+// (PERF.md). Registers: at most 128 a thread in ptxas' report (printed by
+// chip_smoke.py), 255 allowed at 256 threads and one block an SM. Shared
+// memory at K = 4 without obstacles: 211,712 bytes of the 232,448 (the
+// tiles 142,976).
 #include "actor.cuh"
 #include "env.cuh"
 #include "render.cuh"
@@ -95,16 +103,23 @@ __device__ __forceinline__ void obstacle_at(const float* o, float t, float* cx, 
   *cy = o[1] + o[3] * sinf(theta);
 }
 
-size_t shared_bytes(int hw, int K, int S, int G, int hidden, int pool) {
+// Shared bytes of a block; pb = 0: the float32 layout (CUDA-core actor,
+// one group's stacks), else the bf16 layout (tensor-core tiles for batches
+// of pb patches). Mirrored by ops/race_kernel.py::race_shared_bytes.
+size_t shared_bytes(int hw, int K, int S, int G, int hidden, int pool, int pb) {
   const int wcols = 5 * S + 15 * G + 1;
-  const size_t floats = 256 + static_cast<size_t>(kEnvs) *
-                                  (kCam + kProp + kOut + 1 + wcols + 5 * S + kEmbed + hidden +
-                                   (pool > 1 ? pool * kEmbed : 0));
-  return floats * sizeof(float) + static_cast<size_t>(kEnvs) * hw +
-         static_cast<size_t>(kEnvs) * pool * K * kPatch;
+  const size_t head = kCam + kProp + kOut + 1 + wcols + 5 * S;
+  if (pb == 0) {
+    const size_t floats = 256 + kEnvs * (head + kEmbed + hidden + (pool > 1 ? pool * kEmbed : 0));
+    return floats * sizeof(float) + static_cast<size_t>(kEnvs) * hw +
+           static_cast<size_t>(kEnvs) * pool * K * kPatch;
+  }
+  const size_t floats = (256 + kEnvs * (head + hidden) + 3) / 4 * 4;  // 16-byte aligned tiles
+  return floats * sizeof(float) + fpyv::tc_tile_elems(kEnvs, K * kPatch, pb, pool) * 2 +
+         static_cast<size_t>(kEnvs) * hw;
 }
 
-template <typename W, bool kBF16>
+template <typename W, bool kBF16, bool kTimed>
 __global__ void __launch_bounds__(kThreads)
     race_vision_rollout_kernel(StepConsts k, RaceConsts c, RenderConsts rc, int seed, int K,
                                const float* __restrict__ state_in,
@@ -113,10 +128,12 @@ __global__ void __launch_bounds__(kThreads)
                                int hw, const W* __restrict__ we, const W* __restrict__ be,
                                const W* __restrict__ wp, const W* __restrict__ bp,
                                const W* __restrict__ wf, const W* __restrict__ bfc, int hidden,
+                               const uint4* __restrict__ wft, int pb,
                                const float* __restrict__ wm, const float* __restrict__ bm,
                                const float* __restrict__ stdv, int pool, uint8_t* frames,
                                float* __restrict__ extra, float* __restrict__ aux,
-                               float* __restrict__ state_out, int n, int n_steps) {
+                               float* __restrict__ state_out, int n, int n_steps,
+                               unsigned long long* __restrict__ phase_ns) {
   const int S = static_cast<int>(rc.n_spheres);
   const int G = static_cast<int>(rc.n_gates);
   const int NP = hw / kPatch;
@@ -127,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
   const int hrow = NP * (K - 1) * kPatch;  // one env's history
   constexpr int E = kEnvs;
 
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) float sh[];
   float* lut = sh;                      // (256,) bf16(level / 255)
   float* cam_s = lut + 256;             // (E, 16)
   float* prop_s = cam_s + E * kCam;     // (E, 16) proprio
@@ -135,11 +152,23 @@ __global__ void __launch_bounds__(kThreads)
   float* flush_s = mm_s + E * kOut;     // (E,) the flush flags of this step
   float* ws = flush_s + E;              // (E, wcols) world columns, obstacles at t
   float* phys_s = ws + E * wcols;       // (E, 5S) K1's sphere rows, obstacles at t + 1
-  float* fcin_s = phys_s + E * 5 * S;   // (128, E) the fc input of one group
-  float* h_s = fcin_s + kEmbed * E;     // (E, hidden)
-  float* emb_s = h_s + E * hidden;      // (E * pool, 128) when pool > 1
-  uint8_t* cur_s = reinterpret_cast<uint8_t*>(emb_s + (pool > 1 ? E * pool * kEmbed : 0));
-  uint8_t* stk_s = cur_s + E * hw;      // (E, pool, K*64) one group's stacks
+  // float32: fcin_s (128, E) one group's fc input, h_s (E, hidden), emb_s
+  // (E * pool, 128) when pool > 1, cur_s (E, hw) the current frames, stk_s
+  // (E, pool, K*64) one group's stacks. bf16: h_s, the tensor-core tiles
+  // (16-byte aligned), cur_s.
+  float* fcin_s = phys_s + E * 5 * S;
+  float* h_s = kBF16 ? fcin_s : fcin_s + kEmbed * E;
+  float* emb_s = h_s + E * hidden;
+  fpyv::TcTiles tt{};
+  uint8_t* cur_s;
+  if constexpr (kBF16) {
+    const int used = static_cast<int>(emb_s - sh);
+    tt = fpyv::tc_tiles<E>(sh + (used + 3) / 4 * 4, KP, pb, pool);
+    cur_s = reinterpret_cast<uint8_t*>(tt.we + fpyv::tc_tile_elems(E, KP, pb, pool));
+  } else {
+    cur_s = reinterpret_cast<uint8_t*>(emb_s + (pool > 1 ? E * pool * kEmbed : 0));
+  }
+  uint8_t* stk_s = cur_s + E * hw;
 
   const int tid = threadIdx.x;
   const int env0 = blockIdx.x * E;
@@ -149,7 +178,11 @@ __global__ void __launch_bounds__(kThreads)
   // rows of absent envs stay zero: the actor runs all E, their outputs go nowhere
   for (int j = tid; j < E * kProp; j += kThreads) prop_s[j] = 0.0f;
   for (int j = ne * hw + tid; j < E * hw; j += kThreads) cur_s[j] = 0;
-  for (int j = tid; j < E * pool * KP; j += kThreads) stk_s[j] = 0;
+  if constexpr (kBF16) {
+    fpyv::tc_load_we(we, tt);
+  } else {
+    for (int j = tid; j < E * pool * KP; j += kThreads) stk_s[j] = 0;
+  }
   for (int j = tid; j < E * wcols; j += kThreads) {
     const int e = j / wcols, q = j - e * wcols;
     ws[j] = q < 5 * S ? 0.0f : wcol[q - 5 * S];
@@ -164,6 +197,8 @@ __global__ void __launch_bounds__(kThreads)
     lane = fpyv::env_lane(env0 + tid, seed);
   }
 
+  fpyv::PhaseClock<kTimed> clk;
+  clk.start();
   for (int step = 0; step < n_steps; ++step) {
     const size_t orow = static_cast<size_t>(step) * n + env0;  // (step, env0) output row
     if (owner) {
@@ -211,36 +246,76 @@ __global__ void __launch_bounds__(kThreads)
       cur_s[idx] = static_cast<uint8_t>(fpyv::depth_level(t, rc.max_depth));
     }
     __syncthreads();
+    clk.mark(fpyv::kPhRender);
 
-    // ---- actor, one patch group at a time: assemble the group's stacks
-    // (older slots from the history or the previous frames row, the newest
-    // from shared memory), stream them out, embed them
     float acc[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = 0.0f;
-    const int gstride = pool * KP;
-    for (int g = 0; g < NPG; ++g) {
-      for (int idx = tid; idx < ne * gstride; idx += kThreads) {
-        const int e = idx / gstride, rem = idx - e * gstride;
-        const int p = g * pool + rem / KP, q = rem - (rem / KP) * KP;
-        const int slot = q / kPatch, x = q - slot * kPatch;
-        uint8_t v;
-        if (slot == K - 1 || flush_s[e] > 0.5f) {
-          v = cur_s[e * hw + p * kPatch + x];
-        } else if (step == 0) {
-          v = hist[static_cast<size_t>(env0 + e) * hrow + (p * (K - 1) + slot) * kPatch + x];
-        } else {
-          v = frames[(orow - n + e) * row + p * KP + (slot + 1) * kPatch + x];
+    if constexpr (kBF16) {
+      // ---- actor on the tensor cores, a batch of pb patches a pass:
+      // assemble the batch's stacks in 16-byte words (older slots from the
+      // history or the previous frames row, the newest from shared memory),
+      // stream them out, convert them into the bf16 levels tile; embed; fc
+      float acc2[2][4] = {};
+      const int n_mt = hidden / 16, KT = NPG * 8, xs = KP + fpyv::kRowPad;
+      const int words = KP / 16;  // 16-byte words of a patch's stack
+      for (int p0 = 0; p0 < NP; p0 += pb) {
+        for (int idx = tid; idx < E * pb * words; idx += kThreads) {
+          const int w = idx % words, r = idx / words, pl = r % pb, e = r / pb;
+          const int slot = w >> 2, x = (w & 3) * 16, p = p0 + pl;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);  // absent envs: level 0
+          if (e < ne) {
+            if (slot == K - 1 || flush_s[e] > 0.5f) {
+              v = *reinterpret_cast<const uint4*>(cur_s + e * hw + p * kPatch + x);
+            } else if (step == 0) {
+              v = __ldg(reinterpret_cast<const uint4*>(
+                  hist + static_cast<size_t>(env0 + e) * hrow + (p * (K - 1) + slot) * kPatch + x));
+            } else {  // written by this block one step before
+              v = *reinterpret_cast<const uint4*>(frames + (orow - n + e) * row + p * KP +
+                                                  (slot + 1) * kPatch + x);
+            }
+            *reinterpret_cast<uint4*>(frames + (orow + e) * row + p * KP + w * 16) = v;
+          }
+          fpyv::levels_to_bf16(lut, v, tt.xe + (pl * E + e) * xs + w * 16);
         }
-        stk_s[idx] = v;
-        frames[(orow + e) * row + p * KP + q] = v;
+        __syncthreads();
+        clk.mark(fpyv::kPhStack);
+        fpyv::tc_embed<E>(tt, be, wp, bp);
+        clk.mark(fpyv::kPhEmbed);
+        fpyv::tc_fc(tt, wft, p0 / pool * 8, KT, n_mt, acc2);
+        if constexpr (kTimed) __syncthreads();
+        clk.mark(fpyv::kPhFc);
       }
-      __syncthreads();
-      fpyv::actor_group<W, kBF16, E>(lut, stk_s, gstride, KP, KP, we, be, wp, bp, wf, hidden, g,
-                                     pool, fcin_s, emb_s, acc);
+      fpyv::tc_fc_gather<E>(acc2, n_mt, hidden, h_s, acc);
+    } else {
+      // ---- actor, one patch group at a time: assemble the group's stacks
+      // (older slots from the history or the previous frames row, the newest
+      // from shared memory), stream them out, embed them
+      const int gstride = pool * KP;
+      for (int g = 0; g < NPG; ++g) {
+        for (int idx = tid; idx < ne * gstride; idx += kThreads) {
+          const int e = idx / gstride, rem = idx - e * gstride;
+          const int p = g * pool + rem / KP, q = rem - (rem / KP) * KP;
+          const int slot = q / kPatch, x = q - slot * kPatch;
+          uint8_t v;
+          if (slot == K - 1 || flush_s[e] > 0.5f) {
+            v = cur_s[e * hw + p * kPatch + x];
+          } else if (step == 0) {
+            v = hist[static_cast<size_t>(env0 + e) * hrow + (p * (K - 1) + slot) * kPatch + x];
+          } else {
+            v = frames[(orow - n + e) * row + p * KP + (slot + 1) * kPatch + x];
+          }
+          stk_s[idx] = v;
+          frames[(orow + e) * row + p * KP + q] = v;
+        }
+        __syncthreads();
+        clk.mark(fpyv::kPhStack);
+        fpyv::actor_group<E>(lut, stk_s, gstride, KP, KP, we, be, wp, bp, wf, hidden, g,
+                                       pool, fcin_s, emb_s, acc, clk);
+      }
     }
     fpyv::actor_heads<W, kBF16, E>(wf, bfc, hidden, NPG * kEmbed, prop_s, kProp, 5 + G, acc,
-                                   h_s, wm, bm, mm_s);
+                                   h_s, wm, bm, mm_s, clk);
 
     // ---- sample, race step, respawn
     if (owner) {
@@ -330,7 +405,10 @@ __global__ void __launch_bounds__(kThreads)
         s[21] = 0.0f;
       }
     }
+    if constexpr (kTimed) __syncthreads();
+    clk.mark(fpyv::kPhStep);
   }
+  clk.flush(phase_ns);
   if (owner) {
 #pragma unroll
     for (int r = 0; r < kRows; ++r) state_out[static_cast<size_t>(env0 + tid) * kRows + r] = s[r];
@@ -344,22 +422,24 @@ bool read_consts(const float* host, int count, T* out) {
   return true;
 }
 
-template <typename W, bool kBF16>
+template <typename W, bool kBF16, bool kTimed>
 int launch(const StepConsts& k, const RaceConsts& c, const RenderConsts& rc, int seed, int K,
            const float* state, const float* wcol, const float* ocol, const uint8_t* hist,
            const float* dcam, int hw, const void* we, const void* be, const void* wp,
-           const void* bp, const void* wf, const void* bfc, int hidden, const float* wm,
-           const float* bm, const float* stdv, int pool, uint8_t* frames, float* extra,
-           float* aux, float* state_out, int n, int n_steps, size_t shmem, cudaStream_t stream) {
-  auto kernel = race_vision_rollout_kernel<W, kBF16>;
+           const void* bp, const void* wf, const void* bfc, int hidden, const void* wft, int pb,
+           const float* wm, const float* bm, const float* stdv, int pool, uint8_t* frames,
+           float* extra, float* aux, float* state_out, int n, int n_steps,
+           unsigned long long* phase_ns, size_t shmem, cudaStream_t stream) {
+  auto kernel = race_vision_rollout_kernel<W, kBF16, kTimed>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<(n + kEnvs - 1) / kEnvs, kThreads, shmem, stream>>>(
       k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw, static_cast<const W*>(we),
       static_cast<const W*>(be), static_cast<const W*>(wp), static_cast<const W*>(bp),
-      static_cast<const W*>(wf), static_cast<const W*>(bfc), hidden, wm, bm, stdv, pool, frames,
-      extra, aux, state_out, n, n_steps);
+      static_cast<const W*>(wf), static_cast<const W*>(bfc), hidden,
+      static_cast<const uint4*>(wft), pb, wm, bm, stdv, pool, frames, extra, aux, state_out, n,
+      n_steps, phase_ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,10 +454,11 @@ int fpyv_race_vision_rollout(const float* step_consts, int n_step_consts,
                              const float* state, const float* wcol, const float* ocol,
                              const uint8_t* hist, const float* dcam, int hw, const void* we,
                              const void* be, const void* wp, const void* bp, const void* wf,
-                             const void* bfc, int hidden, const float* wm, const float* bm,
-                             const float* stdv, int pool, int bf16, uint8_t* frames,
-                             float* extra, float* aux, float* state_out, int n, int n_steps,
-                             void* stream) {
+                             const void* bfc, int hidden, const void* wft, int pb,
+                             const float* wm, const float* bm, const float* stdv, int pool,
+                             int bf16, uint8_t* frames, float* extra, float* aux,
+                             float* state_out, int n, int n_steps,
+                             unsigned long long* phase_ns, void* stream) {
   StepConsts k;
   RaceConsts c;
   RenderConsts rc;
@@ -387,18 +468,30 @@ int fpyv_race_vision_rollout(const float* step_consts, int n_step_consts,
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = static_cast<int>(rc.n_spheres), G = static_cast<int>(rc.n_gates);
   if (n < 1 || n_steps < 1 || K < 1 || hw % kPatch || pool < 1 || (hw / kPatch) % pool ||
-      hidden < 1 || hidden > kThreads || rc.n_cylinders != 0.0f || G < 1 || 5 + G > kProp)
+      hidden < 1 || hidden > kThreads || rc.n_cylinders != 0.0f || G < 1 || 5 + G > kProp ||
+      (phase_ns && !bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = shared_bytes(hw, K, S, G, hidden, pool);
+  // bf16: the tensor-core actor's batch of pb patches (a multiple of pool
+  // dividing the patches), 16-row hidden tiles, the fragment-order fc rows
+  if (bf16 && (pb < pool || pb % pool || (hw / kPatch) % pb || hidden % 16 || !wft))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!bf16) pb = 0;
+  const size_t shmem = shared_bytes(hw, K, S, G, hidden, pool, pb);
   if (shmem > static_cast<size_t>(kSharedLimit)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (phase_ns)
+    return launch<__nv_bfloat16, true, true>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw,
+                                             we, be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm,
+                                             stdv, pool, frames, extra, aux, state_out, n, n_steps,
+                                             phase_ns, shmem, st);
   if (bf16)
-    return launch<__nv_bfloat16, true>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw, we,
-                                       be, wp, bp, wf, bfc, hidden, wm, bm, stdv, pool, frames,
-                                       extra, aux, state_out, n, n_steps, shmem, st);
-  return launch<float, false>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw, we, be, wp,
-                              bp, wf, bfc, hidden, wm, bm, stdv, pool, frames, extra, aux,
-                              state_out, n, n_steps, shmem, st);
+    return launch<__nv_bfloat16, true, false>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam,
+                                              hw, we, be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm,
+                                              stdv, pool, frames, extra, aux, state_out, n,
+                                              n_steps, nullptr, shmem, st);
+  return launch<float, false, false>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw, we, be,
+                                     wp, bp, wf, bfc, hidden, wft, pb, wm, bm, stdv, pool, frames,
+                                     extra, aux, state_out, n, n_steps, nullptr, shmem, st);
 }
 
 }  // extern "C"

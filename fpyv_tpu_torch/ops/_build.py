@@ -120,11 +120,11 @@ def library() -> ctypes.CDLL:
         lib.fpyv_vision_env_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, I, I,
                                                 P, P, P, P, I, I, I, I, P]
         lib.fpyv_policy_vision_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, P, P,
-                                                   P, P, P, I, P, P, P, I, I, P, P, P, P, I,
-                                                   I, P]
+                                                   P, P, P, I, P, I, P, P, P, I, I, P, P, P, P,
+                                                   I, I, P, P]
         lib.fpyv_race_vision_rollout.argtypes = [P, I, P, I, P, I, I, I, P, P, P, P, P, I, P, P,
-                                                 P, P, P, P, I, P, P, P, I, I, P, P, P, P, I, I,
-                                                 P]
+                                                 P, P, P, P, I, P, I, P, P, P, I, I, P, P, P, P, I,
+                                                 I, P, P]
         for fn in (lib.fpyv_drone_step, lib.fpyv_rollout, lib.fpyv_env_rollout,
                    lib.fpyv_render_depth, lib.fpyv_vision_env_rollout,
                    lib.fpyv_policy_vision_rollout, lib.fpyv_race_vision_rollout):

@@ -24,9 +24,12 @@ PPO's learner needs.
   for bit, so the plain version matches it across resets.
 
 The plain version (:func:`policy_vision_rollout_reference`) accumulates
-every product in row order, as the kernel does, so on the card the two
-agree bit for bit. A CPU tensor runs the plain version; a CUDA tensor
-launches the kernel, and anything the kernel does not take raises.
+every product in row order, as the float32 kernel does, so on the card the
+two agree bit for bit in float32. The bf16 kernel sums its products on the
+tensor cores in the hardware's order (``csrc/actor.cuh``), so in bf16 the
+mean and value agree within :data:`TOL_BF16_HEADS`. A CPU tensor runs the
+plain version; a CUDA tensor launches the kernel, and anything the kernel
+does not take raises.
 """
 
 from __future__ import annotations
@@ -74,6 +77,21 @@ PATCH = 8
 PP = PATCH * PATCH  # pixels per patch (the embed contraction)
 N_OUT = 8  # extra / aux columns
 INCLUDE = ("spheres", "cylinders", "ground", "gates")
+ENVS_PER_BLOCK = 8  # kEnvs in csrc/policy_kernels.cu and csrc/race_kernels.cu
+SHARED_LIMIT = 232448  # opt-in shared memory of one block on the H100
+MAX_BATCH = 12  # patches a barrier pass of the tensor-core actor, at most
+ROW_PAD = 8  # kRowPad in csrc/actor.cuh
+# The bf16 kernels' mean and value against the plain version, teacher-forced.
+# Both sum float32 products of the same bf16 factors, in other orders, and
+# round to bf16 after the embed and the fc, so a sum an ulp across a bf16
+# boundary moves a hidden unit by one bf16 step (up to 2^-6 for |h| < 4),
+# the value by that times a value weight (|w| < 0.125, two lecun std). The
+# order alone moved the value by up to 1.2e-3 over 1024 rows at K8's widths
+# (tests/test_torch_actor_order.py, blocks of 16 against row order), above
+# the 1e-3 that held while the bf16 kernel summed in the plain version's
+# order; the card checks hold up to 32x more rows, so the tolerance is that
+# maximum with a margin of about 3.
+TOL_BF16_HEADS = 4e-3
 
 
 def patch_major_ray_grid(rig: CameraRig) -> np.ndarray:
@@ -115,6 +133,9 @@ class PolicyWeights:
     wm: torch.Tensor  # (hidden, 8) float32: cols 0:4 pi_mean, col 4 v_out
     bm: torch.Tensor  # (1, 8) float32, same columns
     std: torch.Tensor  # (1, 8) float32: cols 0:4 exp(clipped log_std), 4:8 the clipped log_std
+    # bf16 only: the fc's patch rows in the tensor cores' fragment order
+    # (:func:`fragment_order_fc`), read by the bf16 kernels in place of wf's
+    wf_tc: Optional[torch.Tensor] = None
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
@@ -156,7 +177,99 @@ def build_policy_weights(net, compute_dtype: Optional[torch.dtype] = torch.bfloa
     std = torch.zeros(1, N_OUT, dtype=f, device=dev)
     std[0, :4] = torch.exp(log_std)
     std[0, 4:8] = log_std
-    return PolicyWeights(we=we, be=be, wp=wp, bp=bp, wf=wf, bf=bf, wm=wm, bm=bm, std=std)
+    wf_tc = None
+    if dt == torch.bfloat16 and hidden % 16 == 0:
+        wf_tc = fragment_order_fc(wf[:kf // 128 * 128])  # the patch rows (proprio < 128)
+    return PolicyWeights(we=we, be=be, wp=wp, bp=bp, wf=wf, bf=bf, wm=wm, bm=bm, std=std,
+                         wf_tc=wf_tc)
+
+
+def _fragment_index() -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, col) of a 16x16 A tile held by lane l as its values j = 0..7
+    in ``mma.sync.m16n8k16``: registers a0..a3 hold (g, 2t), (g + 8, 2t),
+    (g, 2t + 8), (g + 8, 2t + 8) and the next column each, g = l // 4,
+    t = l % 4."""
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], dim=1)
+    cols = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9, 2 * t + 8,
+                        2 * t + 9], dim=1)
+    return rows, cols
+
+
+def fragment_order_fc(w: torch.Tensor) -> torch.Tensor:
+    """(KI, H) fc rows -> (H/16, KI/16, 32, 8): for the tensor cores' A =
+    wᵀ, the tile of hidden rows 16m.. and input rows 16k.. as each lane's
+    A fragment, so a warp reads one tile as 512 contiguous bytes."""
+    ki, h = w.shape
+    if ki % 16 or h % 16:
+        raise ValueError(f"fc rows ({ki}, {h}) must be multiples of 16")
+    a = w.reshape(ki // 16, 16, h // 16, 16).permute(2, 0, 3, 1)  # (m, k, hidden, input)
+    rows, cols = _fragment_index()
+    return a[:, :, rows.to(w.device), cols.to(w.device)].contiguous()
+
+
+def fc_from_fragment_order(f: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`fragment_order_fc`."""
+    mt, kt = f.shape[:2]
+    rows, cols = _fragment_index()
+    a = torch.zeros(mt, kt, 16, 16, dtype=f.dtype, device=f.device)
+    a[:, :, rows.to(f.device), cols.to(f.device)] = f
+    return a.permute(1, 3, 0, 2).reshape(kt * 16, mt * 16)
+
+
+def tc_tile_bytes(kp: int, batch: int, pool: int) -> int:
+    """Shared bytes of the tensor-core actor's tiles (``tc_tile_elems`` in
+    ``csrc/actor.cuh``): the transposed embed weights, a batch's levels, its
+    fc input and, when pool > 1, its embeddings; rows padded by 8 bf16."""
+    e, xs = ENVS_PER_BLOCK, kp + ROW_PAD
+    elems = (128 * xs + batch * e * xs + e * (batch // pool * 128 + ROW_PAD)
+             + (e * (batch * 128 + ROW_PAD) if pool > 1 else 0))
+    return 2 * elems
+
+
+def _aligned_floats(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def policy_shared_bytes(hw: int, wcols: int, n_phys: int, hidden: int, pool: int,
+                        batch: int = 0) -> int:
+    """Shared memory of one K7 block (``launch`` in
+    ``csrc/policy_kernels.cu``): the level table, per-env camera, proprio,
+    heads, world columns and physics rows (``n_phys`` = 5S + 6C), the
+    hidden layer and the frames (one byte a pixel); ``batch`` 0 adds the
+    float32 actor's group buffers, else the bf16 tiles for batches of
+    ``batch`` patches."""
+    e = ENVS_PER_BLOCK
+    head = 16 + 2 * N_OUT + wcols + n_phys
+    if batch == 0:
+        return 4 * (256 + e * (head + 128 + hidden + (pool * 128 if pool > 1 else 0))) + e * hw
+    return 4 * _aligned_floats(256 + e * (head + hidden)) + tc_tile_bytes(PP, batch, pool) + e * hw
+
+
+def actor_batch(n_patches: int, pool: int, shared_bytes) -> int:
+    """Patches a barrier pass of the tensor-core actor: the largest multiple
+    of ``pool`` up to :data:`MAX_BATCH` (``pool`` at least) that divides
+    ``n_patches`` and whose ``shared_bytes(batch)`` fits a block; 0 if none
+    fits."""
+    for d in range(max(1, MAX_BATCH // pool), 0, -1):
+        batch = d * pool
+        if n_patches % batch == 0 and shared_bytes(batch) <= SHARED_LIMIT:
+            return batch
+    return 0
+
+
+def check_tc_weights(w: PolicyWeights, n_rows: int) -> None:
+    """The bf16 kernels' fc weights: hidden a multiple of 16 and the
+    fragment-order copy of the ``n_rows`` patch rows."""
+    hidden = w.wf.shape[1]
+    if hidden % 16:
+        raise ValueError(f"the bf16 kernels take hidden a multiple of 16, got {hidden}")
+    want = (hidden // 16, n_rows // 16, 32, 8)
+    if (w.wf_tc is None or tuple(w.wf_tc.shape) != want or w.wf_tc.dtype != torch.bfloat16
+            or w.wf_tc.device != w.wf.device or not w.wf_tc.is_contiguous()):
+        raise ValueError(f"bf16 weights need wf_tc, the fc's patch rows in fragment order "
+                         f"{want} (build_policy_weights)")
 
 
 @dataclass(frozen=True)
@@ -352,9 +465,13 @@ def policy_vision_rollout_reference(env: AcroEnv, rig: CameraRig, state_cols: to
 
 def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch.Tensor,
                                  wcol: torch.Tensor, cfg: RenderConfig, weights: PolicyWeights,
-                                 n_steps: int, seed: int, patch_pool: int = 1):
+                                 n_steps: int, seed: int, patch_pool: int = 1,
+                                 phase_ns: Optional[torch.Tensor] = None):
     """K7 on the card; returns what :func:`policy_vision_rollout_reference`
-    returns."""
+    returns. ``phase_ns`` (a zeroed int64 tensor of :data:`N_PHASES` on the
+    device, bf16 weights only) launches the instrumented instantiation, which
+    adds each block's nanoseconds per step phase into it
+    (:func:`phase_split_ms`)."""
     device = state_cols.device
     if device.type != "cuda":
         raise ValueError(f"policy_vision_rollout launches on a CUDA device, got {device}")
@@ -387,6 +504,17 @@ def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch
         raise ValueError("the reward needs sphere 0")
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
+    timing = check_phase_ns(phase_ns, device, dt)
+    n_phys = 5 * cfg.n_spheres + 6 * cfg.n_cylinders
+    batch = 0
+    if dt == torch.bfloat16:
+        check_tc_weights(weights, n_patches // patch_pool * embed)
+        batch = actor_batch(n_patches, patch_pool, lambda b: policy_shared_bytes(
+            hw, cfg.n_cols, n_phys, hidden, patch_pool, b))
+    shared = policy_shared_bytes(hw, cfg.n_cols, n_phys, hidden, patch_pool, batch)
+    if (dt == torch.bfloat16 and not batch) or shared > SHARED_LIMIT:
+        raise ValueError(f"K7 needs {shared} B of shared memory a block, above the "
+                         f"{SHARED_LIMIT} B a block may use")
     lib = _build.library()
     kc = step_constants_array(env.params)
     pc = policy_constants(env, rig).as_array()
@@ -403,13 +531,39 @@ def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch
             kc.ctypes.data, kc.size, pc.ctypes.data, pc.size, rc.ctypes.data, rc.size,
             int(np.int64(seed).astype(np.int32)), state_cols.data_ptr(), wcol.data_ptr(),
             cfg.n_cols, dcam.data_ptr(), hw, w.we.data_ptr(), w.be.data_ptr(), w.wp.data_ptr(),
-            w.bp.data_ptr(), w.wf.data_ptr(), w.bf.data_ptr(), hidden, w.wm.data_ptr(),
+            w.bp.data_ptr(), w.wf.data_ptr(), w.bf.data_ptr(), hidden,
+            w.wf_tc.data_ptr() if batch else None, batch, w.wm.data_ptr(),
             w.bm.data_ptr(), w.std.data_ptr(), patch_pool, int(dt == torch.bfloat16),
             frames.data_ptr(), extra.data_ptr(), aux.data_ptr(), state_out.data_ptr(), n,
-            n_steps, stream)
+            n_steps, timing, stream)
     _build.check(err, "policy_vision_rollout")
     _build.launch_counts["policy_vision_rollout"] += 1
     return frames, extra, aux, state_out
+
+
+PHASES = ("render", "stack", "embed", "fc", "heads", "step")  # the Phase enum of csrc/actor.cuh
+N_PHASES = len(PHASES)
+
+
+def check_phase_ns(phase_ns: Optional[torch.Tensor], device, dt) -> Optional[int]:
+    """The pointer of an instrumented launch's phase array (None: a plain
+    launch)."""
+    if phase_ns is None:
+        return None
+    if dt != torch.bfloat16:
+        raise ValueError("the instrumented instantiation takes bf16 weights")
+    if (phase_ns.device != device or phase_ns.dtype != torch.int64
+            or phase_ns.shape != (N_PHASES,)):
+        raise ValueError(f"phase_ns must be an int64 ({N_PHASES},) tensor on {device}")
+    return phase_ns.data_ptr()
+
+
+def phase_split_ms(phase_ns: torch.Tensor, n_envs: int) -> dict:
+    """An instrumented launch's per-phase time, ms a launch: each block's
+    nanoseconds averaged over the blocks (at 1024 envs the 128 blocks are one
+    wave, one block an SM)."""
+    blocks = -(-n_envs // ENVS_PER_BLOCK)
+    return {name: float(v) / blocks * 1e-6 for name, v in zip(PHASES, phase_ns.tolist())}
 
 
 def fused_policy_vision_rollout(

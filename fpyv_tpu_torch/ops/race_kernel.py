@@ -33,9 +33,11 @@ Obstacle centres follow the Pallas kernel's float formula
 differs by ulps from the env's ``2 pi (mod / res)``.
 
 The plain version (:func:`race_vision_rollout_reference`) accumulates every
-product in the kernel's row order, so on the card the two agree bit for bit.
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel, and
-anything the kernel does not take raises.
+product in the float32 kernel's row order, so on the card the two agree bit
+for bit in float32; the bf16 kernel's tensor-core sums agree within
+:data:`~fpyv_tpu_torch.ops.policy_kernel.TOL_BF16_HEADS`. A CPU tensor runs
+the plain version; a CUDA tensor launches the kernel, and anything the
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -54,13 +56,20 @@ from fpyv_tpu_torch.envs.vision_race import per_camera_world
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops.env_kernel import _TWO_PI, lane_ids, normal_pair
 from fpyv_tpu_torch.ops.policy_kernel import (
+    ENVS_PER_BLOCK,
     PATCH,
     PP,
+    SHARED_LIMIT,
     PolicyWeights,
+    _aligned_floats,
+    actor_batch,
     build_policy_weights,
+    check_phase_ns,
+    check_tc_weights,
     patch_major_ray_grid,
     prepatch_pixels,
     policy_forward_reference,
+    tc_tile_bytes,
 )
 from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
 from fpyv_tpu_torch.ops.step_kernel import (
@@ -85,8 +94,6 @@ RROWS = 22
 N_EXTRA = 16  # the proprio block [rates (3), accel_z, thrust, one-hot (G)] and its zero pad
 N_AUX = 8
 OCOLS = 8  # per obstacle: path centre (3), path radius, res, count0, radius, 0
-ENVS_PER_BLOCK = 8  # kEnvs in csrc/race_kernels.cu
-SHARED_LIMIT = 232448  # opt-in shared memory of one block on the H100
 
 
 # ---------------------------------------------------------------------------
@@ -164,18 +171,30 @@ def race_constants(venv) -> RaceConstants:
 
 
 def race_shared_bytes(hw: int, frame_stack: int, n_obstacles: int, n_gates: int, hidden: int,
-                      pool: int) -> int:
-    """Shared memory of one K8 block (``launch`` in ``csrc/race_kernels.cu``):
-    the level table, per-env camera, proprio, heads, flush flag, world
-    columns and obstacle rows, one fc group's input, the hidden layer, the
-    pooled embeddings, the current frames (one byte a pixel) and one patch
-    group's stacks. The K-1 older frames stay in device memory, so only the
-    last term grows with K."""
+                      pool: int, batch: int = 0) -> int:
+    """Shared memory of one K8 block (``shared_bytes`` in
+    ``csrc/race_kernels.cu``): the level table, per-env camera, proprio,
+    heads, flush flag, world columns and obstacle rows, the hidden layer and
+    the current frames (one byte a pixel). ``batch`` 0 is the float32
+    layout: one fc group's input, the pooled embeddings and one patch
+    group's stacks. Else the bf16 layout: the tensor-core tiles for batches
+    of ``batch`` patches, whose levels tile holds the stacks. The K-1 older
+    frames stay in device memory either way."""
     wcols = 5 * n_obstacles + 15 * n_gates + 1
     E = ENVS_PER_BLOCK
-    floats = 256 + E * (16 + N_EXTRA + N_AUX + 1 + wcols + 5 * n_obstacles + 128 + hidden
-                        + (pool * 128 if pool > 1 else 0))
-    return floats * 4 + E * hw + E * pool * frame_stack * PP
+    head = 16 + N_EXTRA + N_AUX + 1 + wcols + 5 * n_obstacles
+    if batch == 0:
+        floats = 256 + E * (head + 128 + hidden + (pool * 128 if pool > 1 else 0))
+        return floats * 4 + E * hw + E * pool * frame_stack * PP
+    return (4 * _aligned_floats(256 + E * (head + hidden))
+            + tc_tile_bytes(frame_stack * PP, batch, pool) + E * hw)
+
+
+def race_actor_batch(hw: int, frame_stack: int, n_obstacles: int, n_gates: int, hidden: int,
+                     pool: int) -> int:
+    """Patches a barrier pass of K8's bf16 actor (0: no batch fits)."""
+    return actor_batch(hw // PP, pool, lambda b: race_shared_bytes(
+        hw, frame_stack, n_obstacles, n_gates, hidden, pool, b))
 
 
 # ---------------------------------------------------------------------------
@@ -355,9 +374,11 @@ def race_vision_rollout_reference(venv, state_cols: torch.Tensor, hist: torch.Te
 
 def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tensor,
                                wcol: torch.Tensor, ocol: torch.Tensor, weights: PolicyWeights,
-                               n_steps: int, seed: int, patch_pool: int = 1):
+                               n_steps: int, seed: int, patch_pool: int = 1,
+                               phase_ns: Optional[torch.Tensor] = None):
     """K8 on the card; returns what :func:`race_vision_rollout_reference`
-    returns."""
+    returns. ``phase_ns`` launches the instrumented instantiation, as in
+    :func:`~fpyv_tpu_torch.ops.policy_kernel.launch_policy_vision_rollout`."""
     device = state_cols.device
     if device.type != "cuda":
         raise ValueError(f"race_vision_rollout launches on a CUDA device, got {device}")
@@ -394,12 +415,17 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
         raise ValueError(f"the kernel takes a {K}*64-wide embed of 128, hidden <= 256")
     if 5 + G > N_EXTRA:
         raise ValueError(f"the proprio block 5 + {G} exceeds its {N_EXTRA} columns")
-    shared = race_shared_bytes(hw, K, S, G, hidden, patch_pool)
-    if shared > SHARED_LIMIT:
+    batch = 0
+    if dt == torch.bfloat16:
+        check_tc_weights(weights, NP // patch_pool * embed)
+        batch = race_actor_batch(hw, K, S, G, hidden, patch_pool)
+    shared = race_shared_bytes(hw, K, S, G, hidden, patch_pool, batch)
+    if (dt == torch.bfloat16 and not batch) or shared > SHARED_LIMIT:
         raise ValueError(f"K8 needs {shared} B of shared memory a block, above the "
                          f"{SHARED_LIMIT} B a block may use")
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
+    timing = check_phase_ns(phase_ns, device, dt)
     lib = _build.library()
     kc = step_constants_array(race.params)
     rcon = race_constants(venv).as_array()
@@ -417,9 +443,10 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
             int(np.int64(seed).astype(np.int32)), K, state_cols.data_ptr(), wcol.data_ptr(),
             ocol.data_ptr(), hist.data_ptr(), dcam.data_ptr(), hw, w.we.data_ptr(),
             w.be.data_ptr(), w.wp.data_ptr(), w.bp.data_ptr(), w.wf.data_ptr(), w.bf.data_ptr(),
-            hidden, w.wm.data_ptr(), w.bm.data_ptr(), w.std.data_ptr(), patch_pool,
+            hidden, w.wf_tc.data_ptr() if batch else None, batch, w.wm.data_ptr(),
+            w.bm.data_ptr(), w.std.data_ptr(), patch_pool,
             int(dt == torch.bfloat16), frames.data_ptr(), extra.data_ptr(), aux.data_ptr(),
-            state_out.data_ptr(), n, n_steps, stream)
+            state_out.data_ptr(), n, n_steps, timing, stream)
     _build.check(err, "race_vision_rollout")
     _build.launch_counts["race_vision_rollout"] += 1
     return frames, extra, aux, state_out
