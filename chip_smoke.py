@@ -16,12 +16,16 @@ each:
    the params.yaml world with DomainRand and wind gusts, K = 64;
 5. K5 (the raycast render) against ``render_depth_reference``, levels equal:
    1024 envs at 96x72 on the params.yaml world and on per-env
-   ``sample_worlds``, and 8 envs at 640x480 on a world with a gate of each
-   shape;
+   ``sample_worlds``, 8 envs at 640x480 on a world with a gate of each
+   shape, and 64 envs at 33x17 (not a multiple of K5's tile);
 6. K6 (the chase megaloop) against ``vision_env_rollout_reference``, 64 envs,
    K = 64: the default world with 20-step episodes (every env resets) and
-   the params.yaml world with DomainRand and gusts; t, crash and contact
-   counts equal;
+   the params.yaml world with DomainRand and gusts; then the edges of K6's
+   pixel box: the camera inside the target and the target across the
+   camera plane (the full-frame fallback, which the instrumented launch
+   counts), a target clipped by the frame's edge, one behind the camera
+   and one beside it outside the frame's cone (empty boxes); t, crash and
+   contact counts equal;
 7. the acro main path with its launch counters at 0: one fused step, one
    fused rollout and the env megaloop on both worlds, K sized from a
    warm-up so a timed run takes about 8 s; env-steps/s beside the card and
@@ -38,12 +42,19 @@ each:
    2048); then the JAX package's station-keeping check (300 steps from a
    reset: mean |distance - keep_distance| < 1.5 m; here at most 1 % of the
    envs may crash in the last 200 steps, where the JAX test's 16 envs allow
-   none);
+   none); then, its counters read, K6's split (K = 2048) on the bank the
+   main path's launches left, with the share of env-steps that tested the
+   full frame and none;
 10. the ``kernels`` JSON line: per kernel its launches on its main path, its
    largest error against the plain version, its time and the plain
    version's at the main path's shapes, and the least time the card could
    take for the same work. K6 is held against its plain version once more
-   at the chase's timed shape (1024 envs, K = 64), at phase 6's tolerances;
+   at the chase's timed shape (1024 envs, K = 64), at phase 6's tolerances,
+   and its instrumented instantiation splits a step there into pose, render,
+   pilot and K1 + env and counts the pixels its box tested. The bounds of
+   K5 and K6 count the work this run's data needs (K5's misses end at the
+   discriminant; K6 tests the box's pixels), printed beside the full-frame
+   counts; K5's time by pixels a thread (1 to 4);
 11. K7 (the policy rollout) against ``policy_vision_rollout_reference``:
    (a) float32 weights, 64 envs, 96x72, ``sample_worlds`` with 1 sphere and
    4 cylinders, K = 16, 8-step episodes (every env resets): frames, crash
@@ -85,8 +96,10 @@ each:
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
-fails if a bf16 one has none. ``python3 chip_smoke.py --phases`` runs the
-build, that count and phase 15 alone.
+fails if a bf16 one has none, and prints ptxas' registers and spills and
+the SASS instruction counts of each K5 and K6 instantiation.
+``python3 chip_smoke.py --phases`` runs the build, those counts, K6's split,
+K5's time by pixels a thread and phase 15 alone.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -97,6 +110,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -124,6 +138,7 @@ from fpyv_tpu_torch.ops import race_kernel as rk
 from fpyv_tpu_torch.ops import step_kernel as sk
 from fpyv_tpu_torch.ops import vision_kernel as vk
 from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.physics.world import update_targets
 from fpyv_tpu_torch.vision.camera import CameraRig
 from fpyv_tpu_torch.world.generators import WorldSpec, build_world
 from fpyv_tpu_torch.world.randomize import sample_worlds
@@ -279,10 +294,23 @@ def device_busy(fn, top: int = 5):
     return busy, {k: round(us * 1e-3, 6) for k, us in ranked}
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, paced: bool = False) -> float:
+    """ms a call of fn: CUDA events around ``reps`` calls after a warm-up.
+    The device first sleeps for longer than one call took, device included,
+    times ``reps``, so the host has enqueued the calls before the device
+    reaches them and the events time the device's work, not the host's
+    pace. ``paced``: no sleep, so where the host is slower than the kernel
+    its pace is timed (how a caller that launches one call after another
+    sees it)."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if not paced:
+        torch.cuda._sleep(int(min(one * reps, 2.0) * 2.5e9))  # clock cycles: at most ~2.5 s
     a.record()
     for _ in range(reps):
         fn()
@@ -444,21 +472,25 @@ def trainer_split(label: str, trainer) -> None:
         f"device time (ms): {json.dumps(top)}")
 
 
-def sass_mma_counts() -> dict:
-    """Tensor-core instructions in each K7 and K8 instantiation of the built
-    library (``cuobjdump -sass``): ``HMMA`` (mma.sync) and ``HGMMA``
-    (wgmma) per kernel. Raises if a bf16 instantiation has none."""
+def sass_sections() -> dict:
+    """Kernel name -> its SASS lines in the built library (``cuobjdump -sass``)."""
     exe = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(exe), "-sass", str(_build.build())], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+    return {sec.split("\n", 1)[0].strip(): sec.splitlines()
+            for sec in sass.split("Function : ")[1:]}
+
+
+def sass_mma_counts(sections: dict) -> dict:
+    """Tensor-core instructions in each K7 and K8 instantiation of the built
+    library: ``HMMA`` (mma.sync) and ``HGMMA`` (wgmma) per kernel. Raises if
+    a bf16 instantiation has none."""
     counts = {}
-    for sec in sass.split("Function : ")[1:]:
-        name = sec.split("\n", 1)[0].strip()
+    for name, lines in sections.items():
         for kern in ("policy_vision_rollout", "race_vision_rollout"):
             if f"{kern}_kernel" in name:
                 label = (kern + (" bf16" if "bfloat16" in name else " float32")
                          + (" instrumented" if "Lb1ELb1E" in name else ""))
-                lines = sec.splitlines()
                 counts[label] = {"HMMA": sum("HMMA" in ln for ln in lines),
                                  "HGMMA": sum("HGMMA" in ln for ln in lines)}
     log(f"tensor-core instructions in the built kernels (cuobjdump -sass): {json.dumps(counts)}")
@@ -467,6 +499,45 @@ def sass_mma_counts() -> dict:
         raise AssertionError(f"a bf16 instantiation of K7 or K8 runs no tensor-core "
                              f"instruction: {counts}")
     return counts
+
+
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")  # an instruction
+VISION_KERNELS = re.compile(r"(chase_kernel|render_depth_kernel)(?:I((?:L[bi]\d+E)+)E)?E")
+
+
+def vision_label(mangled: str):
+    """``chase_kernel<0,0,1>`` for a mangled K5 or K6 instantiation (its
+    template arguments in order), else None."""
+    m = VISION_KERNELS.search(mangled)
+    if not m:
+        return None
+    args = re.findall(r"L[bi](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def vision_kernel_report(sections: dict) -> dict:
+    """ptxas' registers and spills and the SASS instruction counts (all but
+    NOP; MUFU, the special-function unit's) of each K5 and K6
+    instantiation. K6's template arguments: DomainRand, wind, instrumented."""
+    ptxas, name = {}, None
+    for ln in str(_build.build_info.get("log", "")).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = vision_label(m.group(1))
+        elif name and ("spill" in ln or "registers" in ln):
+            ptxas[name] = (ptxas.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
+    report = {}
+    for mangled, lines in sections.items():
+        label = vision_label(mangled)
+        if label is None:
+            continue
+        ops = [m.group(1) for m in (SASS_OP.search(ln) for ln in lines) if m]
+        report[label] = {"ptxas": ptxas.get(label, "not in the build log"),
+                         "sass_instructions": sum(op != "NOP" for op in ops),
+                         "MUFU": sum(op.startswith("MUFU") for op in ops)}
+    for label in sorted(report):
+        log(f"{label}: {json.dumps(report[label])}")
+    return report
 
 
 def phase_split(label: str, launch, n: int) -> dict:
@@ -531,12 +602,118 @@ def actor_phases(dev, gen, rig) -> None:
 
 
 def build_report(t0: float) -> None:
-    """The build's time, ptxas' registers and spills, the tensor-core check."""
+    """The build's time, ptxas' registers and spills, the tensor-core check,
+    K5's and K6's registers, spills and instruction counts."""
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
         f"{_build.build_info.get('seconds', 0.0):.3f} s); ptxas: "
         + "; ".join(ln.strip() for ln in str(_build.build_info.get("log", "")).splitlines()
                     if "registers" in ln or "spill" in ln))
-    sass_mma_counts()
+    sections = sass_sections()
+    sass_mma_counts(sections)
+    vision_kernel_report(sections)
+
+
+def chase_phases(dev, env, s28, wm, rig, k: int) -> dict:
+    """The step's phases inside K6 on the chase state s28 (the default
+    world): the instrumented instantiation's split (ms a launch, mean over
+    the blocks) and the pixels its box tested, beside the plain launch."""
+    n = s28.shape[1]
+    plain_ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, k, rig), 10)
+    probe = torch.zeros(vk.N_CHASE_PROBE, dtype=torch.int64, device=dev)
+    timed_ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, k, rig, probe=probe), 10)
+    probe.zero_()
+    vk.launch_vision_env_rollout(env, s28, wm, k, rig, probe=probe)
+    split = vk.chase_probe_split(probe, n, k)
+    phases = sum(split[name] for name in vk.CHASE_PHASES)
+    log(f"K6 (N={n}, K={k}, default world) phase split (ms a launch, %globaltimer, mean over "
+        f"blocks): {json.dumps(split)}; phases sum {phases:.6f} ms, instrumented launch "
+        f"{timed_ms:.6f} ms, plain launch {plain_ms:.6f} ms")
+    return split
+
+
+def render_sweep(cfg, dcam, cam, wcol) -> dict:
+    """K5's time by pixels a thread at one shape (ms a launch)."""
+    sweep = {p: cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol, per_thread=p), 50)
+             for p in (1, 2, 3, 4)}
+    log(f"K5 by pixels a thread (N={cam.shape[0]}, {dcam.shape[1]} pixels, ms a launch; "
+        f"the wrapper takes {vk.RENDER_PER_THREAD}): {json.dumps(sweep)}")
+    return sweep
+
+
+def chase_placed(env, world, rig, gen, n: int, c_cam) -> torch.Tensor:
+    """A fresh (28, N) chase bank with each drone moved so that the target's
+    centre at step 0 sits at ``c_cam`` in its camera's frame."""
+    st, _ = vector_reset(env, gen, n, world)
+    s28 = vk.chase_state_matrix(st)
+    p = vk.chase_constants(rig, vk.ChasePilot(), env.params)
+    cR, cpos = vk.camera_rows(p.mount, p.rel, s28)
+    T = update_targets(world).sphere_center[0]
+    for k in range(3):
+        ahead = cR[3 * k] * c_cam[0] + cR[3 * k + 1] * c_cam[1] + cR[3 * k + 2] * c_cam[2]
+        s28[k] = T[k] - ahead - (cpos[k] - s28[k])
+    return s28
+
+
+def start_box(env, world, rig, s28):
+    """The target's pixel box at step 0 (the plain ``target_pixel_box``)
+    and whether any pixel of the frame's column 0 is lit."""
+    p = vk.chase_constants(rig, vk.ChasePilot(), env.params)
+    cR, cpos = vk.camera_rows(p.mount, p.rel, s28)
+    n = s28.shape[1]
+    T = update_targets(world).sphere_center[0]
+    r = world.sphere_radius[0].expand(n)
+    W, H = rig.resolution
+    box = vk.target_pixel_box(p, cR, cpos, [T[k].expand(n) for k in range(3)], r, W, H)
+    cfg = vk.RenderConfig(n_spheres=1, n_cylinders=0, n_gates=0, spheres=True, cylinders=False,
+                          ground=False, gates=False, max_depth=1.0)
+    wcol = torch.cat([T.expand(n, 3), r[:, None], torch.ones(n, 1, device=T.device),
+                      torch.zeros(n, 1, device=T.device)], 1)
+    dcam = torch.from_numpy(vk.flat_dcam(rig)).to(T.device)
+    lit = vk.render_tiles(cfg, dcam, vk.camera_matrix(torch.stack(cpos, 1),
+                                                      torch.stack(cR, 1).reshape(n, 3, 3)),
+                          wcol) < 1e30
+    return box + (lit.reshape(n, H, W)[:, :, 0].any(1),)
+
+
+def render_data_ops(cfg, dcam, cam, wcol) -> int:
+    """Counted operations of K5's frame on this data (csrc/render.cuh,
+    render_t_pre): per pixel the world ray, the level and the per-pixel
+    terms; per primitive and pixel a miss (inactive, disc < 0, a gate plane
+    behind or parallel) ends early, a hit pays its full test. The pairs that
+    reach the root are counted from the plain version's arithmetic."""
+    S, C, G = cfg.n_spheres, cfg.n_cylinders, cfg.n_gates
+    n, hw = cam.shape[0], dcam.shape[1]
+    wc = wcol.expand(n, -1)
+    R = [cam[:, 3 + k:4 + k] for k in range(9)]
+    d = [R[3 * i] * dcam[0:1] + R[3 * i + 1] * dcam[1:2] + R[3 * i + 2] * dcam[2:3]
+         for i in range(3)]
+    o = [cam[:, k:k + 1] for k in range(3)]
+    per_pixel = 15 + 8 + (5 if cfg.spheres and S else 0) + (5 if cfg.cylinders and C else 0)
+    per_pixel += (11 + (8 if cfg.ground_extent is not None else 0)) if cfg.ground else 0
+    ops = n * hw * per_pixel
+    a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+    for s in range(S if cfg.spheres else 0):
+        q = [wc[:, 5 * s + j:5 * s + j + 1] for j in range(5)]
+        ox = [o[k] - q[k] for k in range(3)]
+        b = ox[0] * d[0] + ox[1] * d[1] + ox[2] * d[2]
+        c = ox[0] * ox[0] + ox[1] * ox[1] + ox[2] * ox[2] - q[3] * q[3]
+        hit = ((b * b - a * c) >= 0) & (q[4] > 0.5)
+        ops += n * hw * 9 + int(hit.sum().item()) * 24
+    a2 = d[0] * d[0] + d[1] * d[1]
+    for ci in range(C if cfg.cylinders else 0):
+        q = [wc[:, 5 * S + 6 * ci + j:5 * S + 6 * ci + j + 1] for j in range(6)]
+        ox, oy = o[0] - q[0], o[1] - q[1]
+        b = ox * d[0] + oy * d[1]
+        c = ox * ox + oy * oy - q[3] * q[3]
+        hit = ((b * b - a2 * c) >= 0) & (q[5] > 0.5)
+        ops += n * hw * 9 + int(hit.sum().item()) * 36
+    for g in range(G if cfg.gates else 0):
+        q = [wc[:, 5 * S + 6 * C + 15 * g + j:5 * S + 6 * C + 15 * g + j + 1] for j in range(15)]
+        ndotd = q[3] * d[0] + q[4] * d[1] + q[5] * d[2]
+        ndot0 = q[3] * (q[0] - o[0]) + q[4] * (q[1] - o[1]) + q[5] * (q[2] - o[2])
+        front = (ndot0 * ndotd > 0) & (q[13] > 0.5)
+        ops += n * hw * 9 + int(front.sum().item()) * 60
+    return ops
 
 
 def phases_only(dev, smi: str) -> int:
@@ -546,7 +723,20 @@ def phases_only(dev, smi: str) -> int:
     _build.library()
     log(f"device: {smi}")
     build_report(t0)
-    actor_phases(dev, torch.Generator().manual_seed(0), default_vision_rig())
+    gen = torch.Generator().manual_seed(0)
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    world = env.default_world(dev)
+    cst, _ = vector_reset(env, gen, N_VISION, world)
+    chase_phases(dev, env, vk.chase_state_matrix(cst), ek.env_world_matrix(world),
+                 default_vision_rig(), 64)
+    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
+    venv = VisionAcroEnv(acro=env, renderer="raycast_pallas", target_only=False)
+    vstate, _ = venv.reset_batched(gen, pworld, None, N_VISION)
+    cam_pos, cam_R = venv._camera(vstate)
+    render_sweep(vk.RenderConfig.for_world(pworld, venv.max_depth),
+                 torch.from_numpy(vk.flat_dcam(default_vision_rig())).to(dev),
+                 vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld))
+    actor_phases(dev, gen, default_vision_rig())
     log(f"card: {smi}")
     return 0
 
@@ -647,7 +837,10 @@ def main() -> int:
              sample_worlds(gen, N_VISION, n_spheres=1, n_cylinders=4, device=dev), N_VISION,
              default_vision_rig()),
             ("gate track (shapes 0, 1, 2) + cylinders, 8 envs, 640x480", gate_world, 8,
-             CameraRig(resolution=(640, 480)))):
+             CameraRig(resolution=(640, 480))),
+            (f"params.yaml world, 64 envs, 33x17 (H*W not a multiple of the "
+             f"{vk.RENDER_PER_THREAD * 256}-pixel tile)", pworld, 64,
+             CameraRig(resolution=(33, 17)))):
         sub, _ = vector_reset(env, gen, n, w)
         cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(sub)
         cfg = vk.RenderConfig.for_world(w, 25.0)
@@ -683,6 +876,39 @@ def main() -> int:
             raise AssertionError(f"K6: expected every env to reset, saw {resets}")
         errors["vision_env_rollout"] = max(errors["vision_env_rollout"], check_chase(
             f"{label}, N=64, K=64", e_, out, ref, rsum, ref_rsum, crashes, rc, contacts, rct,
+            64, resets))
+    # the pixel box's edges: the full-frame fallback (the camera inside the
+    # target; the target across the camera plane, beside the camera) and a
+    # target clipped by the frame's left edge, 6 m ahead
+    r0 = float(world.sphere_radius[0])
+    x_left = float(rig.K_inv[0, 2])  # the ray of u = 0 at depth 1
+    for label, c_cam in (("camera inside the target", (0.0, 0.0, 0.3 * r0)),
+                         ("target across the camera plane", (1.5 * r0, 0.2 * r0, 0.5 * r0)),
+                         ("target clipped by the frame's edge", (6.0 * x_left, 0.0, 6.0)),
+                         ("target behind the camera", (1.0, 0.5, -4.0)),
+                         ("target beside the camera, outside the frame's cone",
+                          (6.0, 0.0, 0.3))):
+        s28 = chase_placed(env, world, rig, gen, 64, c_cam)
+        box = start_box(env, world, rig, s28)
+        probe = torch.zeros(vk.N_CHASE_PROBE, dtype=torch.int64, device=dev)
+        vk.launch_vision_env_rollout(env, s28, wm, 64, rig, probe=probe)
+        full_steps = int(probe[len(vk.CHASE_PHASES) + 1].item())
+        if "edge" in label:
+            if box[4].any() or (box[0] != 0).any() or not box[5].all():
+                raise AssertionError(f"K6 ({label}): premise failed: the step-0 box is not "
+                                     f"clipped at u = 0 with the target lit there")
+        elif "behind" in label or "beside" in label:
+            if box[4].any() or (box[1] >= box[0]).any():
+                raise AssertionError(f"K6 ({label}): premise failed: the step-0 box is not empty")
+        elif not (box[4].all() and full_steps >= 64):
+            raise AssertionError(f"K6 ({label}): the full-frame fallback did not run "
+                                 f"({full_steps} full-frame steps)")
+        out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s28, wm, 64, rig)
+        torch.cuda.synchronize()
+        ref, ref_rsum, resets, rc, rct = vk.vision_env_rollout_reference(env, s28, wm, 64, rig)
+        log(f"K6 ({label}): {full_steps} full-frame env-steps in the instrumented launch")
+        errors["vision_env_rollout"] = max(errors["vision_env_rollout"], check_chase(
+            f"{label}, N=64, K=64", env, out, ref, rsum, ref_rsum, crashes, rc, contacts, rct,
             64, resets))
 
     # ---- 7. acro main path, counters from 0 ----------------------------------
@@ -805,6 +1031,7 @@ def main() -> int:
     slope_rate = N_VISION * (2048 - 512) / (slope[2048] - slope[512])
     log(f"chase K-slope (bench.py measure_vision, K = 512 -> 2048): {slope_rate:.6e} "
         f"env-steps/s at N={N_VISION} on {smi}")
+    steady = (vk.chase_state_matrix(cstate), ek.env_world_matrix(cworld))
     # station keeping (tests/test_pallas_vision.py::test_follows_orbiting_target)
     cstate, _ = vector_reset(env, gen, N_VISION, world)
     cstate, w2, _, _, _ = vk.fused_vision_env_rollout(env, cstate, world, 100)
@@ -816,6 +1043,10 @@ def main() -> int:
     if keep >= 1.5 or crashed_envs > N_VISION // 100:
         raise AssertionError("chase: station keeping failed")
     read_counts("chase main path", ("vision_env_rollout",), launches)
+    # inside K6 on the bank the main path's long launches left: where the
+    # time and the boxes go in the chase's steady state
+    log("K6 in the chase's steady state (the main path's bank after its launches):")
+    chase_phases(dev, env, steady[0], steady[1], rig, 2048)
 
     # ---- 10. kernels line: times at the main path's shapes -------------------
     s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(world)
@@ -853,10 +1084,18 @@ def main() -> int:
     cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld)
     ms = cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 200)
     pms = cuda_ms(lambda: vk.render_depth_reference(cfg, dcam, cam, wcol), 3)
+    render_sweep(cfg, dcam, cam, wcol)
     live_gates = (int(pworld.gate_active.reshape(-1, pworld.num_gates).any(0).sum().item())
                   if pworld.num_gates else 0)
-    row("render_depth", ms, pms, N_VISION * hw * render_ops(cfg, live_gates),
-        (N_VISION * (hw + 16) + 3 * hw + cfg.n_cols) * 4)
+    k5_bytes = (N_VISION * (hw + 16) + 3 * hw + cfg.n_cols) * 4
+    old_ms, _ = bound(N_VISION * hw * render_ops(cfg, live_gates), k5_bytes)
+    k5_ops = render_data_ops(cfg, dcam, cam, wcol)
+    log(f"K5 paced by the host (one launch after another, no device pre-roll): "
+        f"{cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 200, paced=True):.6f} ms")
+    log(f"K5 bound: {bound(k5_ops, k5_bytes)[0]:.6f} ms counting the operations this frame's "
+        f"pixels need (misses end at the discriminant; the kernels line carries it), "
+        f"{old_ms:.6f} ms counting every primitive's full hit test at every pixel")
+    row("render_depth", ms, pms, k5_ops, k5_bytes)
     # K6 at the chase's shapes: 1024 envs, default world and rig, K = 64; held
     # against its plain version once more at this shape
     K = 64
@@ -870,10 +1109,21 @@ def main() -> int:
         contacts, rct, N_VISION, chase_resets))
     ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, K, rig), 20)
     pms = cuda_ms(lambda: vk.vision_env_rollout_reference(env, s28, wm, K, rig), 1)
-    row("vision_env_rollout", ms, pms,
-        N_VISION * K * chase_step_ops(hw, S, 0, False, False)
-        + chase_resets * reset_ops(False, False),
-        (N_VISION * (28 + 28 + 3) + 12 * S + 3 * hw) * 4)
+    # inside K6 at this shape: the phases and the pixels its box tested
+    split = chase_phases(dev, env, s28, wm, rig, K)
+    log(f"K6 paced by the host (one launch after another, no device pre-roll): "
+        f"{cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, K, rig), 20, paced=True):.6f}"
+        f" ms")
+    k6_bytes = (N_VISION * (28 + 28 + 3) + 12 * S + 3 * hw) * 4
+    resets_ops = chase_resets * reset_ops(False, False)
+    old_ms, _ = bound(N_VISION * K * chase_step_ops(hw, S, 0, False, False) + resets_ops,
+                      k6_bytes)
+    k6_ops = (N_VISION * K * chase_step_ops(split["pixels_per_step"], S, 0, False, False)
+              + resets_ops)
+    log(f"K6 bound: {bound(k6_ops, k6_bytes)[0]:.6f} ms counting the hit test on the "
+        f"{split['pixels_per_step']:.3f} pixels an env-step that the box tested (the kernels "
+        f"line carries it), {old_ms:.6f} ms counting all {hw} pixels of the frame")
+    row("vision_env_rollout", ms, pms, k6_ops, k6_bytes)
     # ---- 11. K7 against its plain version ----------------------------------------------
     # (a) float32 weights across resets
     env8, pworlds, cols, w32, pcfg, pwcol = policy_setup(dev, gen, 64, 8, bf16=False)

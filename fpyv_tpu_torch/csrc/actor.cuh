@@ -28,6 +28,8 @@
 
 #include <cstdint>
 
+#include "clock.cuh"
+
 namespace fpyv {
 
 constexpr int kActorThreads = 256;
@@ -65,40 +67,9 @@ __device__ __forceinline__ float madd(float acc, float x, float w) {
 // The phases of a step that the instrumented instantiations time.
 enum Phase { kPhRender = 0, kPhStack, kPhEmbed, kPhFc, kPhHeads, kPhStep, kPhases };
 
-// Per-phase clocks of an instrumented instantiation (kTimed): thread 0 of
-// each block reads %globaltimer at each phase boundary (right after a
-// barrier), sums the nanoseconds of each phase in registers and adds them
-// into a device array (kPhases entries) at the end of the launch. Empty, and
-// free, on every main path (kTimed false).
+// The actor's clock (csrc/clock.cuh) over these phases.
 template <bool kTimed>
-struct PhaseClock {
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void mark(int) {}
-  __device__ __forceinline__ void flush(unsigned long long*) {}
-};
-
-template <>
-struct PhaseClock<true> {
-  unsigned long long last = 0, ns[kPhases] = {};
-  __device__ __forceinline__ static unsigned long long now() {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    return t;
-  }
-  __device__ __forceinline__ void start() { last = now(); }
-  __device__ __forceinline__ void mark(int ph) {
-    if (threadIdx.x == 0) {
-      const unsigned long long t = now();
-#pragma unroll
-      for (int i = 0; i < kPhases; ++i) ns[i] += i == ph ? t - last : 0ull;
-      last = t;
-    }
-  }
-  __device__ __forceinline__ void flush(unsigned long long* out) {
-    if (threadIdx.x == 0)
-      for (int i = 0; i < kPhases; ++i) atomicAdd(out + i, ns[i]);
-  }
-};
+using ActorClock = PhaseClock<kTimed, kPhases>;
 
 // The level table: lut[j] = rnd(j / 255.0f), filled block-strided.
 template <bool kBF16>

@@ -152,7 +152,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int f = 0; f < 6; ++f) pr[5 * S + f * C + i] = w[5 * S + 6 * i + f];
   }
 
-  fpyv::PhaseClock<kTimed> clk;
+  fpyv::ActorClock<kTimed> clk;
   clk.start();
   for (int step = 0; step < n_steps; ++step) {
     const size_t row0 = static_cast<size_t>(step) * n + env0;  // (step, env0) output row

@@ -197,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
     lane = fpyv::env_lane(env0 + tid, seed);
   }
 
-  fpyv::PhaseClock<kTimed> clk;
+  fpyv::ActorClock<kTimed> clk;
   clk.start();
   for (int step = 0; step < n_steps; ++step) {
     const size_t orow = static_cast<size_t>(step) * n + env0;  // (step, env0) output row

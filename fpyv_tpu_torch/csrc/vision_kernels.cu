@@ -3,14 +3,20 @@
 // K5 replaces fpyv_tpu/ops/pallas_vision.py:_render_kernel
 // (pallas_render_depth): nearest-hit depth over spheres, cylinders, the
 // ground and shaped gates, quantised to floor(255 (1 - t / max)) / 255.
-// One thread per pixel on a (ceil(HW / 256), N) grid; each block copies its
-// env's camera (16 floats) and world columns (5S + 6C + 15G + 1, shared
-// worlds read with stride 0) into shared memory, and reads the ray grid
-// dcam (3, HW) in coalesced rows. The frame is written once.
-// Bound on the H100: at 96x72 and 1024 envs the frame is 28.3 MB written
-// against some 40 (sphere) to 80 (gate) float32 operations per primitive and
-// pixel, so a world with a few primitives is bound by operations and an
-// empty one by the write. Nothing but the frame touches device memory.
+// A (ceil(HW / 256P), N) grid of 256-thread blocks, P pixels a thread
+// (RENDER_PER_THREAD in ops/vision_kernel.py, chosen by measurement, PERF.md).
+// Each block copies its env's camera and builds the env's invariant table
+// (render.cuh::render_invariant: a sphere's o = cam - c and |o|^2 - r^2, a
+// cylinder's ox, oy and c, a gate's ndot0) in one prologue with two
+// barriers, then each thread reads its P rays from the grid dcam (3, HW) in
+// coalesced rows and tests them (render_t_pre): a primitive that misses
+// stops at its discriminant (or a gate at its plane), before the square
+// root and the divisions. Same operations in the same order as render_t, so
+// the levels are equal. The frame is written once. Bound on the H100: at
+// 96x72 and 1024 envs the frame is 28.3 MB written against ~9 float32
+// operations per primitive and pixel that misses and 30-60 per hit, so a
+// world with a few primitives is bound by operations, an empty one by the
+// write. Nothing but the frame touches device memory.
 //
 // K6 replaces pallas_vision.py:_chase_kernel (pallas_vision_env_rollout):
 // per step, render the chased target (sphere 0) alone, take the mask
@@ -19,20 +25,41 @@
 // target is out of frame, 'level' force basis, quaternion of the desired
 // attitude), step the physics with the attitude / |F| override, then the
 // K4 reward and auto-reset (env.cuh).
-// One block of 128 threads per env. The threads stride over the H*W
-// pixels and count the mask, sum u and sum v; a warp-shuffle and shared
-// memory reduction combines them. The sums are of half-integers below 2^22
-// at 96x72, exact in float32 in any order, so the centroid equals the
-// Pallas one bit for bit. Thread 0 holds the env's 28 state rows in
-// registers for all K steps, runs the serial pilot and physics and
-// publishes the next camera pose through shared memory. Bound on the H100:
-// per env-step ~54 counted operations per pixel (3.7e5 at 96x72) against
-// ~900 for the pilot, physics and reward on one thread, so operations; the
-// serial part idles 127 threads, and blocks resident side by side on each
-// SM overlap one block's pilot with others' renders. __launch_bounds__ asks
-// for 8 resident blocks per SM (at most 64 registers a thread): 1056 slots
-// hold a 1024-env bank in one wave, where 80 registers allowed 6 per SM and
-// left 232 blocks to a second, near-empty wave (1.28x measured, PERF.md).
+// One block of 128 threads per env. Thread 0 holds the env's 28 state rows
+// in registers for all K steps, computes the camera pose and the target's
+// pixel box (render.cuh::target_pixel_box), runs the serial pilot and
+// physics and publishes the next pose through shared memory. The render
+// tests only the pixels of the box: the threads walk its rows, (u, v)
+// stepped by the block's stride with a carry, and each tested pixel runs
+// world_ray and hit_sphere as the plain version does, so it decides alike.
+// Why the box loses no pixel: where the target's centre c in the camera
+// frame has c.z - r > 0.05 m, the whole sphere lies in front of the camera,
+// every ray (X, Y, 1) that meets it lies in its tangent cone, and the
+// cone's X and Y limits map through K to a pixel rectangle, padded by 2
+// pixels against float32 rounding and clipped to the frame. A sphere wholly
+// behind the camera (c.z + r < -0.05 m) can only be met at t < 0: no pixel.
+// One across the camera plane (the camera inside it, or NaN) gets the full
+// frame, unless it stays outside the cone that holds the frame's rays (its
+// points with z > 0 lie at least rho - r off the optical axis and at
+// z <= c.z + r; 5 % margin): then no pixel. tests/test_torch_chase_box.py
+// holds the box against the plain and the JAX render over seeded poses.
+// The mask count and pixel sums are of half-integers below 2^22 at 96x72,
+// exact in float32 in any order, so with every lit pixel inside the box the
+// centroid equals the full-frame one, and the Pallas one, bit for bit. (At
+// 640x480 the sums can pass 2^23 and then round by their order, in the
+// plain version too.)
+// A warp-shuffle and shared-memory reduction combines the sums. The
+// block's last thread, which the box seldom gives a pixel, computes the
+// next step's target centres and scan force during the render.
+// Bound on the H100: per env-step ~54 counted operations per tested pixel
+// (PERF.md counts the box's pixels) against ~900 for the pilot, physics and
+// reward on one thread; the serial part idles 127 threads, and blocks
+// resident side by side on each SM overlap one block's pilot with others'
+// renders. __launch_bounds__ asks for 8 resident blocks
+// per SM (at most 64 registers a thread): 1056 slots hold a 1024-env bank
+// in one wave. The instrumented instantiation (kTimed) clocks the phases of
+// a step and counts the pixels tested (chip_smoke.py --phases).
+#include "clock.cuh"
 #include "env.cuh"
 #include "render.cuh"
 
@@ -58,34 +85,57 @@ namespace {
 constexpr int kRenderBlock = 256;
 constexpr int kCamCols = 16;
 
+// P pixels a thread: pixel j of thread x of block b is b * 256P + 256j + x,
+// so each of the P rows of reads and writes stays coalesced.
+template <int P>
 __global__ void __launch_bounds__(kRenderBlock)
     render_depth_kernel(RenderConsts rc, const float* __restrict__ dcam, int hw,
-                        const float* __restrict__ cam, const float* __restrict__ wcol, int wcols,
+                        const float* __restrict__ cam, const float* __restrict__ wcol,
                         int wstride, float* __restrict__ out, int n) {
   extern __shared__ float sh[];
-  float* cs = sh;              // (16,) camera
-  float* ws = sh + kCamCols;   // (wcols,) world columns
+  float* cs = sh;             // (12,) camera of the env
+  float* pre = sh + kCamCols; // (pre_cols,) the env's invariants
   const int S = static_cast<int>(rc.n_spheres);
   const int C = static_cast<int>(rc.n_cylinders);
   const int G = static_cast<int>(rc.n_gates);
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  float dx = 0.0f, dy = 0.0f, dz = 0.0f;
-  if (p < hw) {
-    dx = dcam[p];
-    dy = dcam[hw + p];
-    dz = dcam[2 * hw + p];
+  const int items = S + C + G + 1;
+  const int base = blockIdx.x * (kRenderBlock * P) + threadIdx.x;
+  float dx[P], dy[P], dz[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int p = base + j * kRenderBlock;
+    dx[j] = p < hw ? dcam[p] : 0.0f;
+    dy[j] = p < hw ? dcam[hw + p] : 0.0f;
+    dz[j] = p < hw ? dcam[2 * hw + p] : 0.0f;
   }
   for (int e = blockIdx.y; e < n; e += gridDim.y) {
-    __syncthreads();  // the previous env's columns are no longer read
-    fpyv::load_shared(cs, cam + static_cast<size_t>(e) * kCamCols, kCamCols);
-    fpyv::load_shared(ws, wcol + static_cast<size_t>(e) * wstride, wcols);
+    const float* ce = cam + static_cast<size_t>(e) * kCamCols;
+    const float* we = wcol + static_cast<size_t>(e) * wstride;
+    __syncthreads();  // the previous env's table is no longer read
+    if (threadIdx.x < 12) cs[threadIdx.x] = ce[threadIdx.x];
+    for (int k = threadIdx.x; k < items; k += kRenderBlock)
+      fpyv::render_invariant(k, S, C, G, ce[0], ce[1], ce[2], we, pre);
     __syncthreads();
-    if (p < hw) {
-      const WorldRay r = fpyv::world_ray(cs, dx, dy, dz);
-      const float t = fpyv::render_t(rc, S, C, G, r, ws);
-      out[static_cast<size_t>(e) * hw + p] = fpyv::encode_level(t, rc.max_depth);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int p = base + j * kRenderBlock;
+      if (p < hw) {
+        const WorldRay r = fpyv::world_ray(cs, dx[j], dy[j], dz[j]);
+        const float t = fpyv::render_t_pre(rc, S, C, G, r, pre);
+        out[static_cast<size_t>(e) * hw + p] = fpyv::encode_level(t, rc.max_depth);
+      }
     }
   }
+}
+
+template <int P>
+void launch_render(const RenderConsts& rc, const float* dcam, int hw, const float* cam,
+                   const float* wcol, int wstride, float* out, int n, cudaStream_t stream) {
+  const dim3 grid((hw + kRenderBlock * P - 1) / (kRenderBlock * P), n < 65535 ? n : 65535);
+  const int cols = fpyv::pre_cols(static_cast<int>(rc.n_spheres), static_cast<int>(rc.n_cylinders),
+                                  static_cast<int>(rc.n_gates));
+  render_depth_kernel<P><<<grid, kRenderBlock, sizeof(float) * (kCamCols + cols), stream>>>(
+      rc, dcam, hw, cam, wcol, wstride, out, n);
 }
 
 // ---------------------------------------------------------------------------
@@ -97,6 +147,14 @@ constexpr int kChaseBlocksPerSM = 8;
 constexpr int kPilotRows = 4;  // PID integral, derivative, previous error, started
 constexpr int kChaseRows = kEnvRows + kPilotRows;
 
+// The phases of a step that the instrumented instantiation (kTimed) times:
+// camera pose and target centres, the render and its block reduction, the
+// pilot, then K1 and env_advance. Its probe array holds their nanoseconds
+// (summed over the blocks), then the pixels tested, the steps that rendered
+// the full frame and the steps whose box held no pixel, summed over the
+// envs and steps.
+enum ChasePhase { kChPose = 0, kChRender, kChPilot, kChStep, kChPhases };
+
 // Field order must match ChaseConstants.as_array() in ops/vision_kernel.py.
 struct ChaseConsts {
   float mount[9];  // camera mount rotation, row major
@@ -105,6 +163,7 @@ struct ChaseConsts {
   float gz, scan_s, scan_w;
   float drag, lift, tof, keep, uwb;
   float kP, kI, kD, iclip, rate, rate_keep, leak, dt, min_force, max_force;
+  float ku, ks, kcu, kv, kcv;  // K entries K00, K01, K02, K11, K12: the target's pixel box
 };
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -157,22 +216,29 @@ __device__ __forceinline__ void quat_from_R(const float m[9], float q[4]) {
   for (int j = 0; j < 4; ++j) q[j] = q[j] * sign;
 }
 
+// The hover-scan force (x, y) of step i: hover thrust tilted by scan_s, its
+// azimuth turning by scan_w a step.
+__device__ __forceinline__ void scan_force(const ChaseConsts& p, int i, float f[2]) {
+  const float theta = p.scan_w * static_cast<float>(i);
+  f[0] = p.scan_s * cosf(theta);
+  f[1] = p.scan_s * sinf(theta);
+}
+
 // The guidance pilot of one step (pallas_vision.py:554-631). s: the state
 // rows at the step's start, cam: its camera pose, (tx, ty, tz, tr): the
-// target, (cnt, su, sv): the mask count and pixel sums. Writes the override
-// ov = (qw, qx, qy, qz, |F|) and the next PID memory rows pid[4].
+// target, (cnt, su, sv): the mask count and pixel sums, (scan_fx, scan_fy):
+// the step's scan_force. Writes the override ov = (qw, qx, qy, qz, |F|) and
+// the next PID memory rows pid[4].
 __device__ __forceinline__ void chase_pilot(const ChaseConsts& p, const float s[],
                                             const float cam[12], float tx, float ty, float tz,
-                                            float tr, float cnt, float su, float sv, int i,
-                                            float ov[5], float pid[4]) {
+                                            float tr, float cnt, float su, float sv,
+                                            float scan_fx, float scan_fy, float ov[5],
+                                            float pid[4]) {
   const float px = s[0], py = s[1], pz = s[2];
   const float vx = s[3], vy = s[4], vz = s[5];
   const float safe = fmaxf(cnt, 1.0f);
   const float ucen = su / safe, vcen = sv / safe;
   const bool visible = cnt > 0.5f;
-  const float theta = p.scan_w * static_cast<float>(i);
-  const float scan_fx = p.scan_s * cosf(theta);
-  const float scan_fy = p.scan_s * sinf(theta);
 
   // ray through the centroid pixel, world frame, normalised
   const float* R = cam + 3;
@@ -237,26 +303,34 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool kDR, bool kWind>
+template <bool kDR, bool kWind, bool kTimed>
 __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
     chase_kernel(StepConsts k, EnvConsts c, ChaseConsts p, int seed,
                  const float* __restrict__ state, const float* __restrict__ world, int S,
                  const float* __restrict__ cyl, int C, const float* __restrict__ dcam, int hw,
                  int width, float* __restrict__ out, float* __restrict__ rsum_out,
                  float* __restrict__ crash_out, float* __restrict__ contact_out, int n,
-                 int n_steps) {
+                 int n_steps, unsigned long long* __restrict__ probe) {
   extern __shared__ float sh[];
   float* wm = sh;                   // (12, S) world rows
   float* cm = wm + kWorldRows * S;  // (6, C) cylinder rows
-  float* cen = cm + 6 * C;          // (3, S) target centers of the step
+  float* cen = cm + 6 * C;          // (2, 3, S) target centres of steps i and i + 1
   __shared__ float cam[12];         // camera pose of the step
+  __shared__ float scan[2][2];      // scan_force of steps i and i + 1
   __shared__ float tgt[4];          // chased target: center, radius
+  __shared__ int box[4];            // its pixel box: u0, u1, v0, v1
   __shared__ float part[3][kChaseBlock / 32];
   fpyv::load_shared(wm, world, kWorldRows * S);
   fpyv::load_shared(cm, cyl, 6 * C);
 
   const int e = blockIdx.x;
+  const int height = hw / width;
+  const float cone = fpyv::frame_cone(p.ku, p.ks, p.kcu, p.kv, p.kcv, width, height);
   const bool lead = threadIdx.x == 0;
+  // step i + 1's target centres and scan force, computed during step i's
+  // render (so the render's barrier orders them before step i + 1 reads
+  // them) by the block's last thread, which the box seldom gives a pixel
+  const bool ahead = threadIdx.x == kChaseBlock - 1;
   const int warp = threadIdx.x >> 5, lane_in_warp = threadIdx.x & 31;
   float s[kChaseRows];
   if (lead) {
@@ -267,28 +341,71 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
   const Cylinders cv{cm, C};
   const float zero_act[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float rsum = 0.0f, crashes = 0.0f, contacts = 0.0f;
+  fpyv::PhaseClock<kTimed, kChPhases> clk;
+  unsigned long long tested = 0, full = 0, none = 0;
+  __syncthreads();  // the world rows are in shared memory
+  if (ahead) {
+    fpyv::target_centers(wm, S, 0, cen, 0, 1);
+    scan_force(p, 0, scan[0]);
+  }
   __syncthreads();
+  clk.start();
 
   for (int i = 0; i < n_steps; ++i) {
+    const float* ci = cen + (i & 1) * 3 * S;
     if (lead) {
-      fpyv::target_centers(wm, S, i, cen, 0, 1);
       fpyv::camera_pose(p.mount, p.rel, s, cam);
-      tgt[0] = cen[0];
-      tgt[1] = cen[S];
-      tgt[2] = cen[2 * S];
+      tgt[0] = ci[0];
+      tgt[1] = ci[S];
+      tgt[2] = ci[2 * S];
       tgt[3] = wm[3 * S];  // sphere 0, active whatever its mask says
+      const fpyv::PixelBox b = fpyv::target_pixel_box(cam, tgt[0], tgt[1], tgt[2], tgt[3], p.ku,
+                                                      p.ks, p.kcu, p.kv, p.kcv, cone, width,
+                                                      height);
+      box[0] = b.u0;
+      box[1] = b.u1;
+      box[2] = b.v0;
+      box[3] = b.v1;
+      if constexpr (kTimed) {
+        const bool some = b.u0 <= b.u1 && b.v0 <= b.v1;
+        tested += some ? (b.u1 - b.u0 + 1) * (b.v1 - b.v0 + 1) : 0;
+        full += b.full ? 1 : 0;
+        none += some ? 0 : 1;
+      }
     }
     __syncthreads();
+    clk.mark(kChPose);
+    if (ahead && i + 1 < n_steps) {  // the other buffer: read after this step's render barrier
+      fpyv::target_centers(wm, S, i + 1, cen + ((i + 1) & 1) * 3 * S, 0, 1);
+      scan_force(p, i + 1, scan[(i + 1) & 1]);
+    }
 
-    // ---- target-only render: mask count and pixel sums
+    // ---- target-only render over the box: mask count and pixel sums. The
+    // threads walk the box's pixels in row order, (u, v) advanced by the
+    // block's stride with a carry, so no pixel index is divided by width.
     float cnt = 0.0f, su = 0.0f, sv = 0.0f;
-    for (int q = threadIdx.x; q < hw; q += kChaseBlock) {
-      const WorldRay r = fpyv::world_ray(cam, dcam[q], dcam[hw + q], dcam[2 * hw + q]);
-      const float t = fpyv::hit_sphere(r, fpyv::ray_a(r), tgt[0], tgt[1], tgt[2], tgt[3], true);
-      if (t < 1e30f) {
-        cnt += 1.0f;
-        su += static_cast<float>(q % width) + 0.5f;
-        sv += static_cast<float>(q / width) + 0.5f;
+    const int u0 = box[0], u1 = box[1], v0 = box[2];
+    const int bw = u1 - u0 + 1;
+    const int area = bw > 0 && box[3] >= v0 ? bw * (box[3] - v0 + 1) : 0;
+    if (threadIdx.x < area) {
+      const int du = kChaseBlock % bw, dv = kChaseBlock / bw;
+      int u = u0 + threadIdx.x % bw, v = v0 + threadIdx.x / bw;
+      for (int q = threadIdx.x; q < area; q += kChaseBlock) {
+        const int pix = v * width + u;
+        const WorldRay r = fpyv::world_ray(cam, dcam[pix], dcam[hw + pix], dcam[2 * hw + pix]);
+        const float t =
+            fpyv::hit_sphere(r, fpyv::ray_a(r), tgt[0], tgt[1], tgt[2], tgt[3], true);
+        if (t < 1e30f) {
+          cnt += 1.0f;
+          su += static_cast<float>(u) + 0.5f;
+          sv += static_cast<float>(v) + 0.5f;
+        }
+        u += du;
+        v += dv;
+        if (u > u1) {
+          u -= bw;
+          v += 1;
+        }
       }
     }
     cnt = warp_sum(cnt);
@@ -300,6 +417,7 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
       part[2][warp] = sv;
     }
     __syncthreads();
+    clk.mark(kChRender);
     if (!lead) continue;
 
     cnt = su = sv = 0.0f;
@@ -310,9 +428,11 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
       sv += part[2][w];
     }
     float ov[5], pid[4];
-    chase_pilot(p, s, cam, tgt[0], tgt[1], tgt[2], tgt[3], cnt, su, sv, i, ov, pid);
+    chase_pilot(p, s, cam, tgt[0], tgt[1], tgt[2], tgt[3], cnt, su, sv, scan[i & 1][0],
+                scan[i & 1][1], ov, pid);
+    clk.mark(kChPilot);
 
-    const Spheres sp{cen, cen + S, cen + 2 * S, wm + 3 * S, wm + 4 * S, S};
+    const Spheres sp{ci, ci + S, ci + 2 * S, wm + 3 * S, wm + 4 * S, S};
     const EnvPhysics ep{s[18], s[19], s[20], s[21], s[22], s[23]};
     float phys[kStateRows];
 #pragma unroll
@@ -330,6 +450,13 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
     // contact: a crash within the target's collision shell (motor arm 0.127 m
     // + motor radius; 0.3 m covers both)
     contacts = contacts + crashed * (dist <= tgt[3] + 0.3f ? 1.0f : 0.0f);
+    clk.mark(kChStep);
+  }
+  clk.flush(probe);
+  if (kTimed && lead) {
+    atomicAdd(probe + kChPhases, tested);
+    atomicAdd(probe + kChPhases + 1, full);
+    atomicAdd(probe + kChPhases + 2, none);
   }
 
   if (lead) {
@@ -341,15 +468,16 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
   }
 }
 
-template <bool kDR, bool kWind>
+template <bool kDR, bool kWind, bool kTimed>
 void launch_chase(const StepConsts& k, const EnvConsts& c, const ChaseConsts& p, int seed,
                   const float* state, const float* world, int S, const float* cyl, int C,
                   const float* dcam, int hw, int width, float* out, float* rsum, float* crashes,
-                  float* contacts, int n, int n_steps, cudaStream_t stream) {
-  const size_t shmem = sizeof(float) * (kWorldRows * S + 6 * C + 3 * S);
-  chase_kernel<kDR, kWind><<<n, kChaseBlock, shmem, stream>>>(
+                  float* contacts, int n, int n_steps, unsigned long long* probe,
+                  cudaStream_t stream) {
+  const size_t shmem = sizeof(float) * (kWorldRows * S + 6 * C + 6 * S);
+  chase_kernel<kDR, kWind, kTimed><<<n, kChaseBlock, shmem, stream>>>(
       k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, rsum, crashes, contacts, n,
-      n_steps);
+      n_steps, probe);
 }
 
 template <typename T>
@@ -363,17 +491,24 @@ bool read_consts(const float* host, int count, T* out) {
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success).
+// Returns the cudaError_t of the launch (0 on success). per_thread: pixels a
+// thread, 1 to 4.
 int fpyv_render_depth(const float* consts, int n_consts, const float* dcam, int hw,
                       const float* cam, const float* wcol, int wcols, int wstride, float* out,
-                      int n, void* stream) {
+                      int n, int per_thread, void* stream) {
   RenderConsts rc;
-  if (!read_consts(consts, n_consts, &rc) || n < 1 || hw < 1)
+  if (!read_consts(consts, n_consts, &rc) || n < 1 || hw < 1 ||
+      wcols != 5 * static_cast<int>(rc.n_spheres) + 6 * static_cast<int>(rc.n_cylinders) +
+                   15 * static_cast<int>(rc.n_gates) + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((hw + kRenderBlock - 1) / kRenderBlock, n < 65535 ? n : 65535);
-  const size_t shmem = sizeof(float) * (kCamCols + wcols);
-  render_depth_kernel<<<grid, kRenderBlock, shmem, static_cast<cudaStream_t>(stream)>>>(
-      rc, dcam, hw, cam, wcol, wcols, wstride, out, n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (per_thread) {
+    case 1: launch_render<1>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
+    case 2: launch_render<2>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
+    case 3: launch_render<3>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
+    case 4: launch_render<4>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,25 +517,30 @@ int fpyv_vision_env_rollout(const float* step_consts, int n_step_consts, const f
                             int seed, const float* state, const float* world, int S,
                             const float* cyl, int C, const float* dcam, int hw, int width,
                             float* out, float* rsum, float* crashes, float* contacts, int n,
-                            int n_steps, int randomize, int use_wind, void* stream) {
+                            int n_steps, int randomize, int use_wind, void* probe,
+                            void* stream) {
   StepConsts k;
   EnvConsts c;
   ChaseConsts p;
   if (!read_consts(step_consts, n_step_consts, &k) || !read_consts(env_consts, n_env_consts, &c) ||
-      !read_consts(chase_consts, n_chase_consts, &p) || n < 1)
+      !read_consts(chase_consts, n_chase_consts, &p) || n < 1 ||
+      (probe && (randomize || use_wind)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FPYV_CHASE(DR, WIND)                                                                   \
-  launch_chase<DR, WIND>(k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, rsum, \
-                         crashes, contacts, n, n_steps, st)
-  if (randomize && use_wind)
-    FPYV_CHASE(true, true);
+#define FPYV_CHASE(DR, WIND, TIMED)                                                        \
+  launch_chase<DR, WIND, TIMED>(k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, \
+                                rsum, crashes, contacts, n, n_steps,                       \
+                                static_cast<unsigned long long*>(probe), st)
+  if (probe)
+    FPYV_CHASE(false, false, true);
+  else if (randomize && use_wind)
+    FPYV_CHASE(true, true, false);
   else if (randomize)
-    FPYV_CHASE(true, false);
+    FPYV_CHASE(true, false, false);
   else if (use_wind)
-    FPYV_CHASE(false, true);
+    FPYV_CHASE(false, true, false);
   else
-    FPYV_CHASE(false, false);
+    FPYV_CHASE(false, false, false);
 #undef FPYV_CHASE
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@ chase megaloop, as CUDA kernels with their plain PyTorch versions (mirrors
   raycast renderers emit, ``floor(255 (1 - t / max_depth)) / 255``.
 - :func:`fused_vision_env_rollout` (``pallas_vision_env_rollout``): K steps
   of the chase loop in one launch. Each step renders the chased target
-  (sphere 0) alone, takes the mask centroid, runs the guidance pilot
+  (sphere 0) alone, over the pixels that :func:`target_pixel_box` says it
+  can light on the card (the plain version renders the full frame; both
+  give the same mask), takes the mask centroid, runs the guidance pilot
   (:class:`ChasePilot`) and applies its attitude and |F| through the physics
   override, then the full acro env step of K4 (reward, auto-reset,
   CircularPath targets, DomainRand and wind). The PID memory rides in four
@@ -67,6 +69,14 @@ CH_ROWS = ENV_ROWS + N_PILOT_ROWS
 def flat_dcam(rig: CameraRig) -> np.ndarray:
     """(3, H*W) float32 camera-frame ray directions, pixel order v*W + u."""
     return pixel_ray_grid(rig).reshape(3, -1)
+
+
+@functools.lru_cache(maxsize=16)
+def device_dcam(rig: CameraRig, device: torch.device) -> torch.Tensor:
+    """:func:`flat_dcam` on ``device``, made once per rig and device: a
+    launch then neither rebuilds the grid nor waits on a host-to-device copy
+    (read only)."""
+    return torch.from_numpy(flat_dcam(rig)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +288,12 @@ def render_depth_reference(cfg: RenderConfig, dcam, cam, wcol) -> torch.Tensor:
     return encode_levels(render_tiles(cfg, dcam, cam, wcol), cfg.max_depth)
 
 
-def launch_render_depth(cfg: RenderConfig, dcam, cam, wcol) -> torch.Tensor:
-    """K5 on the card: levels (N, H*W)."""
+RENDER_PER_THREAD = 2  # K5's pixels a thread (csrc/vision_kernels.cu takes 1 to 4)
+
+
+def launch_render_depth(cfg: RenderConfig, dcam, cam, wcol,
+                        per_thread: int = RENDER_PER_THREAD) -> torch.Tensor:
+    """K5 on the card: levels (N, H*W), ``per_thread`` pixels a thread."""
     device = cam.device
     if device.type != "cuda":
         raise ValueError(f"render_depth launches on a CUDA device, got {device}")
@@ -297,7 +311,7 @@ def launch_render_depth(cfg: RenderConfig, dcam, cam, wcol) -> torch.Tensor:
     with torch.cuda.device(device):
         err = lib.fpyv_render_depth(consts.ctypes.data, consts.size, dcam.data_ptr(), hw,
                                     cam.data_ptr(), wcol.data_ptr(), cfg.n_cols, wstride,
-                                    out.data_ptr(), n, stream)
+                                    out.data_ptr(), n, per_thread, stream)
     _build.check(err, "render_depth")
     _build.launch_counts["render_depth"] += 1
     return out
@@ -334,7 +348,7 @@ def render_inputs(rig: CameraRig, cam_pos: torch.Tensor, cam_R: torch.Tensor, wo
     and (..., 3, 3) on a shared or per-env batched world."""
     cam = camera_matrix(cam_pos.reshape(-1, 3), cam_R.reshape(-1, 3, 3))
     cfg = RenderConfig.for_world(world, max_depth, include, ground_extent, frame_width)
-    dcam = torch.from_numpy(flat_dcam(rig)).to(cam.device)
+    dcam = device_dcam(rig, cam.device)
     return cfg, dcam, cam, world_cols(world)
 
 
@@ -405,6 +419,12 @@ class ChaseConstants:
     dt: float
     min_force: float
     max_force: float
+    # the rig's K (pixel = K ray), for the target's pixel box: K00, K01, K02, K11, K12
+    ku: float
+    ks: float
+    kcu: float
+    kv: float
+    kcv: float
 
     def as_array(self) -> np.ndarray:
         vals = []
@@ -420,7 +440,7 @@ def chase_constants(rig: CameraRig, pilot: ChasePilot, params: DroneParams) -> C
     ``pallas_vision._make_chase_action_fn`` rounds them. ``gz`` takes the
     nominal mass and g = 9.81 (components.py:270), not DomainRand's mass."""
     mass, dt = float(params.mass), float(params.dt)
-    Ki = np.asarray(rig.K_inv)
+    Ki, K = np.asarray(rig.K_inv), np.asarray(rig.K)
     rate = np.float32(pilot.derivative_transition_rate)
     curve = params.thrust_curve
     return ChaseConstants(
@@ -435,6 +455,7 @@ def chase_constants(rig: CameraRig, pilot: ChasePilot, params: DroneParams) -> C
         iclip=_f32(pilot.integral_clip), rate=float(rate),
         rate_keep=float(np.float32(1.0) - rate), leak=_f32(pilot.integral_leak), dt=_f32(dt),
         min_force=_f32(curve.min_force), max_force=_f32(curve.max_force),
+        ku=_f32(K[0, 0]), ks=_f32(K[0, 1]), kcu=_f32(K[0, 2]), kv=_f32(K[1, 1]), kcv=_f32(K[1, 2]),
     )
 
 
@@ -485,6 +506,81 @@ def camera_rows(mount, rel, st):
     cy = py + B[3] * rp[0] + B[4] * rp[1] + B[5] * rp[2]
     cz = pz + B[6] * rp[0] + B[7] * rp[1] + B[8] * rp[2]
     return cR, (cx, cy, cz)
+
+
+BOX_Z_EPS = 0.05  # m: a target reaching this near the camera plane renders the full frame
+BOX_PAD = 2  # pixels added on each side of the projected box
+CONE_MARGIN = 1.05  # on the frame's cone, against float32 rounding
+
+
+def frame_cone(p: ChaseConstants, width: int, height: int) -> torch.Tensor:
+    """tan of the half-angle of a cone about the optical axis that holds
+    every pixel ray of the frame [0, W] x [0, H], in float32 as
+    ``csrc/render.cuh::frame_cone``."""
+    f = functools.partial(torch.tensor, dtype=torch.float32)
+    ym = torch.maximum(f(p.kcv), f(float(height)) - p.kcv) / p.kv
+    xm = (torch.maximum(f(p.kcu), f(float(width)) - p.kcu) + abs(p.ks) * ym) / p.ku
+    return torch.sqrt(xm * xm + ym * ym)
+
+
+def target_pixel_box(p: ChaseConstants, cam_R, cam_pos, target, radius, width: int,
+                     height: int):
+    """The pixel rectangle that holds every pixel of K6's target-only
+    render that the target sphere can light, as ``csrc/render.cuh::
+    target_pixel_box`` computes it operation for operation in float32.
+    ``cam_R`` the 9 row-major camera rotation entries, ``cam_pos`` and
+    ``target`` 3 tensors each, ``radius`` one; all (N,) float32.
+
+    The centre in the camera frame is c = cam_Rᵀ (target − cam_pos). Where
+    c.z + r < −:data:`BOX_Z_EPS` the sphere lies wholly behind the camera,
+    every hit has t < 0, and the box is empty. Elsewhere, where c.z − r ≤
+    :data:`BOX_Z_EPS` (across the camera plane, the camera inside the
+    sphere, or NaN), the box is the full frame, unless the sphere stays
+    outside the cone of the frame's rays (:func:`frame_cone`): its points
+    with z > 0 lie at least ρ − r = |(c.x, c.y)| − r off the optical axis
+    and at z ≤ c.z + r, so ρ > r + :data:`CONE_MARGIN` cone (c.z + r +
+    :data:`BOX_Z_EPS`) lights no pixel and the box is empty. Otherwise the
+    sphere lies in front of the camera and its rays (X, Y, 1) fill the
+    tangent cone, X in (c.x c.z ± r √(c.x² + c.z² − r²)) / (c.z² − r²) and
+    Y likewise; through K (u = K00 X + K01 Y + K02, v = K11 Y + K12; the skew
+    over the Y range) and with the pixel centres at index + 0.5 that gives
+    the index range, padded by :data:`BOX_PAD` against float32 rounding and
+    clipped to the frame. Returns (u0, u1, v0, v1, full): int64 inclusive
+    bounds, empty where u0 > u1 or v0 > v1, and the fallback flag."""
+    ex, ey, ez = target[0] - cam_pos[0], target[1] - cam_pos[1], target[2] - cam_pos[2]
+    R = cam_R
+    cx = R[0] * ex + R[3] * ey + R[6] * ez
+    cy = R[1] * ex + R[4] * ey + R[7] * ez
+    cz = R[2] * ex + R[5] * ey + R[8] * ez
+    r = radius
+    zm = cz - r
+    across = ~(zm > BOX_Z_EPS) & ~(cz + r < -BOX_Z_EPS)
+    reach = r + CONE_MARGIN * frame_cone(p, width, height) * (cz + r + BOX_Z_EPS)
+    behind = (cz + r < -BOX_Z_EPS) | (across & (cx * cx + cy * cy > reach * reach))
+    full = across & ~behind
+    # the full frame's and the empty boxes' lanes compute on a stand-in (den = 1), replaced
+    # below
+    den = torch.where(full | behind, torch.ones_like(zm), zm * (cz + r))
+    inv = 1.0 / den
+    qx = torch.sqrt(cx * cx + den)
+    qy = torch.sqrt(cy * cy + den)
+    xlo, xhi = (cx * cz - r * qx) * inv, (cx * cz + r * qx) * inv
+    ylo, yhi = (cy * cz - r * qy) * inv, (cy * cz + r * qy) * inv
+    slo = torch.minimum(p.ks * ylo, p.ks * yhi)
+    shi = torch.maximum(p.ks * ylo, p.ks * yhi)
+
+    def index(x, edge, lo):  # clipped in float32 before the integer conversion
+        x = torch.floor(x - 0.5) - BOX_PAD if lo else torch.ceil(x - 0.5) + BOX_PAD
+        return torch.clamp(x, -1.0, float(edge)).to(torch.int64)
+
+    u0 = torch.clamp_min(index(p.ku * xlo + slo + p.kcu, width, True), 0)
+    u1 = torch.clamp_max(index(p.ku * xhi + shi + p.kcu, width, False), width - 1)
+    v0 = torch.clamp_min(index(p.kv * ylo + p.kcv, height, True), 0)
+    v1 = torch.clamp_max(index(p.kv * yhi + p.kcv, height, False), height - 1)
+    u0, v0 = torch.where(full | behind, 0, u0), torch.where(full | behind, 0, v0)
+    u1 = torch.where(full, width - 1, torch.where(behind, -1, u1))
+    v1 = torch.where(full, height - 1, torch.where(behind, -1, v1))
+    return u0, u1, v0, v1, full
 
 
 def chase_action_fn(p: ChaseConstants, dcam: torch.Tensor, width: int):
@@ -584,7 +680,7 @@ def vision_env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor, world_ma
                                  seed: int = 0, cyl_mat: Optional[torch.Tensor] = None):
     """Plain version of K6 on the (28, N) chase state. Returns (state,
     reward sum (N,), number of resets, crash counts (N,), contact counts (N,))."""
-    dcam = torch.from_numpy(flat_dcam(rig)).to(state_mat.device)
+    dcam = device_dcam(rig, state_mat.device)
     action_fn = chase_action_fn(chase_constants(rig, pilot, env.params), dcam, rig.resolution[0])
     return env_rollout_reference(env, state_mat, None, world_mat, n_steps, seed, cyl_mat,
                                  action_fn=action_fn, n_pilot_rows=N_PILOT_ROWS,
@@ -592,13 +688,20 @@ def vision_env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor, world_ma
 
 
 def launch_vision_env_rollout(env: AcroEnv, state_mat, world_mat, n_steps: int, rig: CameraRig,
-                              pilot: ChasePilot = ChasePilot(), seed: int = 0, cyl_mat=None):
+                              pilot: ChasePilot = ChasePilot(), seed: int = 0, cyl_mat=None,
+                              probe: Optional[torch.Tensor] = None):
     """K6 on the card. Returns (state (28, N), reward sum, crash counts,
-    contact counts), each (N,)."""
+    contact counts), each (N,). ``probe`` (a zeroed int64 tensor of
+    :data:`N_CHASE_PROBE` on the card; env without DomainRand or wind)
+    launches the instrumented instantiation, which adds its phase clocks and
+    pixel counts there (:func:`chase_probe_split`)."""
     device = state_mat.device
     if device.type != "cuda":
         raise ValueError(f"vision_env_rollout launches on a CUDA device, got {device}")
     check_cuda_inputs(device, state=state_mat, world=world_mat, cylinders=cyl_mat)
+    if probe is not None and (probe.device != device or probe.dtype != torch.int64
+                              or probe.shape != (N_CHASE_PROBE,)):
+        raise ValueError(f"probe must be an int64 ({N_CHASE_PROBE},) tensor on {device}")
     n = state_mat.shape[1]
     if state_mat.shape != (CH_ROWS, n) or n < 1:
         raise ValueError(f"state must be ({CH_ROWS}, N)")
@@ -613,7 +716,7 @@ def launch_vision_env_rollout(env: AcroEnv, state_mat, world_mat, n_steps: int, 
     c = env_constants(env)
     ec = env_constants_array(env)
     pc = chase_constants(rig, pilot, env.params).as_array()
-    dcam = torch.from_numpy(flat_dcam(rig)).to(device)
+    dcam = device_dcam(rig, device)
     W = rig.resolution[0]
     out = torch.empty_like(state_mat)
     rsum, crashes, contacts = (torch.empty(n, dtype=torch.float32, device=device)
@@ -628,10 +731,27 @@ def launch_vision_env_rollout(env: AcroEnv, state_mat, world_mat, n_steps: int, 
             int(np.int64(seed).astype(np.int32)), state_mat.data_ptr(), world_mat.data_ptr(), S,
             cyl_ptr, C, dcam.data_ptr(), dcam.shape[1], W, out.data_ptr(), rsum.data_ptr(),
             crashes.data_ptr(), contacts.data_ptr(), n, n_steps, int(c.randomize),
-            int(c.use_wind), stream)
+            int(c.use_wind), None if probe is None else probe.data_ptr(), stream)
     _build.check(err, "vision_env_rollout")
     _build.launch_counts["vision_env_rollout"] += 1
     return out, rsum, crashes, contacts
+
+
+CHASE_PHASES = ("pose", "render", "pilot", "step")  # ChasePhase in csrc/vision_kernels.cu
+N_CHASE_PROBE = len(CHASE_PHASES) + 3  # the phases, pixels tested, full-frame and empty steps
+
+
+def chase_probe_split(probe: torch.Tensor, n_envs: int, n_steps: int) -> dict:
+    """An instrumented K6 launch's probe: each phase in ms a launch (each
+    block's nanoseconds averaged over the n_envs blocks), the pixels tested
+    per env-step, and the env-steps that rendered the full frame and that
+    tested no pixel (the target behind the camera or out of view)."""
+    vals = probe.tolist()
+    split = {name: float(v) / n_envs * 1e-6 for name, v in zip(CHASE_PHASES, vals)}
+    split["pixels_per_step"] = vals[len(CHASE_PHASES)] / (n_envs * n_steps)
+    split["full_frame_steps"] = vals[len(CHASE_PHASES) + 1]
+    split["empty_steps"] = vals[len(CHASE_PHASES) + 2]
+    return split
 
 
 def vision_env_rollout_matrix(env: AcroEnv, state_mat, world_mat, n_steps: int, rig: CameraRig,

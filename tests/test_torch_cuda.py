@@ -205,6 +205,135 @@ def test_cuda_k6_matches_plain_across_resets(cuda_device, world, kw):
     torch.testing.assert_close(rsum, ref_rsum, atol=2e-3, rtol=0)
 
 
+def _gate_world(device):
+    """Three gates of shapes 0, 1 and 2 on a 6 m track, cylinders, a sphere."""
+    w = build_world(WorldSpec.from_config(SimulatorConfig(track={
+        "count": 3, "radius": 6, "gate_size": 2, "gate_resolution": 17}), seed=2), device=device)
+    return w.replace(gate_shape=torch.tensor([0, 1, 2], dtype=torch.int32, device=device),
+                     sphere_center=torch.tensor([[0.0, 0.0, 3.0]], device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,world,per_thread", [((33, 17), "params", p) for p in (1, 2, 3, 4)]
+                         + [((640, 480), "gates", vk.RENDER_PER_THREAD)])
+def test_cuda_k5_ragged_tiles_and_gate_shapes(cuda_device, res, world, per_thread):
+    """K5 on a frame that is not a multiple of its tile (33x17, every tile
+    size) and at 640x480 on a gate of each shape: levels equal."""
+    env, w, st, _ = _bank(cuda_device, "params", n=64)
+    if world == "gates":
+        w = _gate_world(cuda_device)
+        st, _ = env.reset(torch.Generator().manual_seed(4), w, (64,))
+    rig = vk.CameraRig(resolution=res)
+    cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(st)
+    cfg = vk.RenderConfig.for_world(w, 25.0)
+    dcam = torch.from_numpy(vk.flat_dcam(rig)).to(cuda_device)
+    cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(w)
+    out = vk.launch_render_depth(cfg, dcam, cam, wcol, per_thread=per_thread)
+    torch.cuda.synchronize()
+    ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+    assert (ref > 0).any()  # premise: the scene is in view
+    if world == "gates":  # premise: gates in view
+        no_gates = vk.RenderConfig.for_world(w, 25.0, include=("spheres", "cylinders", "ground"))
+        assert (vk.render_depth_reference(no_gates, dcam, cam, wcol) != ref).any()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+def _chase_placed(env, w, rig, n, c_cam):
+    """A chase bank with each drone moved so that the target's centre at
+    step 0 sits at c_cam in its camera's frame, and the target's pixel box
+    at step 0 (the plain ``target_pixel_box``)."""
+    from fpyv_tpu_torch.physics.world import update_targets
+
+    st, _ = env.reset(torch.Generator().manual_seed(5), w, (n,))
+    s = vk.chase_state_matrix(st)
+    p = vk.chase_constants(rig, vk.ChasePilot(), env.params)
+    cR, cpos = vk.camera_rows(p.mount, p.rel, s)
+    T = update_targets(w).sphere_center[0]
+    for k in range(3):
+        ahead = cR[3 * k] * c_cam[0] + cR[3 * k + 1] * c_cam[1] + cR[3 * k + 2] * c_cam[2]
+        s[k] = T[k] - ahead - (cpos[k] - s[k])
+    cR, cpos = vk.camera_rows(p.mount, p.rel, s)
+    box = vk.target_pixel_box(p, cR, cpos, [T[k].expand(n) for k in range(3)],
+                              w.sphere_radius[0].expand(n), *rig.resolution)
+    return s, box
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inside", "straddle", "edge", "behind", "beside"])
+def test_cuda_k6_box_fallback_and_clipped_target(cuda_device, case):
+    """K6 where its pixel box falls back to the full frame (the camera inside
+    the target; the target across the camera plane), where the frame's edge
+    clips the target, and where the target lies behind the camera or beside
+    it outside the frame's cone (empty boxes): equal to the plain version at
+    the chase's tolerances, and the instrumented launch counts the
+    fallback."""
+    env, w, _, _ = _bank(cuda_device, "default", n=8)
+    rig = default_vision_rig()
+    r = float(w.sphere_radius[0])
+    c_cam = {"inside": (0.0, 0.0, 0.3 * r), "straddle": (1.5 * r, 0.2 * r, 0.5 * r),
+             "edge": (6.0 * float(rig.K_inv[0, 2]), 0.0, 6.0), "behind": (1.0, 0.5, -4.0),
+             "beside": (6.0, 0.0, 0.3)}[case]
+    s, box = _chase_placed(env, w, rig, 64, c_cam)
+    wm = ek.env_world_matrix(w)
+    probe = torch.zeros(vk.N_CHASE_PROBE, dtype=torch.int64, device=cuda_device)
+    vk.launch_vision_env_rollout(env, s, wm, 64, rig, probe=probe)
+    full_steps = int(probe[len(vk.CHASE_PHASES) + 1])
+    if case == "edge":  # premise: the step-0 box is culled and clipped at u = 0
+        assert not box[4].any() and (box[0] == 0).all() and (box[1] > 0).all()
+    elif case in ("behind", "beside"):  # premise: the step-0 box is empty
+        assert not box[4].any() and (box[1] < box[0]).all()
+    else:  # premise: every env took the fallback at least once
+        assert box[4].all() and full_steps >= 64
+    out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s, wm, 64, rig)
+    torch.cuda.synchronize()
+    ref, ref_rsum, _, ref_crashes, ref_contacts = vk.vision_env_rollout_reference(
+        env, s, wm, 64, rig)
+    torch.testing.assert_close(out[15], ref[15], atol=0, rtol=0)
+    torch.testing.assert_close(crashes, ref_crashes, atol=0, rtol=0)
+    torch.testing.assert_close(contacts, ref_contacts, atol=0, rtol=0)
+    torch.testing.assert_close(out[0:3], ref[0:3], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out[3:6], ref[3:6], atol=1e-3, rtol=0)
+    qerr = torch.minimum((out[6:10] - ref[6:10]).abs().amax(0), (out[6:10] + ref[6:10]).abs()
+                         .amax(0))
+    assert qerr.max().item() < 1e-3
+    torch.testing.assert_close(rsum, ref_rsum, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_repeats_bit_for_bit_across_resets(cuda_device):
+    """K6 gives the same bits launch after launch (its threads share the
+    step's target centres through shared memory, ordered by barriers), and
+    its reward sums stay within the plain version's tolerance."""
+    env, w, st, _ = _bank(cuda_device, "default", n=256, max_episode_steps=20)
+    rig = default_vision_rig()
+    s, wm = vk.chase_state_matrix(st), ek.env_world_matrix(w)
+    first = vk.launch_vision_env_rollout(env, s, wm, 64, rig, seed=3)
+    for _ in range(4):
+        again = vk.launch_vision_env_rollout(env, s, wm, 64, rig, seed=3)
+        for a, b in zip(first, again):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+    _, ref_rsum, resets, _, _ = vk.vision_env_rollout_reference(env, s, wm, 64, rig, seed=3)
+    assert resets >= 256  # premise: every env reset
+    torch.testing.assert_close(first[1], ref_rsum, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_instrumented_launch_matches_plain_launch(cuda_device):
+    """The instrumented K6 computes what the main path's instantiation does."""
+    env, w, st, _ = _bank(cuda_device, "default", n=64)
+    rig = default_vision_rig()
+    s, wm = vk.chase_state_matrix(st), ek.env_world_matrix(w)
+    probe = torch.zeros(vk.N_CHASE_PROBE, dtype=torch.int64, device=cuda_device)
+    timed = vk.launch_vision_env_rollout(env, s, wm, 32, rig, probe=probe)
+    plain = vk.launch_vision_env_rollout(env, s, wm, 32, rig)
+    torch.cuda.synchronize()
+    for a, b in zip(timed, plain):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    split = vk.chase_probe_split(probe, 64, 32)
+    assert all(split[k] > 0 for k in vk.CHASE_PHASES)
+    assert 0 < split["pixels_per_step"] < 96 * 72
+
+
 # ---------------------------------------------------------------------------
 # K7: the policy rollout
 # ---------------------------------------------------------------------------

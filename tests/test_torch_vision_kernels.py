@@ -272,7 +272,7 @@ def test_chase_pilot_fields_match_pallas():
     assert names == list(jpv.ChasePilot._fields)
     assert tvk.ChasePilot() == tvk.ChasePilot(**jpv.ChasePilot()._asdict())
     consts = tvk.chase_constants(TRIG, tvk.ChasePilot(), TP(att_mode="quat"))
-    assert consts.as_array().size == 34
+    assert consts.as_array().size == 39  # ChaseConsts: 34 pilot floats + K's 5 for the pixel box
 
 
 # ---------------------------------------------------------------------------
