@@ -42,19 +42,20 @@ each:
    2048); then the JAX package's station-keeping check (300 steps from a
    reset: mean |distance - keep_distance| < 1.5 m; here at most 1 % of the
    envs may crash in the last 200 steps, where the JAX test's 16 envs allow
-   none); then, its counters read, K6's split (K = 2048) on the bank the
-   main path's launches left, with the share of env-steps that tested the
-   full frame and none;
+   none);
 10. the ``kernels`` JSON line: per kernel its launches on its main path, its
    largest error against the plain version, its time and the plain
    version's at the main path's shapes, and the least time the card could
-   take for the same work. K6 is held against its plain version once more
-   at the chase's timed shape (1024 envs, K = 64), at phase 6's tolerances,
-   and its instrumented instantiation splits a step there into pose, render,
-   pilot and K1 + env and counts the pixels its box tested. The bounds of
-   K5 and K6 count the work this run's data needs (K5's misses end at the
-   discriminant; K6 tests the box's pixels), printed beside the full-frame
-   counts; K5's time by pixels a thread (1 to 4);
+   take for the same work. K6's row is taken on the bank the chase main
+   path's launches left (its steady state: targets near, far, behind and
+   across the camera plane), 1024 envs, K = 64: held against its plain
+   version once more there at phase 6's tolerances, and its instrumented
+   instantiation splits a step there into pose, render, pilot and K1 + env
+   and counts the pixels its box tested and the pixels lit, with the
+   env-steps that tested the full frame and none. The bounds of K5 and K6
+   count the work this run's data needs (K5's misses end at the
+   discriminant; K6 the hit test on the lit pixels), printed beside the
+   counts of the pixels K6's box tested and of the full frame;
 11. K7 (the policy rollout) against ``policy_vision_rollout_reference``:
    (a) float32 weights, 64 envs, 96x72, ``sample_worlds`` with 1 sphere and
    4 cylinders, K = 16, 8-step episodes (every env resets): frames, crash
@@ -98,8 +99,8 @@ Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
 fails if a bf16 one has none, and prints ptxas' registers and spills and
 the SASS instruction counts of each K5 and K6 instantiation.
-``python3 chip_smoke.py --phases`` runs the build, those counts, K6's split,
-K5's time by pixels a thread and phase 15 alone.
+``python3 chip_smoke.py --phases`` runs the build, those counts, K6's split
+(on a bank 8192 chase steps from a reset) and phase 15 alone.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -294,14 +295,13 @@ def device_busy(fn, top: int = 5):
     return busy, {k: round(us * 1e-3, 6) for k, us in ranked}
 
 
-def cuda_ms(fn, reps: int, paced: bool = False) -> float:
+def cuda_ms(fn, reps: int) -> float:
     """ms a call of fn: CUDA events around ``reps`` calls after a warm-up.
     The device first sleeps for longer than one call took, device included,
     times ``reps``, so the host has enqueued the calls before the device
     reaches them and the events time the device's work, not the host's
-    pace. ``paced``: no sleep, so where the host is slower than the kernel
-    its pace is timed (how a caller that launches one call after another
-    sees it)."""
+    pace (a call that waits on the host inside, as a blocking copy does,
+    still shows that wait)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -309,8 +309,7 @@ def cuda_ms(fn, reps: int, paced: bool = False) -> float:
     torch.cuda.synchronize()
     one = time.perf_counter() - t0
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if not paced:
-        torch.cuda._sleep(int(min(one * reps, 2.0) * 2.5e9))  # clock cycles: at most ~2.5 s
+    torch.cuda._sleep(int(min(one * reps, 2.0) * 2.5e9))  # clock cycles: at most ~2.5 s
     a.record()
     for _ in range(reps):
         fn()
@@ -613,12 +612,12 @@ def build_report(t0: float) -> None:
     vision_kernel_report(sections)
 
 
-def chase_phases(dev, env, s28, wm, rig, k: int) -> dict:
+def chase_phases(dev, env, s28, wm, rig, k: int, plain_ms: float) -> dict:
     """The step's phases inside K6 on the chase state s28 (the default
     world): the instrumented instantiation's split (ms a launch, mean over
-    the blocks) and the pixels its box tested, beside the plain launch."""
+    the blocks) and the pixels its box tested and lit, beside the plain
+    launch's ``plain_ms``."""
     n = s28.shape[1]
-    plain_ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, k, rig), 10)
     probe = torch.zeros(vk.N_CHASE_PROBE, dtype=torch.int64, device=dev)
     timed_ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, k, rig, probe=probe), 10)
     probe.zero_()
@@ -631,13 +630,12 @@ def chase_phases(dev, env, s28, wm, rig, k: int) -> dict:
     return split
 
 
-def render_sweep(cfg, dcam, cam, wcol) -> dict:
-    """K5's time by pixels a thread at one shape (ms a launch)."""
-    sweep = {p: cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol, per_thread=p), 50)
-             for p in (1, 2, 3, 4)}
-    log(f"K5 by pixels a thread (N={cam.shape[0]}, {dcam.shape[1]} pixels, ms a launch; "
-        f"the wrapper takes {vk.RENDER_PER_THREAD}): {json.dumps(sweep)}")
-    return sweep
+def chase_steady_bank(env, world, gen, n: int, steps: int = 8192):
+    """A chase bank in its steady state: ``steps`` main-path steps from a
+    reset (several 1000-step episodes), as (28, N) state and world rows."""
+    st, _ = vector_reset(env, gen, n, world)
+    st, w, _, _, _ = vk.fused_vision_env_rollout(env, st, world, steps)
+    return vk.chase_state_matrix(st), ek.env_world_matrix(w)
 
 
 def chase_placed(env, world, rig, gen, n: int, c_cam) -> torch.Tensor:
@@ -717,8 +715,8 @@ def render_data_ops(cfg, dcam, cam, wcol) -> int:
 
 
 def phases_only(dev, smi: str) -> int:
-    """``--phases``: build, then only the phase splits of K7 and K8 at the
-    timed shapes."""
+    """``--phases``: build, then only the phase splits of K6 (on a
+    steady-state bank), K7 and K8 at the timed shapes."""
     t0 = time.perf_counter()
     _build.library()
     log(f"device: {smi}")
@@ -726,17 +724,11 @@ def phases_only(dev, smi: str) -> int:
     gen = torch.Generator().manual_seed(0)
     env = AcroEnv(params=DroneParams(att_mode="quat"))
     world = env.default_world(dev)
-    cst, _ = vector_reset(env, gen, N_VISION, world)
-    chase_phases(dev, env, vk.chase_state_matrix(cst), ek.env_world_matrix(world),
-                 default_vision_rig(), 64)
-    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
-    venv = VisionAcroEnv(acro=env, renderer="raycast_pallas", target_only=False)
-    vstate, _ = venv.reset_batched(gen, pworld, None, N_VISION)
-    cam_pos, cam_R = venv._camera(vstate)
-    render_sweep(vk.RenderConfig.for_world(pworld, venv.max_depth),
-                 torch.from_numpy(vk.flat_dcam(default_vision_rig())).to(dev),
-                 vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld))
-    actor_phases(dev, gen, default_vision_rig())
+    rig = default_vision_rig()
+    s28, wm = chase_steady_bank(env, world, gen, N_VISION)
+    chase_phases(dev, env, s28, wm, rig, 64,
+                 cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, 64, rig), 10))
+    actor_phases(dev, gen, rig)
     log(f"card: {smi}")
     return 0
 
@@ -839,7 +831,7 @@ def main() -> int:
             ("gate track (shapes 0, 1, 2) + cylinders, 8 envs, 640x480", gate_world, 8,
              CameraRig(resolution=(640, 480))),
             (f"params.yaml world, 64 envs, 33x17 (H*W not a multiple of the "
-             f"{vk.RENDER_PER_THREAD * 256}-pixel tile)", pworld, 64,
+             f"512-pixel tile)", pworld, 64,
              CameraRig(resolution=(33, 17)))):
         sub, _ = vector_reset(env, gen, n, w)
         cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(sub)
@@ -1043,10 +1035,6 @@ def main() -> int:
     if keep >= 1.5 or crashed_envs > N_VISION // 100:
         raise AssertionError("chase: station keeping failed")
     read_counts("chase main path", ("vision_env_rollout",), launches)
-    # inside K6 on the bank the main path's long launches left: where the
-    # time and the boxes go in the chase's steady state
-    log("K6 in the chase's steady state (the main path's bank after its launches):")
-    chase_phases(dev, env, steady[0], steady[1], rig, 2048)
 
     # ---- 10. kernels line: times at the main path's shapes -------------------
     s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(world)
@@ -1084,45 +1072,43 @@ def main() -> int:
     cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld)
     ms = cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 200)
     pms = cuda_ms(lambda: vk.render_depth_reference(cfg, dcam, cam, wcol), 3)
-    render_sweep(cfg, dcam, cam, wcol)
     live_gates = (int(pworld.gate_active.reshape(-1, pworld.num_gates).any(0).sum().item())
                   if pworld.num_gates else 0)
     k5_bytes = (N_VISION * (hw + 16) + 3 * hw + cfg.n_cols) * 4
     old_ms, _ = bound(N_VISION * hw * render_ops(cfg, live_gates), k5_bytes)
     k5_ops = render_data_ops(cfg, dcam, cam, wcol)
-    log(f"K5 paced by the host (one launch after another, no device pre-roll): "
-        f"{cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 200, paced=True):.6f} ms")
     log(f"K5 bound: {bound(k5_ops, k5_bytes)[0]:.6f} ms counting the operations this frame's "
         f"pixels need (misses end at the discriminant; the kernels line carries it), "
         f"{old_ms:.6f} ms counting every primitive's full hit test at every pixel")
     row("render_depth", ms, pms, k5_ops, k5_bytes)
-    # K6 at the chase's shapes: 1024 envs, default world and rig, K = 64; held
-    # against its plain version once more at this shape
+    # K6 at the chase's shapes: 1024 envs, default world and rig, K = 64, on
+    # the bank the main path's launches left (its steady state); held against
+    # its plain version once more there
     K = 64
-    cstate, _ = vector_reset(env, gen, N_VISION, world)
-    s28 = vk.chase_state_matrix(cstate)
-    out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s28, wm, K, rig)
+    s28, swm = steady
+    out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s28, swm, K, rig)
     torch.cuda.synchronize()
-    ref, ref_rsum, chase_resets, rc, rct = vk.vision_env_rollout_reference(env, s28, wm, K, rig)
+    ref, ref_rsum, chase_resets, rc, rct = vk.vision_env_rollout_reference(env, s28, swm, K, rig)
     errors["vision_env_rollout"] = max(errors["vision_env_rollout"], check_chase(
-        f"default world, N={N_VISION}, K={K}", env, out, ref, rsum, ref_rsum, crashes, rc,
-        contacts, rct, N_VISION, chase_resets))
-    ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, K, rig), 20)
-    pms = cuda_ms(lambda: vk.vision_env_rollout_reference(env, s28, wm, K, rig), 1)
-    # inside K6 at this shape: the phases and the pixels its box tested
-    split = chase_phases(dev, env, s28, wm, rig, K)
-    log(f"K6 paced by the host (one launch after another, no device pre-roll): "
-        f"{cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, K, rig), 20, paced=True):.6f}"
-        f" ms")
+        f"default world, the main path's bank, N={N_VISION}, K={K}", env, out, ref, rsum,
+        ref_rsum, crashes, rc, contacts, rct, N_VISION, chase_resets))
+    ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, swm, K, rig), 20)
+    pms = cuda_ms(lambda: vk.vision_env_rollout_reference(env, s28, swm, K, rig), 1)
+    # inside K6 at this shape: the phases and the pixels its box tested and lit
+    split = chase_phases(dev, env, s28, swm, rig, K, ms)
     k6_bytes = (N_VISION * (28 + 28 + 3) + 12 * S + 3 * hw) * 4
     resets_ops = chase_resets * reset_ops(False, False)
-    old_ms, _ = bound(N_VISION * K * chase_step_ops(hw, S, 0, False, False) + resets_ops,
-                      k6_bytes)
-    k6_ops = (N_VISION * K * chase_step_ops(split["pixels_per_step"], S, 0, False, False)
-              + resets_ops)
-    log(f"K6 bound: {bound(k6_ops, k6_bytes)[0]:.6f} ms counting the hit test on the "
-        f"{split['pixels_per_step']:.3f} pixels an env-step that the box tested (the kernels "
-        f"line carries it), {old_ms:.6f} ms counting all {hw} pixels of the frame")
+
+    def k6_bound(pixels):
+        return bound(N_VISION * K * chase_step_ops(pixels, S, 0, False, False) + resets_ops,
+                     k6_bytes)[0]
+
+    k6_ops = N_VISION * K * chase_step_ops(split["lit_per_step"], S, 0, False, False) + resets_ops
+    log(f"K6 bound: {k6_bound(split['lit_per_step']):.6f} ms counting the hit test on the "
+        f"{split['lit_per_step']:.3f} pixels an env-step that the target lit (the kernels line "
+        f"carries it); {k6_bound(split['pixels_per_step']):.6f} ms on the "
+        f"{split['pixels_per_step']:.3f} its box tested; {k6_bound(hw):.6f} ms on all {hw} "
+        f"pixels of the frame")
     row("vision_env_rollout", ms, pms, k6_ops, k6_bytes)
     # ---- 11. K7 against its plain version ----------------------------------------------
     # (a) float32 weights across resets

@@ -3,8 +3,8 @@
 // K5 replaces fpyv_tpu/ops/pallas_vision.py:_render_kernel
 // (pallas_render_depth): nearest-hit depth over spheres, cylinders, the
 // ground and shaped gates, quantised to floor(255 (1 - t / max)) / 255.
-// A (ceil(HW / 256P), N) grid of 256-thread blocks, P pixels a thread
-// (RENDER_PER_THREAD in ops/vision_kernel.py, chosen by measurement, PERF.md).
+// A (ceil(HW / 512), N) grid of 256-thread blocks, 2 pixels a thread
+// (kRenderPerThread: the fastest of 1 to 4 on the H100, PERF.md).
 // Each block copies its env's camera and builds the env's invariant table
 // (render.cuh::render_invariant: a sphere's o = cam - c and |o|^2 - r^2, a
 // cylinder's ox, oy and c, a gate's ndot0) in one prologue with two
@@ -58,7 +58,7 @@
 // renders. __launch_bounds__ asks for 8 resident blocks
 // per SM (at most 64 registers a thread): 1056 slots hold a 1024-env bank
 // in one wave. The instrumented instantiation (kTimed) clocks the phases of
-// a step and counts the pixels tested (chip_smoke.py --phases).
+// a step and counts the pixels tested and lit (chip_smoke.py --phases).
 #include "clock.cuh"
 #include "env.cuh"
 #include "render.cuh"
@@ -83,15 +83,16 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int kRenderBlock = 256;
+constexpr int kRenderPerThread = 2;
 constexpr int kCamCols = 16;
 
 // P pixels a thread: pixel j of thread x of block b is b * 256P + 256j + x,
 // so each of the P rows of reads and writes stays coalesced.
-template <int P>
 __global__ void __launch_bounds__(kRenderBlock)
     render_depth_kernel(RenderConsts rc, const float* __restrict__ dcam, int hw,
                         const float* __restrict__ cam, const float* __restrict__ wcol,
                         int wstride, float* __restrict__ out, int n) {
+  constexpr int P = kRenderPerThread;
   extern __shared__ float sh[];
   float* cs = sh;             // (12,) camera of the env
   float* pre = sh + kCamCols; // (pre_cols,) the env's invariants
@@ -128,16 +129,6 @@ __global__ void __launch_bounds__(kRenderBlock)
   }
 }
 
-template <int P>
-void launch_render(const RenderConsts& rc, const float* dcam, int hw, const float* cam,
-                   const float* wcol, int wstride, float* out, int n, cudaStream_t stream) {
-  const dim3 grid((hw + kRenderBlock * P - 1) / (kRenderBlock * P), n < 65535 ? n : 65535);
-  const int cols = fpyv::pre_cols(static_cast<int>(rc.n_spheres), static_cast<int>(rc.n_cylinders),
-                                  static_cast<int>(rc.n_gates));
-  render_depth_kernel<P><<<grid, kRenderBlock, sizeof(float) * (kCamCols + cols), stream>>>(
-      rc, dcam, hw, cam, wcol, wstride, out, n);
-}
-
 // ---------------------------------------------------------------------------
 // K6
 // ---------------------------------------------------------------------------
@@ -151,8 +142,8 @@ constexpr int kChaseRows = kEnvRows + kPilotRows;
 // camera pose and target centres, the render and its block reduction, the
 // pilot, then K1 and env_advance. Its probe array holds their nanoseconds
 // (summed over the blocks), then the pixels tested, the steps that rendered
-// the full frame and the steps whose box held no pixel, summed over the
-// envs and steps.
+// the full frame, the steps whose box held no pixel and the pixels lit,
+// summed over the envs and steps.
 enum ChasePhase { kChPose = 0, kChRender, kChPilot, kChStep, kChPhases };
 
 // Field order must match ChaseConstants.as_array() in ops/vision_kernel.py.
@@ -342,7 +333,7 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
   const float zero_act[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float rsum = 0.0f, crashes = 0.0f, contacts = 0.0f;
   fpyv::PhaseClock<kTimed, kChPhases> clk;
-  unsigned long long tested = 0, full = 0, none = 0;
+  unsigned long long tested = 0, full = 0, none = 0, lit = 0;
   __syncthreads();  // the world rows are in shared memory
   if (ahead) {
     fpyv::target_centers(wm, S, 0, cen, 0, 1);
@@ -427,6 +418,7 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
       su += part[1][w];
       sv += part[2][w];
     }
+    if constexpr (kTimed) lit += static_cast<unsigned long long>(cnt);
     float ov[5], pid[4];
     chase_pilot(p, s, cam, tgt[0], tgt[1], tgt[2], tgt[3], cnt, su, sv, scan[i & 1][0],
                 scan[i & 1][1], ov, pid);
@@ -457,6 +449,7 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
     atomicAdd(probe + kChPhases, tested);
     atomicAdd(probe + kChPhases + 1, full);
     atomicAdd(probe + kChPhases + 2, none);
+    atomicAdd(probe + kChPhases + 3, lit);
   }
 
   if (lead) {
@@ -491,24 +484,22 @@ bool read_consts(const float* host, int count, T* out) {
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success). per_thread: pixels a
-// thread, 1 to 4.
+// Returns the cudaError_t of the launch (0 on success).
 int fpyv_render_depth(const float* consts, int n_consts, const float* dcam, int hw,
                       const float* cam, const float* wcol, int wcols, int wstride, float* out,
-                      int n, int per_thread, void* stream) {
+                      int n, void* stream) {
   RenderConsts rc;
   if (!read_consts(consts, n_consts, &rc) || n < 1 || hw < 1 ||
       wcols != 5 * static_cast<int>(rc.n_spheres) + 6 * static_cast<int>(rc.n_cylinders) +
                    15 * static_cast<int>(rc.n_gates) + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (per_thread) {
-    case 1: launch_render<1>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
-    case 2: launch_render<2>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
-    case 3: launch_render<3>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
-    case 4: launch_render<4>(rc, dcam, hw, cam, wcol, wstride, out, n, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int tile = kRenderBlock * kRenderPerThread;
+  const dim3 grid((hw + tile - 1) / tile, n < 65535 ? n : 65535);
+  const int cols = fpyv::pre_cols(static_cast<int>(rc.n_spheres), static_cast<int>(rc.n_cylinders),
+                                  static_cast<int>(rc.n_gates));
+  render_depth_kernel<<<grid, kRenderBlock, sizeof(float) * (kCamCols + cols),
+                        static_cast<cudaStream_t>(stream)>>>(rc, dcam, hw, cam, wcol, wstride,
+                                                             out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

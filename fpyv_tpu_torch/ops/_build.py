@@ -116,7 +116,7 @@ def library() -> ctypes.CDLL:
         lib.fpyv_rollout.argtypes = [P, I, P, P, P, I, P, I, P, I, I, P]
         lib.fpyv_env_rollout.argtypes = [P, I, P, I, I, P, P, P, I, P, I, P, P, I, I,
                                          I, I, P]
-        lib.fpyv_render_depth.argtypes = [P, I, P, I, P, P, I, I, P, I, I, P]
+        lib.fpyv_render_depth.argtypes = [P, I, P, I, P, P, I, I, P, I, P]
         lib.fpyv_vision_env_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, I, I,
                                                 P, P, P, P, I, I, I, I, P, P]
         lib.fpyv_policy_vision_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, P, P,

@@ -288,12 +288,8 @@ def render_depth_reference(cfg: RenderConfig, dcam, cam, wcol) -> torch.Tensor:
     return encode_levels(render_tiles(cfg, dcam, cam, wcol), cfg.max_depth)
 
 
-RENDER_PER_THREAD = 2  # K5's pixels a thread (csrc/vision_kernels.cu takes 1 to 4)
-
-
-def launch_render_depth(cfg: RenderConfig, dcam, cam, wcol,
-                        per_thread: int = RENDER_PER_THREAD) -> torch.Tensor:
-    """K5 on the card: levels (N, H*W), ``per_thread`` pixels a thread."""
+def launch_render_depth(cfg: RenderConfig, dcam, cam, wcol) -> torch.Tensor:
+    """K5 on the card: levels (N, H*W)."""
     device = cam.device
     if device.type != "cuda":
         raise ValueError(f"render_depth launches on a CUDA device, got {device}")
@@ -311,7 +307,7 @@ def launch_render_depth(cfg: RenderConfig, dcam, cam, wcol,
     with torch.cuda.device(device):
         err = lib.fpyv_render_depth(consts.ctypes.data, consts.size, dcam.data_ptr(), hw,
                                     cam.data_ptr(), wcol.data_ptr(), cfg.n_cols, wstride,
-                                    out.data_ptr(), n, per_thread, stream)
+                                    out.data_ptr(), n, stream)
     _build.check(err, "render_depth")
     _build.launch_counts["render_depth"] += 1
     return out
@@ -738,19 +734,22 @@ def launch_vision_env_rollout(env: AcroEnv, state_mat, world_mat, n_steps: int, 
 
 
 CHASE_PHASES = ("pose", "render", "pilot", "step")  # ChasePhase in csrc/vision_kernels.cu
-N_CHASE_PROBE = len(CHASE_PHASES) + 3  # the phases, pixels tested, full-frame and empty steps
+# the phases, pixels tested, full-frame and empty steps, pixels lit
+N_CHASE_PROBE = len(CHASE_PHASES) + 4
 
 
 def chase_probe_split(probe: torch.Tensor, n_envs: int, n_steps: int) -> dict:
     """An instrumented K6 launch's probe: each phase in ms a launch (each
     block's nanoseconds averaged over the n_envs blocks), the pixels tested
-    per env-step, and the env-steps that rendered the full frame and that
-    tested no pixel (the target behind the camera or out of view)."""
+    per env-step, the env-steps that rendered the full frame and that
+    tested no pixel (the target behind the camera or out of view), and the
+    pixels lit per env-step (the target's mask: what any render must test)."""
     vals = probe.tolist()
     split = {name: float(v) / n_envs * 1e-6 for name, v in zip(CHASE_PHASES, vals)}
     split["pixels_per_step"] = vals[len(CHASE_PHASES)] / (n_envs * n_steps)
     split["full_frame_steps"] = vals[len(CHASE_PHASES) + 1]
     split["empty_steps"] = vals[len(CHASE_PHASES) + 2]
+    split["lit_per_step"] = vals[len(CHASE_PHASES) + 3] / (n_envs * n_steps)
     return split
 
 

@@ -214,11 +214,10 @@ def _gate_world(device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("res,world,per_thread", [((33, 17), "params", p) for p in (1, 2, 3, 4)]
-                         + [((640, 480), "gates", vk.RENDER_PER_THREAD)])
-def test_cuda_k5_ragged_tiles_and_gate_shapes(cuda_device, res, world, per_thread):
-    """K5 on a frame that is not a multiple of its tile (33x17, every tile
-    size) and at 640x480 on a gate of each shape: levels equal."""
+@pytest.mark.parametrize("res,world", [((33, 17), "params"), ((640, 480), "gates")])
+def test_cuda_k5_ragged_tiles_and_gate_shapes(cuda_device, res, world):
+    """K5 on a frame that is not a multiple of its 512-pixel tile (33x17)
+    and at 640x480 on a gate of each shape: levels equal."""
     env, w, st, _ = _bank(cuda_device, "params", n=64)
     if world == "gates":
         w = _gate_world(cuda_device)
@@ -228,7 +227,7 @@ def test_cuda_k5_ragged_tiles_and_gate_shapes(cuda_device, res, world, per_threa
     cfg = vk.RenderConfig.for_world(w, 25.0)
     dcam = torch.from_numpy(vk.flat_dcam(rig)).to(cuda_device)
     cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(w)
-    out = vk.launch_render_depth(cfg, dcam, cam, wcol, per_thread=per_thread)
+    out = vk.launch_render_depth(cfg, dcam, cam, wcol)
     torch.cuda.synchronize()
     ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
     assert (ref > 0).any()  # premise: the scene is in view
@@ -332,6 +331,7 @@ def test_cuda_k6_instrumented_launch_matches_plain_launch(cuda_device):
     split = vk.chase_probe_split(probe, 64, 32)
     assert all(split[k] > 0 for k in vk.CHASE_PHASES)
     assert 0 < split["pixels_per_step"] < 96 * 72
+    assert 0 < split["lit_per_step"] <= split["pixels_per_step"]
 
 
 # ---------------------------------------------------------------------------
