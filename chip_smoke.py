@@ -10,10 +10,15 @@ each:
 1. device: the card's name and power limit (nvidia-smi) and the build time;
 2. K2 (one fused physics step) on the params.yaml world against
    ``drone_step_reference``;
-3. K3 (K = 256 fused steps) against ``rollout_reference``;
+3. K3 (K = 256 fused steps) against ``rollout_reference`` on the params.yaml
+   world, and K = 64 from a contact-heavy start (``contact_world``, 2
+   spheres and 8 cylinders 0.15-0.25 m apart, the drones in the gaps:
+   several motor points on a sphere and a cylinder in one step, where the
+   order of the force sums decides equality): equal bit for bit;
 4. K4 (the env megaloop) against ``env_rollout_reference``: the default world
-   with K = 256 and 50-step episodes (every env resets several times), and
-   the params.yaml world with DomainRand and wind gusts, K = 64;
+   with K = 256 and 50-step episodes (every env resets several times), the
+   params.yaml world with DomainRand and wind gusts, K = 64, and the
+   contact-heavy start, K = 64: equal bit for bit;
 5. K5 (the raycast render) against ``render_depth_reference``, levels equal:
    1024 envs at 96x72 on the params.yaml world and on per-env
    ``sample_worlds``, 8 envs at 640x480 on a world with a gate of each
@@ -30,7 +35,8 @@ each:
    fused rollout and the env megaloop on both worlds, K sized from a
    warm-up so a timed run takes about 8 s; env-steps/s beside the card and
    its limit, the plain env version's rate at K = 64 as a reference
-   figure, and K4's rate as the bank grows from 4096 to 1M envs;
+   figure, and K4's rate as the bank grows from 4096 to 1M envs (lanes on
+   an env below ``ek.ONE_THREAD_ENVS``, one thread an env from there);
 8. the vision env main path with its counters at 0:
    ``VisionAcroEnv(renderer="raycast_pallas", target_only=False)``,
    ``reset_batched`` and 8 ``step_batched`` at 1024 envs on the params.yaml
@@ -46,7 +52,12 @@ each:
 10. the ``kernels`` JSON line: per kernel its launches on its main path, its
    largest error against the plain version, its time and the plain
    version's at the main path's shapes, and the least time the card could
-   take for the same work. K6's row is taken on the bank the chase main
+   take for the same work. K4's row is taken at K = 64 on the bank the acro
+   main path left on the default world (the resets in its window depend on
+   that state), held against its plain version there, with its
+   instrumented instantiation's split (target centres, head, contacts,
+   tail, env step) and the env-steps that reset, beside its time from a
+   fresh reset. K6's row is taken on the bank the chase main
    path's launches left (its steady state: targets near, far, behind and
    across the camera plane), 1024 envs, K = 64: held against its plain
    version once more there at phase 6's tolerances, and its instrumented
@@ -98,9 +109,12 @@ each:
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
 fails if a bf16 one has none, and prints ptxas' registers and spills and
-the SASS instruction counts of each K5 and K6 instantiation.
-``python3 chip_smoke.py --phases`` runs the build, those counts, K6's split
-(on a bank 8192 chase steps from a reset) and phase 15 alone.
+the SASS instruction, MUFU and shuffle counts and trigonometric range
+reductions of each K3, K4, K5 and K6 instantiation.
+``python3 chip_smoke.py --phases`` runs the build, those counts, K3's time
+and K4's split (default world from a fresh reset and on the bank the acro
+main path leaves, params.yaml world with DR and wind), K6's split (on a
+bank 8192 chase steps from a reset) and phase 15 alone.
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -138,7 +152,7 @@ from fpyv_tpu_torch.ops import policy_kernel as pk
 from fpyv_tpu_torch.ops import race_kernel as rk
 from fpyv_tpu_torch.ops import step_kernel as sk
 from fpyv_tpu_torch.ops import vision_kernel as vk
-from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.physics.drone import DroneParams, drone_reset
 from fpyv_tpu_torch.physics.world import update_targets
 from fpyv_tpu_torch.vision.camera import CameraRig
 from fpyv_tpu_torch.world.generators import WorldSpec, build_world
@@ -230,6 +244,27 @@ def reward_err(name: str, rsum: torch.Tensor, ref: torch.Tensor) -> float:
     if not e <= TOL_ENV["episode_return"]:
         raise AssertionError(f"{name}: reward sum max abs err {e}")
     return e
+
+
+def equal_bits(name: str, pairs) -> None:
+    """K3 and K4 equal their plain versions bit for bit: each (kernel,
+    plain) pair of tensors equal."""
+    for out, ref in pairs:
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name}: not equal to its plain version, max abs err "
+                                 f"{(out - ref).abs().max().item()}")
+
+
+def contact_bank(env, gen, n: int, dev):
+    """A contact-heavy start: ``contact_world`` (2 spheres, 8 cylinders
+    0.15-0.25 m apart) with n drones at its gaps (``contact_start``), so
+    several motor points touch a sphere and a cylinder in one step."""
+    from fpyv_tpu_torch.world.generators import contact_start, contact_world
+
+    w = contact_world(device=dev)
+    st, _ = vector_reset(env, gen, n, w)
+    pos, vel, ypr = (torch.from_numpy(a).to(dev) for a in contact_start(n, 17))
+    return w, st.replace(drone=drone_reset(env.params, pos, vel, ypr))
 
 
 def check_state(name: str, mat: torch.Tensor, n: int, max_t=None) -> None:
@@ -501,39 +536,45 @@ def sass_mma_counts(sections: dict) -> dict:
 
 
 SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")  # an instruction
-VISION_KERNELS = re.compile(r"(chase_kernel|render_depth_kernel)(?:I((?:L[bi]\d+E)+)E)?E")
+REPORTED_KERNELS = re.compile(r"(env_rollout_kernel|rollout_kernel|chase_kernel|render_depth_kernel)"
+                              r"(?:I((?:L[bi]\d+E)+)E)?E")
 
 
-def vision_label(mangled: str):
-    """``chase_kernel<0,0,1>`` for a mangled K5 or K6 instantiation (its
-    template arguments in order), else None."""
-    m = VISION_KERNELS.search(mangled)
+def kernel_label(mangled: str):
+    """``chase_kernel<0,0,1>`` for a mangled K3, K4, K5 or K6 instantiation
+    (its template arguments in order), else None."""
+    m = REPORTED_KERNELS.search(mangled)
     if not m:
         return None
     args = re.findall(r"L[bi](\d+)E", m.group(2) or "")
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def vision_kernel_report(sections: dict) -> dict:
+def kernel_report(sections: dict) -> dict:
     """ptxas' registers and spills and the SASS instruction counts (all but
-    NOP; MUFU, the special-function unit's) of each K5 and K6
-    instantiation. K6's template arguments: DomainRand, wind, instrumented."""
+    NOP; MUFU, the special-function unit's; SHFL, the warp shuffles) of each
+    K3, K4, K5 and K6 instantiation, and its trigonometric range reductions
+    (the multiplies by 2/pi that start each inline ``sinf``/``cosf``: a sine
+    and a cosine of one argument fused into one ``sincosf`` share one). K4's
+    and K6's template arguments: DomainRand, wind, instrumented."""
     ptxas, name = {}, None
     for ln in str(_build.build_info.get("log", "")).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            name = vision_label(m.group(1))
+            name = kernel_label(m.group(1))
         elif name and ("spill" in ln or "registers" in ln):
             ptxas[name] = (ptxas.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
     report = {}
     for mangled, lines in sections.items():
-        label = vision_label(mangled)
+        label = kernel_label(mangled)
         if label is None:
             continue
         ops = [m.group(1) for m in (SASS_OP.search(ln) for ln in lines) if m]
         report[label] = {"ptxas": ptxas.get(label, "not in the build log"),
                          "sass_instructions": sum(op != "NOP" for op in ops),
-                         "MUFU": sum(op.startswith("MUFU") for op in ops)}
+                         "MUFU": sum(op.startswith("MUFU") for op in ops),
+                         "SHFL": sum(op.startswith("SHFL") for op in ops),
+                         "trig_reductions": sum("0.63661974" in ln for ln in lines)}
     for label in sorted(report):
         log(f"{label}: {json.dumps(report[label])}")
     return report
@@ -602,14 +643,14 @@ def actor_phases(dev, gen, rig) -> None:
 
 def build_report(t0: float) -> None:
     """The build's time, ptxas' registers and spills, the tensor-core check,
-    K5's and K6's registers, spills and instruction counts."""
+    K3's, K4's, K5's and K6's registers, spills and instruction counts."""
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc "
         f"{_build.build_info.get('seconds', 0.0):.3f} s); ptxas: "
         + "; ".join(ln.strip() for ln in str(_build.build_info.get("log", "")).splitlines()
                     if "registers" in ln or "spill" in ln))
     sections = sass_sections()
     sass_mma_counts(sections)
-    vision_kernel_report(sections)
+    kernel_report(sections)
 
 
 def chase_phases(dev, env, s28, wm, rig, k: int, plain_ms: float) -> dict:
@@ -714,14 +755,92 @@ def render_data_ops(cfg, dcam, cam, wcol) -> int:
     return ops
 
 
+def acro_main_path(label: str, env, world, gen, hover, smi: str):
+    """The acro main path on one world: ``fused_env_rollout`` at N_ENVS
+    envs from a reset, a 20000-step warm-up that sizes K so a launch takes
+    about RUN_SECONDS, then two timed launches. Returns (env-steps/s, the
+    state and world it left)."""
+    state, _ = vector_reset(env, gen, N_ENVS, world)
+    k_warm = 20_000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, w, rs = ek.fused_env_rollout(env, state, hover, world, k_warm, seed=0)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / k_warm
+    k = min(int(RUN_SECONDS / per_step), ek.MAX_STEPS_PER_LAUNCH - 10_000)
+    times = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, w, rs = ek.fused_env_rollout(env, state, hover, w, k, seed=1 + rep)
+        total = rs.sum().item()  # completion on the host is part of the time
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(total):
+            raise AssertionError(f"main path ({label}): non-finite reward sum")
+    check_state(f"main path ({label})", ek.env_state_to_matrix(state), N_ENVS,
+                max_t=env.max_episode_steps)
+    rate = N_ENVS * k / min(times)
+    log(f"main path ({label}): {rate:.6e} env-steps/s at N={N_ENVS}, K={k} per launch, best of "
+        f"{[round(t, 6) for t in times]} s, on {smi}")
+    return rate, state, w
+
+
+def env_phases(label: str, env, s24, a4, wm, k: int, cyl=None, plain_ms=None) -> dict:
+    """The step's phases inside K4 on the bank s24: the instrumented
+    instantiation's split (ms a launch, the first thread of each block,
+    mean over the blocks) and the env-steps that reset, beside the plain
+    launch's time (``plain_ms``, or timed here)."""
+    n = s24.shape[1]
+    probe = torch.zeros(ek.N_ENV_PROBE, dtype=torch.int64, device=s24.device)
+    if plain_ms is None:
+        plain_ms = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, wm, k, cyl_mat=cyl), 50)
+    timed_ms = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, wm, k, cyl_mat=cyl,
+                                                     probe=probe), 50)
+    probe.zero_()
+    ek.launch_env_rollout(env, s24, a4, wm, k, cyl_mat=cyl, probe=probe)
+    split = ek.env_probe_split(probe, n)
+    phases = sum(split[name] for name in ek.ENV_PHASES)
+    log(f"K4 (N={n}, K={k}, {label}) phase split (ms a launch, %globaltimer, mean over blocks): "
+        f"{json.dumps(split)}; phases sum {phases:.6f} ms, instrumented launch {timed_ms:.6f} "
+        f"ms, plain launch {plain_ms:.6f} ms, {split['resets']} env-steps reset")
+    return split
+
+
+def acro_phases(dev, gen, smi: str) -> None:
+    """``--phases``' K3 and K4: K3's time at its row's shape, K4's split on
+    the default world from a fresh reset and on the bank the acro main path
+    leaves, and on the params.yaml world with DomainRand and wind."""
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    world = env.default_world(dev)
+    hover = torch.zeros(N_ENVS, 4, device=dev)
+    hover[:, 3] = THROTTLE
+    a4 = sk.action_matrix(hover)
+    st, _ = vector_reset(env, gen, N_ENVS, world)
+    s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(world)
+    log(f"K3 (N={N_ENVS}, K=256, default world): "
+        f"{cuda_ms(lambda: sk.launch_rollout(env.params, s15, a4, sph, 256), 20):.6f} ms")
+    wm = ek.env_world_matrix(world)
+    env_phases("default world, fresh reset", env, ek.env_state_to_matrix(st), a4, wm, 64)
+    _, state, w = acro_main_path("default world", env, world, gen, hover, smi)
+    env_phases("default world, the bank the main path left", env,
+               ek.env_state_to_matrix(state), a4, ek.env_world_matrix(w), 64)
+    env_dr = AcroEnv(params=env.params, randomize=True, wind=(1.0, 0.5, 0.0), wind_scale=0.5)
+    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
+    st, _ = vector_reset(env_dr, gen, N_ENVS, pworld)
+    env_phases("params.yaml world + DR + wind, fresh reset", env_dr, ek.env_state_to_matrix(st),
+               a4, ek.env_world_matrix(pworld), 64, sk.cylinder_matrix(pworld))
+
+
 def phases_only(dev, smi: str) -> int:
-    """``--phases``: build, then only the phase splits of K6 (on a
-    steady-state bank), K7 and K8 at the timed shapes."""
+    """``--phases``: build, then only K3's time and the phase splits of K4
+    (fresh and on the main path's bank), K6 (on a steady-state bank), K7
+    and K8 at the timed shapes."""
     t0 = time.perf_counter()
     _build.library()
     log(f"device: {smi}")
     build_report(t0)
     gen = torch.Generator().manual_seed(0)
+    acro_phases(dev, gen, smi)
     env = AcroEnv(params=DroneParams(att_mode="quat"))
     world = env.default_world(dev)
     rig = default_vision_rig()
@@ -780,13 +899,32 @@ def main() -> int:
     errors["drone_step"] = compare("K2 drone_step (params.yaml world, N=4096)", out, ref,
                                    TOL_STEP)
 
-    # ---- 3. K3 ---------------------------------------------------------------
+    # ---- 3. K3, equal bit for bit: the params.yaml world and a contact-heavy start
     out = sk.launch_rollout(params, s15, a4, psph, 256, pcyl)
     torch.cuda.synchronize()
     ref = sk.rollout_reference(params, s15, a4, psph, 256, pcyl)
     check_state("K3", out, N_ENVS)
     errors["rollout"] = compare("K3 rollout (params.yaml world, N=4096, K=256)", out, ref,
                                 TOL_ROLL)
+    equal_bits("K3 (params.yaml world)", [(out, ref)])
+    cw, cst = contact_bank(env, gen, N_ENVS, dev)
+    cs15, csph, ccyl = sk.state_to_matrix(cst.drone), sk.sphere_matrix(cw), sk.cylinder_matrix(cw)
+    out = sk.launch_rollout(params, cs15, a4, csph, 64, ccyl)
+    torch.cuda.synchronize()
+    ref = sk.rollout_reference(params, cs15, a4, csph, 64, ccyl)
+    errors["rollout"] = max(errors["rollout"], compare(
+        f"K3 rollout (contact-heavy start, 2 spheres, 8 cylinders, N={N_ENVS}, K=64, "
+        f"{int(ref[14].sum().item())} envs done)", out, ref, TOL_ROLL))
+    equal_bits("K3 (contact-heavy start)", [(out, ref)])
+    n1 = ek.ONE_THREAD_ENVS  # from here one thread an env
+    st1, _ = vector_reset(env, gen, n1, pworld)
+    s1, a1 = sk.state_to_matrix(st1.drone), sk.action_matrix(act[:1].expand(n1, 4).contiguous())
+    out = sk.launch_rollout(params, s1, a1, psph, 64, pcyl)
+    torch.cuda.synchronize()
+    ref = sk.rollout_reference(params, s1, a1, psph, 64, pcyl)
+    errors["rollout"] = max(errors["rollout"], compare(
+        f"K3 rollout (params.yaml world, N={n1}: one thread an env, K=64)", out, ref, TOL_ROLL))
+    equal_bits("K3 (one thread an env)", [(out, ref)])
 
     # ---- 4. K4, two runs across resets -------------------------------------
     hover = torch.zeros(N_ENVS, 4, device=dev)
@@ -803,6 +941,7 @@ def main() -> int:
         raise AssertionError(f"K4: expected every env to reset several times, saw {resets}")
     e1 = max(compare(f"K4 env_rollout (default world, K=256, 50-step episodes, {resets} "
                      f"resets)", out, ref, TOL_ENV), reward_err("K4", rsum, ref_rsum))
+    equal_bits("K4 (default world)", [(out, ref), (rsum, ref_rsum)])
     env_dr = AcroEnv(params=params, randomize=True, wind=(1.0, 0.5, 0.0), wind_scale=0.5)
     st, _ = vector_reset(env_dr, gen, N_ENVS, pworld)
     s24, pwm = ek.env_state_to_matrix(st), ek.env_world_matrix(pworld)
@@ -813,7 +952,28 @@ def main() -> int:
     check_state("K4 params", out, N_ENVS, max_t=env_dr.max_episode_steps)
     e2 = max(compare(f"K4 env_rollout (params.yaml world + DR + wind, K=64, {presets} "
                      f"resets)", out, ref, TOL_ENV), reward_err("K4 params", rsum, ref_rsum))
-    errors["env_rollout"] = max(e1, e2)
+    equal_bits("K4 (params.yaml world + DR + wind)", [(out, ref), (rsum, ref_rsum)])
+    cw, cst = contact_bank(env50, gen, N_ENVS, dev)
+    s24, cwm, ccyl = ek.env_state_to_matrix(cst), ek.env_world_matrix(cw), sk.cylinder_matrix(cw)
+    out, rsum = ek.launch_env_rollout(env50, s24, a4, cwm, 64, seed=3, cyl_mat=ccyl)
+    torch.cuda.synchronize()
+    ref, ref_rsum, cresets = ek.env_rollout_reference(env50, s24, a4, cwm, 64, seed=3,
+                                                      cyl_mat=ccyl)
+    e3 = max(compare(f"K4 env_rollout (contact-heavy start, 2 spheres, 8 cylinders, K=64, "
+                     f"{cresets} resets)", out, ref, TOL_ENV),
+             reward_err("K4 contact", rsum, ref_rsum))
+    equal_bits("K4 (contact-heavy start)", [(out, ref), (rsum, ref_rsum)])
+    n1 = ek.ONE_THREAD_ENVS  # from here one thread an env
+    st1, _ = vector_reset(env50, gen, n1, world)
+    s24, a1 = ek.env_state_to_matrix(st1), sk.action_matrix(hover[:1].expand(n1, 4))
+    out, rsum = ek.launch_env_rollout(env50, s24, a1, wm, 64, seed=4)
+    torch.cuda.synchronize()
+    ref, ref_rsum, oresets = ek.env_rollout_reference(env50, s24, a1, wm, 64, seed=4)
+    e4 = max(compare(f"K4 env_rollout (default world, N={n1}: one thread an env, K=64, "
+                     f"{oresets} resets)", out, ref, TOL_ENV),
+             reward_err("K4 one thread", rsum, ref_rsum))
+    equal_bits("K4 (one thread an env)", [(out, ref), (rsum, ref_rsum)])
+    errors["env_rollout"] = max(e1, e2, e3, e4)
 
     # ---- 5. K5 on three setups -----------------------------------------------
     errors["render_depth"] = 0.0
@@ -908,31 +1068,9 @@ def main() -> int:
     st, _ = vector_reset(env, gen, N_ENVS, world)
     stepped = sk.fused_drone_step(params, st.drone, hover, world)
     rolled = sk.fused_rollout(params, st.drone, hover, world, 256)
-    rates = {}
-    for label, e, w in (("default world", env, world), ("params.yaml world + DR + wind",
-                                                          env_dr, pworld)):
-        state, _ = vector_reset(e, gen, N_ENVS, w)
-        k_warm = 20_000
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, w, rs = ek.fused_env_rollout(e, state, hover, w, k_warm, seed=0)
-        torch.cuda.synchronize()
-        per_step = (time.perf_counter() - t0) / k_warm
-        k = min(int(RUN_SECONDS / per_step), ek.MAX_STEPS_PER_LAUNCH - 10_000)
-        times = []
-        for rep in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, w, rs = ek.fused_env_rollout(e, state, hover, w, k, seed=1 + rep)
-            total = rs.sum().item()  # completion on the host is part of the time
-            times.append(time.perf_counter() - t0)
-            if not math.isfinite(total):
-                raise AssertionError(f"main path ({label}): non-finite reward sum")
-        check_state(f"main path ({label})", ek.env_state_to_matrix(state), N_ENVS,
-                    max_t=e.max_episode_steps)
-        rates[label] = N_ENVS * k / min(times)
-        log(f"main path ({label}): {rates[label]:.6e} env-steps/s at N={N_ENVS}, K={k} "
-            f"per launch, best of {[round(t, 6) for t in times]} s, on {smi}")
+    _, state, w = acro_main_path("default world", env, world, gen, hover, smi)
+    acro_bank = (ek.env_state_to_matrix(state), ek.env_world_matrix(w))
+    acro_main_path("params.yaml world + DR + wind", env_dr, pworld, gen, hover, smi)
     launches = {}
     for t in (stepped.pos, rolled.pos):
         if not torch.isfinite(t).all():
@@ -1055,10 +1193,21 @@ def main() -> int:
     ms = cuda_ms(lambda: sk.launch_rollout(params, s15, a4, sph, 256), 20)
     pms = cuda_ms(lambda: sk.rollout_reference(params, s15, a4, sph, 256), 1)
     row("rollout", ms, pms, N_ENVS * 256 * step_ops(S, 0), step_bytes)
+    # K4 at K = 64 on the bank the acro main path left (its resets depend on
+    # the state), held against its plain version there; then from a fresh reset
     K = 64
-    _, _, main_resets = ek.env_rollout_reference(env, s24, a4, wm, K, seed=0)
+    ms_fresh = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, wm, K, seed=0), 50)
+    s24, wm = acro_bank
+    out, rsum = ek.launch_env_rollout(env, s24, a4, wm, K, seed=0)
+    torch.cuda.synchronize()
+    ref, ref_rsum, main_resets = ek.env_rollout_reference(env, s24, a4, wm, K, seed=0)
+    equal_bits("K4 (the acro main path's bank)", [(out, ref), (rsum, ref_rsum)])
     ms = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, wm, K, seed=0), 50)
     pms = cuda_ms(lambda: ek.env_rollout_reference(env, s24, a4, wm, K, seed=0), 1)
+    env_phases("default world, the bank the acro main path left", env, s24, a4, wm, K,
+               plain_ms=ms)
+    log(f"K4 (N={N_ENVS}, K={K}, default world): {ms:.6f} ms on the main path's bank "
+        f"({main_resets} resets), {ms_fresh:.6f} ms from a fresh reset")
     env_ops = (N_ENVS * K * (step_ops(S, 0) + 21) + main_resets * reset_ops(False, False)
                + K * 18 * S + N_ENVS * 17)
     row("env_rollout", ms, pms, env_ops, N_ENVS * (24 + 4 + 24 + 1) * 4 + 12 * S * 4)

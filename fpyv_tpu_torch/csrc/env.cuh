@@ -106,65 +106,94 @@ __device__ __forceinline__ float reset_pose(const EnvConsts& c, uint32_t lane, i
   return sqrtf(rdx * rdx + rdy * rdy + rdz * rdz);
 }
 
-// Everything of an env step after the physics: s holds the 24 env rows of
-// the step's start and receives the next ones, phys the physics rows after
-// the step, (tx, ty, tz) the chased target. Returns the reward; *dist gets
-// the distance to the target and *reset whether the env restarted.
+// What a step's physics means for the env: the distance to the chased
+// target (tx, ty, tz), the reward, the next t and whether the env restarts.
+struct EnvOutcome {
+  float dist, reward, t;
+  bool reset;
+};
+
+__device__ __forceinline__ EnvOutcome env_outcome(const EnvConsts& c, const float s[kEnvRows],
+                                                  const float phys[kStateRows], float tx,
+                                                  float ty, float tz, float rates_pen) {
+  EnvOutcome o;
+  const float crashed = phys[14];
+  const float ddx = phys[0] - tx, ddy = phys[1] - ty, ddz = phys[2] - tz;
+  o.dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
+  o.reward = c.w_progress * (s[16] - o.dist) + c.w_alive - c.w_crash * crashed -
+             c.w_rates * rates_pen;
+  o.t = s[15] + 1.0f;
+  const float truncated = o.t >= c.max_steps ? 1.0f : 0.0f;
+  const float done = fmaxf(crashed, truncated);
+  o.reset = done > 0.5f;
+  return o;
+}
+
+// The next rows of an env that goes on: the physics rows, done 0 (the
+// next-state done row is always 0, AcroEnv.step's tree_where), t, the
+// distance and the return; DR and wind rows persist.
+__device__ __forceinline__ void env_continue(float s[kEnvRows], const float phys[kStateRows],
+                                             const EnvOutcome& o) {
+#pragma unroll
+  for (int r = 0; r < 14; ++r) s[r] = phys[r];
+  s[14] = 0.0f;
+  s[15] = o.t;
+  s[16] = o.dist;
+  s[17] = s[17] + o.reward;
+}
+
+// The rows of an env that restarts at iteration i: the pose (draws 0..9),
+// zero rates, thrust, done, t and return, then DR and gusts (10..16).
+template <bool kDR, bool kWind>
+__device__ __forceinline__ void env_reset(const EnvConsts& c, uint32_t lane, int i, float tx,
+                                          float ty, float tz, float s[kEnvRows]) {
+  const uint32_t base = (static_cast<uint32_t>(i) + 1u) * 32u;
+  s[16] = reset_pose(c, lane, i, tx, ty, tz, s);
+  s[10] = s[11] = s[12] = 0.0f;  // rates
+  s[13] = 0.0f;                  // thrust
+  s[14] = 0.0f;                  // done
+  s[15] = 0.0f;                  // t
+  s[17] = 0.0f;                  // episode_return
+  float unused;
+  if (kDR) {
+    s[18] = c.mass_lo + uniform01(lane, base + 10u) * c.mass_span;
+    s[19] = c.drag_lo + uniform01(lane, base + 11u) * c.drag_span;
+    s[20] = c.thrust_lo + uniform01(lane, base + 12u) * c.thrust_span;
+  } else {
+    s[18] = s[19] = s[20] = 1.0f;
+  }
+  if (kWind && c.gust > 0.5f) {
+    float g0, g1, g2;
+    normal_pair(lane, base + 13u, base + 14u, &g0, &g1);
+    normal_pair(lane, base + 15u, base + 16u, &g2, &unused);
+    s[21] = c.wind[0] + c.wind_scale * g0;
+    s[22] = c.wind[1] + c.wind_scale * g1;
+    s[23] = c.wind[2] + c.wind_scale * g2;
+  } else {
+    s[21] = c.wind[0];
+    s[22] = c.wind[1];
+    s[23] = c.wind[2];
+  }
+}
+
+// Everything of an env step after the physics, one thread an env: s holds
+// the 24 env rows of the step's start and receives the next ones, phys the
+// physics rows after the step, (tx, ty, tz) the chased target. Returns the
+// reward; *dist gets the distance to the target and *reset whether the env
+// restarted.
 template <bool kDR, bool kWind>
 __device__ __forceinline__ float env_advance(const EnvConsts& c, uint32_t lane, int i,
                                              float s[kEnvRows], const float phys[kStateRows],
                                              float tx, float ty, float tz, float rates_pen,
                                              float* dist, bool* reset) {
-  const float crashed = phys[14];
-  const float ddx = phys[0] - tx, ddy = phys[1] - ty, ddz = phys[2] - tz;
-  *dist = sqrtf(ddx * ddx + ddy * ddy + ddz * ddz);
-  const float reward = c.w_progress * (s[16] - *dist) + c.w_alive - c.w_crash * crashed -
-                       c.w_rates * rates_pen;
-  const float t = s[15] + 1.0f;
-  const float truncated = t >= c.max_steps ? 1.0f : 0.0f;
-  const float done = fmaxf(crashed, truncated);
-  *reset = done > 0.5f;
-
-  if (*reset) {
-    // ---- auto-reset: the pose (draws 0..9), then DR and gusts (10..16)
-    const uint32_t base = (static_cast<uint32_t>(i) + 1u) * 32u;
-    s[16] = reset_pose(c, lane, i, tx, ty, tz, s);
-    s[10] = s[11] = s[12] = 0.0f;  // rates
-    s[13] = 0.0f;                  // thrust
-    s[14] = 0.0f;                  // done
-    s[15] = 0.0f;                  // t
-    s[17] = 0.0f;                  // episode_return
-    float unused;
-    if (kDR) {
-      s[18] = c.mass_lo + uniform01(lane, base + 10u) * c.mass_span;
-      s[19] = c.drag_lo + uniform01(lane, base + 11u) * c.drag_span;
-      s[20] = c.thrust_lo + uniform01(lane, base + 12u) * c.thrust_span;
-    } else {
-      s[18] = s[19] = s[20] = 1.0f;
-    }
-    if (kWind && c.gust > 0.5f) {
-      float g0, g1, g2;
-      normal_pair(lane, base + 13u, base + 14u, &g0, &g1);
-      normal_pair(lane, base + 15u, base + 16u, &g2, &unused);
-      s[21] = c.wind[0] + c.wind_scale * g0;
-      s[22] = c.wind[1] + c.wind_scale * g1;
-      s[23] = c.wind[2] + c.wind_scale * g2;
-    } else {
-      s[21] = c.wind[0];
-      s[22] = c.wind[1];
-      s[23] = c.wind[2];
-    }
-  } else {
-    // next-state done row is always 0 (AcroEnv.step's tree_where); DR and
-    // wind rows persist
-#pragma unroll
-    for (int r = 0; r < 14; ++r) s[r] = phys[r];
-    s[14] = 0.0f;
-    s[15] = t;
-    s[16] = *dist;
-    s[17] = s[17] + reward;
-  }
-  return reward;
+  const EnvOutcome o = env_outcome(c, s, phys, tx, ty, tz, rates_pen);
+  *dist = o.dist;
+  *reset = o.reset;
+  if (o.reset)
+    env_reset<kDR, kWind>(c, lane, i, tx, ty, tz, s);
+  else
+    env_continue(s, phys, o);
+  return o.reward;
 }
 
 }  // namespace fpyv

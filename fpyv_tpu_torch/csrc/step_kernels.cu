@@ -3,23 +3,27 @@
 // K2 replaces fpyv_tpu/ops/pallas_step.py:_kernel_single (pallas_drone_step);
 // K3 replaces fpyv_tpu/ops/pallas_step.py:_kernel_rollout (pallas_rollout).
 //
-// Layout: the state is an SoA (15, N) float32 matrix and the action (4, N);
-// thread n owns env n, so a warp's load of one row is one coalesced 128-byte
-// transaction. The sphere (5, S) and cylinder (6, C) rows are copied into
-// shared memory once per block, and the loops run over the real counts.
+// Layout: the state is an SoA (15, N) float32 matrix and the action (4, N).
+// K2: thread n owns env n, so a warp's load of one row is one coalesced
+// 128-byte transaction. K3: kLanes adjacent lanes own env n (lanes.cuh),
+// each with the env's 15 rows in registers for all K steps and the contact
+// terms of its motor points, summed in K1's order from shared memory; a
+// block holds 32 envs. The sphere (5, S) and cylinder (6, C) rows are
+// copied into shared memory once per block, and the loops run over the
+// real counts.
 //
 // Bound on the H100: K2 moves 152 bytes per env for ~450 float32 operations
 // (one-sphere world), K3 the same bytes for K times the operations, so both
-// are bound by operations — in practice by latency, since N = 4096 envs at
-// one thread each is 128 warps, fewer than the card's 132 SMs x 4
-// schedulers. Blocks of 32 threads spread those warps over 128 SMs; K3
-// keeps the state in registers for all K steps so it never waits on memory.
-#include "physics.cuh"
+// are bound by operations — in practice by latency: K3 at N = 4096 is one
+// env's chain of K dependent steps, which the lanes shorten and spread over
+// 4x the warps. K2's one step is paced by its wrapper on the host.
+#include "lanes.cuh"
 
 #include <cstring>
 
 using fpyv::Cylinders;
 using fpyv::EnvPhysics;
+using fpyv::kEnvsPerBlock;
 using fpyv::kStateRows;
 using fpyv::Spheres;
 using fpyv::StepConsts;
@@ -28,11 +32,11 @@ namespace {
 
 constexpr int kBlock = 32;
 
-__device__ __forceinline__ void run_steps(const StepConsts& k, const float* __restrict__ state,
-                                          const float* __restrict__ action,
-                                          const float* __restrict__ spheres, int S,
-                                          const float* __restrict__ cyl, int C,
-                                          float* __restrict__ out, int n, int n_steps) {
+__global__ void drone_step_kernel(StepConsts k, const float* __restrict__ state,
+                                  const float* __restrict__ action,
+                                  const float* __restrict__ spheres, int S,
+                                  const float* __restrict__ cyl, int C,
+                                  float* __restrict__ out, int n) {
   extern __shared__ float sh[];
   float* sw = sh;          // (5, S) sphere rows
   float* sc = sh + 5 * S;  // (6, C) cylinder rows
@@ -49,26 +53,66 @@ __device__ __forceinline__ void run_steps(const StepConsts& k, const float* __re
   for (int r = 0; r < 4; ++r) a[r] = action[r * n + e];
   const Spheres sp{sw, sw + S, sw + 2 * S, sw + 3 * S, sw + 4 * S, S};
   const Cylinders cv{sc, C};
-  const EnvPhysics none{};
-  for (int i = 0; i < n_steps; ++i) fpyv::step_components<false, false>(k, sp, cv, s, a, none);
+  fpyv::step_components<false, false>(k, sp, cv, s, a, EnvPhysics{});
 #pragma unroll
   for (int r = 0; r < kStateRows; ++r) out[r * n + e] = s[r];
 }
 
-__global__ void drone_step_kernel(StepConsts k, const float* __restrict__ state,
-                                  const float* __restrict__ action,
-                                  const float* __restrict__ spheres, int S,
-                                  const float* __restrict__ cyl, int C,
-                                  float* __restrict__ out, int n) {
-  run_steps(k, state, action, spheres, S, cyl, C, out, n, 1);
+template <int L>
+__global__ void __launch_bounds__(L * kEnvsPerBlock)
+    rollout_kernel(StepConsts k, const float* __restrict__ state,
+                   const float* __restrict__ action, const float* __restrict__ spheres, int S,
+                   const float* __restrict__ cyl, int C, float* __restrict__ out, int n,
+                   int n_steps) {
+  extern __shared__ float4 sh4[];
+  const int slot = threadIdx.x / L, sub = threadIdx.x % L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float4* stage = sh4 + slot * fpyv::stage_slots(S, C);  // this env's contact terms
+  float* sw = reinterpret_cast<float*>(sh4 + fpyv::block_stage<L>(S, C));
+  float* sc = sw + 5 * S;  // (6, C) cylinder rows
+  fpyv::load_shared(sw, spheres, 5 * S);  // (5, S) sphere rows
+  fpyv::load_shared(sc, cyl, 6 * C);
+  __syncthreads();
+  const int e_first = blockIdx.x * kEnvsPerBlock;
+  if (e_first + warp * (32 / L) >= n) return;  // a warp past the last env
+  const int e_own = e_first + slot;
+  const int e = e_own < n ? e_own : n - 1;  // lanes past the last env repeat it, write nothing
+  float s[kStateRows];
+#pragma unroll
+  for (int r = 0; r < kStateRows; ++r) s[r] = state[r * n + e];
+  float a[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) a[r] = action[r * n + e];
+  const Spheres sp{sw, sw + S, sw + 2 * S, sw + 3 * S, sw + 4 * S, S};
+  const Cylinders cv{sc, C};
+  const EnvPhysics none{};
+  for (int i = 0; i < n_steps; ++i) {
+    const fpyv::StepHead h = fpyv::step_head<false, false>(k, s, a, none);
+    float cf[3], crashed;
+    fpyv::env_contacts<L>(k, h, sp, cv, stage, lane, cf, &crashed);
+    fpyv::env_tail<L, false>(k, h, cf, crashed, none, s, lane);
+  }
+  if (e_own < n) {
+#pragma unroll
+    for (int r = 0; r < kStateRows; ++r)
+      if (r % L == sub) out[r * n + e] = s[r];
+  }
 }
 
-__global__ void rollout_kernel(StepConsts k, const float* __restrict__ state,
-                               const float* __restrict__ action,
-                               const float* __restrict__ spheres, int S,
-                               const float* __restrict__ cyl, int C,
-                               float* __restrict__ out, int n, int n_steps) {
-  run_steps(k, state, action, spheres, S, cyl, C, out, n, n_steps);
+template <int L>
+int launch_rollout(const StepConsts& k, const float* state, const float* action,
+                   const float* spheres, int S, const float* cyl, int C, float* out, int n,
+                   int n_steps, cudaStream_t stream) {
+  const size_t shmem = sizeof(float4) * fpyv::block_stage<L>(S, C) +
+                       sizeof(float) * (5 * S + 6 * C);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rollout_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  rollout_kernel<L><<<(n + kEnvsPerBlock - 1) / kEnvsPerBlock, L * kEnvsPerBlock, shmem,
+                      stream>>>(k, state, action, spheres, S, cyl, C, out, n, n_steps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool read_consts(const float* host, int count, StepConsts* k) {
@@ -98,16 +142,17 @@ int fpyv_drone_step(const float* consts, int n_consts, const float* state, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// Below kOneThreadEnvs envs kLanes lanes own an env, from there one thread.
 int fpyv_rollout(const float* consts, int n_consts, const float* state, const float* action,
                  const float* spheres, int S, const float* cyl, int C, float* out, int n,
                  int n_steps, void* stream) {
   StepConsts k;
   if (!read_consts(consts, n_consts, &k)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = sizeof(float) * (5 * S + 6 * C);
-  rollout_kernel<<<(n + kBlock - 1) / kBlock, kBlock, shmem,
-                   static_cast<cudaStream_t>(stream)>>>(k, state, action, spheres, S, cyl, C,
-                                                        out, n, n_steps);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < fpyv::kOneThreadEnvs)
+    return launch_rollout<fpyv::kLanes>(k, state, action, spheres, S, cyl, C, out, n, n_steps,
+                                        st);
+  return launch_rollout<1>(k, state, action, spheres, S, cyl, C, out, n, n_steps, st);
 }
 
 }  // extern "C"

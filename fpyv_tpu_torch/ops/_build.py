@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("step_kernels.cu", "env_kernels.cu", "vision_kernels.cu", "policy_kernels.cu",
            "race_kernels.cu")
-HEADERS = ("physics.cuh", "env.cuh", "render.cuh", "actor.cuh", "clock.cuh")
+HEADERS = ("physics.cuh", "env.cuh", "lanes.cuh", "render.cuh", "actor.cuh", "clock.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
               "-Xcompiler", "-fPIC")
@@ -115,7 +115,7 @@ def library() -> ctypes.CDLL:
         lib.fpyv_drone_step.argtypes = [P, I, P, P, P, I, P, I, P, I, P]
         lib.fpyv_rollout.argtypes = [P, I, P, P, P, I, P, I, P, I, I, P]
         lib.fpyv_env_rollout.argtypes = [P, I, P, I, I, P, P, P, I, P, I, P, P, I, I,
-                                         I, I, P]
+                                         I, I, P, P]
         lib.fpyv_render_depth.argtypes = [P, I, P, I, P, P, I, I, P, I, P]
         lib.fpyv_vision_env_rollout.argtypes = [P, I, P, I, P, I, I, P, P, I, P, I, P, I, I,
                                                 P, P, P, P, I, I, I, I, P, P]

@@ -380,14 +380,22 @@ def env_rollout_reference(env: AcroEnv, state_mat: torch.Tensor,
 
 
 def launch_env_rollout(env: AcroEnv, state_mat, action_mat, world_mat, n_steps: int,
-                       seed: int = 0, cyl_mat=None):
-    """K4 on the card. Returns (state (24, N), reward sum (N,))."""
+                       seed: int = 0, cyl_mat=None, probe: Optional[torch.Tensor] = None):
+    """K4 on the card. Returns (state (24, N), reward sum (N,)). A ``probe``
+    (int64 of :data:`N_ENV_PROBE` on the card) launches the instrumented
+    instantiation, which adds its phase clocks and reset count there
+    (:func:`env_probe_split`)."""
     device = state_mat.device
     if device.type != "cuda":
         raise ValueError(f"env_rollout launches on a CUDA device, got {device}")
     check_cuda_inputs(device, state=state_mat, action=action_mat, world=world_mat,
                       cylinders=cyl_mat)
+    if probe is not None and (probe.device != device or probe.dtype != torch.int64
+                              or probe.shape != (N_ENV_PROBE,)):
+        raise ValueError(f"probe must be an int64 ({N_ENV_PROBE},) tensor on {device}")
     n = state_mat.shape[1]
+    if probe is not None and n >= ONE_THREAD_ENVS:
+        raise ValueError(f"the instrumented K4 splits the lane design: N < {ONE_THREAD_ENVS}")
     if state_mat.shape != (ENV_ROWS, n) or action_mat.shape != (4, n):
         raise ValueError("state / action must be (24, N) / (4, N)")
     if world_mat.ndim != 2 or world_mat.shape[0] != WORLD_ROWS:
@@ -412,10 +420,28 @@ def launch_env_rollout(env: AcroEnv, state_mat, action_mat, world_mat, n_steps: 
                                    state_mat.data_ptr(), action_mat.data_ptr(),
                                    world_mat.data_ptr(), S, cyl_ptr, C, out.data_ptr(),
                                    rsum.data_ptr(), n, n_steps, int(c.randomize),
-                                   int(c.use_wind), stream)
+                                   int(c.use_wind), None if probe is None else probe.data_ptr(),
+                                   stream)
     _build.check(err, "env_rollout")
     _build.launch_counts["env_rollout"] += 1
     return out, rsum
+
+
+ONE_THREAD_ENVS = 32768  # kOneThreadEnvs in csrc/lanes.cuh: from here one thread an env
+ENV_PHASES = ("centres", "head", "contacts", "tail", "env")  # EnvPhase in csrc/env_kernels.cu
+N_ENV_PROBE = len(ENV_PHASES) + 1  # the phases, then the env-steps that reset
+ENVS_PER_BLOCK = 32  # K4's block: 32 envs
+
+
+def env_probe_split(probe: torch.Tensor, n_envs: int) -> dict:
+    """An instrumented K4 launch's probe: each phase in ms a launch (the
+    first thread's nanoseconds in each block, averaged over the blocks) and
+    the env-steps that reset."""
+    vals = probe.tolist()
+    blocks = -(-n_envs // ENVS_PER_BLOCK)
+    split = {name: float(v) / blocks * 1e-6 for name, v in zip(ENV_PHASES, vals)}
+    split["resets"] = vals[len(ENV_PHASES)]
+    return split
 
 
 def env_rollout_matrix(env: AcroEnv, state_mat, action_mat, world_mat, n_steps: int,

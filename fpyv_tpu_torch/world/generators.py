@@ -242,3 +242,47 @@ def build_world(spec: WorldSpec, dtype=torch.float32, device=None):
             gate_shape=t([GATE_SHAPES.index(g.shape) for g in spec.gates], torch.int32),
         )
     return w
+
+
+# ---------------------------------------------------------------------------
+# A contact-dense start, for the fused kernels' checks: the contact forces
+# are sums over motor points and primitives, so a start with several motor
+# points on a sphere and a cylinder in one step tests the order of the sums
+# ---------------------------------------------------------------------------
+
+CONTACT_SPHERES = np.array([[0.0, 0.0, 3.0], [0.0, 2.25, 3.0]], np.float32)  # radius 1 each
+CONTACT_CYLINDERS = np.array([  # base centre xyz, radius, height, active
+    [2.15, 0.0, 0.0, 1.0, 10.0, 1], [0.0, -2.15, 0.0, 1.0, 10.0, 1],
+    [-2.2, 0.0, 2.5, 1.0, 1.0, 1], [1.2, 1.9, 0.0, 0.4, 10.0, 1],
+    [8.0, 8.0, 0.0, 0.5, 5.0, 1], [-8.0, 8.0, 0.0, 0.5, 5.0, 1],
+    [8.0, -8.0, 0.0, 0.5, 5.0, 1], [2.15, 0.0, 0.0, 1.0, 10.0, 0]], np.float32)
+# drone centres in the gaps: sphere 0 and cylinder 0 (0.15 m apart), sphere 0
+# and cylinder 1, the two spheres (0.25 m), sphere 0 and the cap of cylinder 2
+CONTACT_SITES = np.array([[1.075, 0.0, 3.0], [0.0, -1.075, 3.0], [0.0, 1.125, 3.0],
+                          [-1.1, 0.0, 3.45]], np.float32)
+
+
+def contact_world(dtype=torch.float32, device=None):
+    """Two unit spheres and eight cylinders (the last inactive, on top of the
+    first) that stand 0.15-0.25 m apart, less than a motor span, with
+    ground; no target path."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype)
+
+    c = CONTACT_CYLINDERS
+    return empty_world(n_spheres=2, n_cylinders=8, dtype=dtype, device="cpu").replace(
+        sphere_center=t(CONTACT_SPHERES), sphere_radius=t(np.ones(2)), cyl_center=t(c[:, :3]),
+        cyl_radius=t(c[:, 3]), cyl_height=t(c[:, 4]), cyl_active=torch.as_tensor(c[:, 5] > 0),
+    ).to(resolve_device(device))
+
+
+def contact_start(n: int, seed: int):
+    """Drone centres, velocities and Euler angles (degrees) at the gaps of
+    :func:`contact_world`, env e at gap e % 4, jittered by up to 2 cm, 0.3
+    m/s and 15 degrees from a numpy seed: most put motor points on a sphere
+    and a cylinder in the same step. Three (n, 3) float32 arrays."""
+    rng = np.random.default_rng(seed)
+    pos = CONTACT_SITES[np.arange(n) % len(CONTACT_SITES)] + rng.uniform(-0.02, 0.02, (n, 3))
+    vel = rng.uniform(-0.3, 0.3, (n, 3))
+    ypr = rng.uniform(-15.0, 15.0, (n, 3))
+    return pos.astype(np.float32), vel.astype(np.float32), ypr.astype(np.float32)

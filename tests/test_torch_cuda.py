@@ -11,7 +11,9 @@ Tolerances: the kernels are built with --fmad=false and without fast math,
 so they round as the plain versions do and differ by libm ulps at most
 (sinf/cosf/logf on the card against PyTorch's own CUDA kernels): 1e-5 after
 one step, 1e-4 after 64 chained steps, 1e-3 on 64-step reward sums. The step
-counter t, and with it every reset decision, is equal exactly. K5's depth
+counter t, and with it every reset decision, is equal exactly; K3 and K4,
+whose lanes share an env and add its contact terms in the plain order, equal
+their plain versions bit for bit (max abs error 0.0). K5's depth
 levels are equal. K6 (the chase) holds pos 1e-4, velocity and attitude 1e-3
 and reward sums 2e-3 after K = 64 steps (tests/test_pallas_vision.py's
 tolerances); its t, crash and contact counts are equal. K7 (the policy
@@ -40,8 +42,8 @@ from fpyv_tpu_torch.ops import step_kernel as sk
 from fpyv_tpu_torch.ops import policy_kernel as pk
 from fpyv_tpu_torch.ops import race_kernel as rk
 from fpyv_tpu_torch.ops import vision_kernel as vk
-from fpyv_tpu_torch.physics.drone import DroneParams
-from fpyv_tpu_torch.world.generators import WorldSpec, build_world
+from fpyv_tpu_torch.physics.drone import DroneParams, drone_reset
+from fpyv_tpu_torch.world.generators import WorldSpec, build_world, contact_start, contact_world
 
 
 @pytest.fixture
@@ -52,22 +54,42 @@ def cuda_device():
 
 
 def _bank(device, world="default", n=256, **kw):
+    """An env, its world, a reset bank of n envs and the hover action. The
+    "contact" world is ``contact_world`` with the drones at its gaps
+    (``contact_start``): several motor points on a sphere and a cylinder in
+    one step."""
     env = AcroEnv(params=DroneParams(att_mode="quat"), **kw)
     if world == "default":
         w = env.default_world(device)
+    elif world == "contact":
+        w = contact_world(device=device)
     else:
         w = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=device)
     g = torch.Generator().manual_seed(0)
     st, _ = env.reset(g, w, (n,))
+    if world == "contact":
+        pos, vel, ypr = (torch.from_numpy(a).to(device) for a in contact_start(n, 17))
+        st = st.replace(drone=drone_reset(env.params, pos, vel, ypr))
     act = torch.zeros(n, 4, device=device)
     act[:, 3] = -0.6
     return env, w, st, act
 
 
+# K3 and K4 cases: the default and params.yaml worlds, a contact-heavy start
+# on 2 spheres and 8 cylinders, ragged N (one env past a block of 32, one env
+# in the last block), and a bank past ek.ONE_THREAD_ENVS (one thread an env)
+K34_CASES = [pytest.param("default", 256, id="default"), pytest.param("params", 256, id="params"),
+             pytest.param("contact", 256, id="contact"), pytest.param("default", 33, id="ragged33"),
+             pytest.param("params", 4097, id="ragged4097"),
+             pytest.param("params", 32773, id="one_thread32773")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("world", ["default", "params"])
-def test_cuda_k2_k3_match_plain(cuda_device, world):
-    env, w, st, act = _bank(cuda_device, world)
+@pytest.mark.parametrize("world,n", K34_CASES)
+def test_cuda_k2_k3_match_plain(cuda_device, world, n):
+    """K2 within libm ulps; K3 (lanes on an env) equal bit for bit to its
+    plain version, and to itself launch after launch."""
+    env, w, st, act = _bank(cuda_device, world, n)
     s, a = sk.state_to_matrix(st.drone), sk.action_matrix(act)
     sph = sk.sphere_matrix(w)
     cyl = sk.cylinder_matrix(w) if sk.world_has_cylinders(w) else None
@@ -78,25 +100,48 @@ def test_cuda_k2_k3_match_plain(cuda_device, world):
     out = sk.launch_rollout(env.params, s, a, sph, 64, cyl)
     torch.cuda.synchronize()
     ref = sk.rollout_reference(env.params, s, a, sph, 64, cyl)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    if world == "contact":
+        assert ref[14].sum() > 0  # premise: motor points inside the obstacles
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    torch.testing.assert_close(sk.launch_rollout(env.params, s, a, sph, 64, cyl), out, atol=0,
+                               rtol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("world,kw", [("default", dict(max_episode_steps=20)),
-                                      ("params", dict(max_episode_steps=20, randomize=True,
-                                                      wind=(1.0, 0.5, 0.0), wind_scale=0.5))])
-def test_cuda_k4_matches_plain_across_resets(cuda_device, world, kw):
-    env, w, st, act = _bank(cuda_device, world, **kw)
+@pytest.mark.parametrize("world,n", K34_CASES)
+@pytest.mark.parametrize("kw", [pytest.param(dict(max_episode_steps=20), id="kw0"),
+                                pytest.param(dict(max_episode_steps=20, randomize=True,
+                                                  wind=(1.0, 0.5, 0.0), wind_scale=0.5),
+                                             id="kw1")])
+def test_cuda_k4_matches_plain_across_resets(cuda_device, world, n, kw):
+    """K4 equal bit for bit to its plain version across resets (t, done and
+    the reset count too), to itself launch after launch, and its
+    instrumented instantiation to its plain one."""
+    env, w, st, act = _bank(cuda_device, world, n, **kw)
     s, a = ek.env_state_to_matrix(st), sk.action_matrix(act)
     wm = ek.env_world_matrix(w)
     cyl = sk.cylinder_matrix(w) if sk.world_has_cylinders(w) else None
     out, rsum = ek.launch_env_rollout(env, s, a, wm, 64, seed=3, cyl_mat=cyl)
     torch.cuda.synchronize()
     ref, ref_rsum, resets = ek.env_rollout_reference(env, s, a, wm, 64, seed=3, cyl_mat=cyl)
-    assert resets > 0
-    torch.testing.assert_close(out[15], ref[15], atol=0, rtol=0)  # t: resets equal
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-    torch.testing.assert_close(rsum, ref_rsum, atol=1e-3, rtol=0)
+    assert resets >= n  # premise: every env's 20-step episode ended
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    torch.testing.assert_close(rsum, ref_rsum, atol=0, rtol=0)
+    again = ek.launch_env_rollout(env, s, a, wm, 64, seed=3, cyl_mat=cyl)
+    torch.testing.assert_close(again[0], out, atol=0, rtol=0)
+    torch.testing.assert_close(again[1], rsum, atol=0, rtol=0)
+    probe = torch.zeros(ek.N_ENV_PROBE, dtype=torch.int64, device=cuda_device)
+    if n >= ek.ONE_THREAD_ENVS:  # the instrumented instantiation is the lane design's
+        with pytest.raises(ValueError, match="lane design"):
+            ek.launch_env_rollout(env, s, a, wm, 64, seed=3, cyl_mat=cyl, probe=probe)
+        return
+    timed = ek.launch_env_rollout(env, s, a, wm, 64, seed=3, cyl_mat=cyl, probe=probe)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(timed[0], out, atol=0, rtol=0)
+    torch.testing.assert_close(timed[1], rsum, atol=0, rtol=0)
+    split = ek.env_probe_split(probe, n)
+    assert split["resets"] == resets
+    assert all(split[k] > 0 for k in ek.ENV_PHASES)
 
 
 @pytest.mark.cuda

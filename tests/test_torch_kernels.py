@@ -37,6 +37,8 @@ from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import env_kernel as tek
 from fpyv_tpu_torch.ops import step_kernel as tsk
 from fpyv_tpu_torch.physics.drone import DroneParams as TP
+from fpyv_tpu_torch.world.generators import (CONTACT_CYLINDERS, CONTACT_SPHERES, contact_start,
+                                              contact_world)
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 64
@@ -261,6 +263,122 @@ def test_k4_cylinder_crashes_match_pallas():
     tout, _, rsum = tek.fused_env_rollout(tenv, ts, torch.from_numpy(act), tworld, K, seed=2)
     assert (tout.t.numpy() < K).any()  # premise: some envs crashed and reset
     _compare_env(tout, jout, rsum, jrsum)
+
+
+# ---------------------------------------------------------------------------
+# A contact-heavy start: several motor points on a sphere and a cylinder in
+# the same step. The contact forces are sums over motor points and
+# primitives, and float addition is not associative, so these cases pin
+# down the order (motor by motor: the ground, each sphere, each cylinder)
+# that the CUDA K3 and K4 keep when they spread an env's motor points over
+# the lanes of a warp.
+# ---------------------------------------------------------------------------
+
+def _contact_world():
+    c = CONTACT_CYLINDERS
+    return jempty(n_spheres=2, n_cylinders=8, ground=True, dtype=jnp.float32).replace(
+        sphere_center=jnp.asarray(CONTACT_SPHERES), sphere_radius=jnp.ones((2,), jnp.float32),
+        cyl_center=jnp.asarray(c[:, :3]), cyl_radius=jnp.asarray(c[:, 3]),
+        cyl_height=jnp.asarray(c[:, 4]), cyl_active=jnp.asarray(c[:, 5] > 0))
+
+
+def _contact_drones(seed, n=N):
+    """Drones at the gaps of ``contact_world`` (``contact_start``), hovering
+    with random stick inputs."""
+    pos, vel, ypr = contact_start(n, seed)
+    act = np.random.default_rng(seed).uniform(-0.4, 0.4, (n, 4)).astype(np.float32)
+    act[:, 3] = -0.6
+    js = jreset(JP(att_mode="quat"), *map(jnp.asarray, (pos, vel, ypr)))
+    ts = interop.drone_state_from_numpy(interop.to_numpy_tree(js), "cpu")
+    return js, ts, act
+
+
+def _motor_contacts(ts):
+    """Per env, the motor points that touch a sphere and that touch an active
+    cylinder at the first step (penetration below the motor radius)."""
+    k = tsk.step_constants(TP(att_mode="quat"))
+    pos, (w, x, y, z) = ts.pos.numpy(), ts.att.numpy().T
+    cols = np.stack([np.stack([1 - 2 * (y * y + z * z), 2 * (x * y + z * w), 2 * (x * z - y * w)], 1),
+                     np.stack([2 * (x * y - z * w), 1 - 2 * (x * x + z * z), 2 * (y * z + x * w)], 1)])
+    on_sphere, on_cyl = np.zeros(len(pos), int), np.zeros(len(pos), int)
+    for m0, m1 in zip(k.motor_x, k.motor_y):
+        mp = pos + cols[0] * m0 + cols[1] * m1
+        sd = np.linalg.norm(mp[:, None] - CONTACT_SPHERES[None], axis=-1) - 1.0
+        on_sphere += (sd < k.motor_radius).any(1)
+        c = CONTACT_CYLINDERS
+        d2d = np.linalg.norm(mp[:, None, :2] - c[None, :, :2], axis=-1) - c[None, :, 3]
+        z0, z1 = c[None, :, 2], c[None, :, 2] + c[None, :, 4]
+        band = (z0 < mp[:, None, 2]) & (mp[:, None, 2] < z1)
+        dh = np.minimum(np.abs(mp[:, None, 2] - z0), np.abs(mp[:, None, 2] - z1))
+        d = np.where(band, d2d, np.sqrt(d2d * d2d + dh * dh))
+        on_cyl += ((d < k.motor_radius) & (c[None, :, 5] > 0)).any(1)
+    return on_sphere, on_cyl
+
+
+def _assert_contact_heavy(ts):
+    on_sphere, on_cyl = _motor_contacts(ts)
+    both = (on_sphere >= 1) & (on_cyl >= 1) & (on_sphere + on_cyl >= 2)
+    assert both.sum() >= len(both) // 4, (on_sphere, on_cyl)  # premise
+
+
+def test_contact_world_matches_its_jax_twin():
+    """The port's ``contact_world`` (what the card checks use) is the world
+    these CPU tests build for the JAX package."""
+    a = interop.world_to_numpy(contact_world(device="cpu"))
+    b = interop.to_numpy_tree(_contact_world())
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_env_probe_split_reads_the_instrumented_launch():
+    """An instrumented K4 launch's probe: each phase's nanoseconds summed over
+    the blocks' first threads become ms a launch per block; the last slot
+    counts reset env-steps."""
+    probe = torch.tensor([4_000_000, 8_000_000, 0, 12_000_000, 4_000_000, 7])
+    split = tek.env_probe_split(probe, 4 * tek.ENVS_PER_BLOCK - 5)  # 4 blocks, the last ragged
+    assert split == {"centres": 1.0, "head": 2.0, "contacts": 0.0, "tail": 3.0, "env": 1.0,
+                     "resets": 7}
+
+
+@pytest.mark.parametrize("seed", [17, 23])
+def test_k3_plain_matches_pallas_contact_heavy(seed):
+    jworld = _contact_world()
+    js, ts, act = _contact_drones(seed)
+    _assert_contact_heavy(ts)
+    K = 6
+    ref = jps.pallas_rollout(JP(att_mode="quat"), js, jnp.asarray(act), jworld, K,
+                             interpret=True)
+    out = tsk.fused_rollout(TP(att_mode="quat"), ts, torch.from_numpy(act), _tw(jworld), K)
+    assert np.asarray(ref.done).any()  # premise: motor points inside obstacles
+    np.testing.assert_allclose(out.pos.numpy(), np.asarray(ref.pos), atol=2e-4)
+    np.testing.assert_allclose(out.vel.numpy(), np.asarray(ref.vel), atol=2e-4)
+    np.testing.assert_allclose(out.att.numpy(), np.asarray(ref.att), atol=1e-4)
+    np.testing.assert_array_equal(out.done.numpy(), np.asarray(ref.done))
+
+
+@pytest.mark.parametrize("seed", [17, 23])
+def test_k4_plain_matches_pallas_contact_heavy(seed):
+    """The contact-heavy start through the env: contact forces, then the
+    crash resets that follow."""
+    common = dict(pos_low=(-5.0, -5.0, 30.0), pos_high=(5.0, 5.0, 40.0))
+    jenv = JEnv(params=JP(att_mode="quat"), dtype=jnp.float32, **common)
+    tenv = TEnv(params=TP(att_mode="quat"), **common)
+    jworld = _contact_world()
+    keys = jax.random.split(jax.random.key(seed), N)
+    js, _ = jax.vmap(lambda k: jenv.reset(k, jworld))(keys)
+    jd, td, act = _contact_drones(seed)
+    _assert_contact_heavy(td)
+    dist = np.linalg.norm(CONTACT_SPHERES[0] - td.pos.numpy(), axis=-1).astype(np.float32)
+    js = js.replace(drone=jd, prev_dist=jnp.asarray(dist))
+    ts = interop.acro_state_from_numpy(interop.to_numpy_tree(js), "cpu")
+    K = 5
+    jout, jw_out, jrsum = jpe.pallas_env_rollout(jenv, js, jnp.asarray(act), jworld, K,
+                                                 seed=seed, interpret=True)
+    tout, tw_out, rsum = tek.fused_env_rollout(tenv, ts, torch.from_numpy(act), _tw(jworld), K,
+                                               seed=seed)
+    assert (tout.t.numpy() < K).any()  # premise: crashes reset envs
+    _compare_env(tout, jout, rsum, jrsum, tw_out, jw_out)
 
 
 def test_env_layouts_match_pallas():

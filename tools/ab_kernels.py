@@ -1,7 +1,7 @@
-"""Times K5 and K6 of one checkout of the PyTorch/CUDA port on one NVIDIA GPU,
-for a parent-against-change comparison with one timer.
+"""Times K3, K4, K5 and K6 of one checkout of the PyTorch/CUDA port on one
+NVIDIA GPU, for a parent-against-change comparison with one timer.
 
-    python3 tools/ab_k5_k6.py [ROOT]
+    python3 tools/ab_kernels.py [ROOT]
 
 ROOT (default: this checkout) is the checkout whose ``fpyv_tpu_torch`` is
 imported, built and timed; the timer, ``chip_smoke.cuda_ms``, and this
@@ -13,12 +13,23 @@ two ways at ``chip_smoke.py``'s shapes:
   device has slept through the host's enqueue, so a wrapper that waits on
   the host inside each call (a blocking copy) shows that wait;
 - ``kernel_ms``: the kernel's own device time under ``torch.profiler``,
-  the mean over the same calls, which leaves any copy around it out.
+  the mean over the launches the trace kept of the same calls, which
+  leaves any copy around it out.
 
+K3: 4096 envs, K = 256, the hover action, from a reset on the default and
+on the params.yaml world. K4: 4096 envs, K = 64, hover, on the default
+world from a fresh reset and on a steady bank 1,000,000 steps on (crashes
+have put the envs' 1000-step episodes out of step, so some reset in every
+window), and on the params.yaml world with DomainRand and wind from a
+reset, each with the resets the plain version counts there; and at 1M
+envs on the default world from a reset (the occupancy probe's largest
+bank, where one thread runs an env).
 K5: 1024 envs, 96x72, the params.yaml world, cameras after a reset. K6:
 1024 envs, K = 64, the default world and rig, from a fresh reset and on a
 steady-state bank (8192 chase steps from that reset), and ``bench.py``'s
-chase K-slope (K = 512 -> 2048, host clock). Prints one JSON line.
+chase K-slope (K = 512 -> 2048, host clock). Prints one JSON line; each
+entry's checksum (a sum over its output) shows both checkouts computed the
+same.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
-        print("ab_k5_k6: needs an NVIDIA GPU", file=sys.stderr)
+        print("ab_kernels: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -51,6 +62,7 @@ def main() -> int:
     from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv, default_vision_rig
     from fpyv_tpu_torch.ops import _build
     from fpyv_tpu_torch.ops import env_kernel as ek
+    from fpyv_tpu_torch.ops import step_kernel as sk
     from fpyv_tpu_torch.ops import vision_kernel as vk
     from fpyv_tpu_torch.physics.drone import DroneParams
     from fpyv_tpu_torch.world.generators import WorldSpec, build_world
@@ -70,9 +82,10 @@ def main() -> int:
             torch.cuda.synchronize()
         evs = [ev for ev in prof.key_averages()
                if getattr(ev, "device_type", None) == DeviceType.CUDA and name in ev.key]
-        if sum(ev.count for ev in evs) != reps:
+        seen = sum(ev.count for ev in evs)  # the trace may drop some of a fast run's launches
+        if not 0 < seen <= reps:
             raise AssertionError(f"profiler saw {[(ev.key, ev.count) for ev in evs]} for {name}")
-        return sum(ev.device_time_total for ev in evs) * 1e-3 / reps
+        return sum(ev.device_time_total for ev in evs) * 1e-3 / seen
 
     res = {"root": str(root), "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,9 +93,59 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     env = AcroEnv(params=DroneParams(att_mode="quat"))
     rig = default_vision_rig()
+    world = env.default_world(dev)
+    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
+    pcyl = sk.cylinder_matrix(pworld)
+    env_dr = AcroEnv(params=env.params, randomize=True, wind=(1.0, 0.5, 0.0), wind_scale=0.5)
+    na = smoke.N_ENVS
+    hover = torch.zeros(na, 4, device=dev)
+    hover[:, 3] = smoke.THROTTLE
+    a4 = sk.action_matrix(hover)
+
+    # K3 at the acro main path's shape, on both worlds
+    for label, w, cyl in (("default", world, None), ("params", pworld, pcyl)):
+        st, _ = vector_reset(env, gen, na, w)
+        s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(w)
+
+        def k3():
+            return sk.launch_rollout(env.params, s15, a4, sph, 256, cyl)
+
+        res[f"k3_{label}"] = {"cuda_ms": smoke.cuda_ms(k3, 20),
+                              "kernel_ms": kernel_ms(k3, 20, "rollout_kernel"),
+                              "checksum": float(k3().double().sum().item())}
+
+    # K4 on the default world: fresh, and on a steady bank (crashes have put
+    # the envs' episodes out of step); then the params.yaml world with DR + wind
+    st, _ = vector_reset(env, gen, na, world)
+    wm0 = ek.env_world_matrix(world)
+    runs = {"fresh": (env, ek.env_state_to_matrix(st), wm0, None)}
+    sb, wb, _ = ek.fused_env_rollout(env, st, hover, world, 1_000_000, seed=7)
+    runs["steady"] = (env, ek.env_state_to_matrix(sb), ek.env_world_matrix(wb), None)
+    st, _ = vector_reset(env_dr, gen, na, pworld)
+    runs["params_dr_wind"] = (env_dr, ek.env_state_to_matrix(st), ek.env_world_matrix(pworld),
+                              pcyl)
+    for label, (e, s24, wm, cyl) in runs.items():
+        def k4():
+            return ek.launch_env_rollout(e, s24, a4, wm, 64, seed=0, cyl_mat=cyl)
+
+        _, _, resets = ek.env_rollout_reference(e, s24, a4, wm, 64, seed=0, cyl_mat=cyl)
+        res[f"k4_{label}"] = {"cuda_ms": smoke.cuda_ms(k4, 50),
+                              "kernel_ms": kernel_ms(k4, 50, "env_rollout_kernel"),
+                              "resets": resets,
+                              "checksum": float(k4()[1].double().sum().item())}
+    # K4 on the occupancy probe's largest bank: 1M envs, default world, fresh
+    nb = 1 << 20
+    st, _ = vector_reset(env, gen, nb, world)
+    sb, ab = ek.env_state_to_matrix(st), sk.action_matrix(hover[:1].expand(nb, 4))
+
+    def k4_big():
+        return ek.launch_env_rollout(env, sb, ab, wm0, 64, seed=0)
+
+    res["k4_1M_envs"] = {"cuda_ms": smoke.cuda_ms(k4_big, 5),
+                         "kernel_ms": kernel_ms(k4_big, 5, "env_rollout_kernel"),
+                         "checksum": float(k4_big()[1].double().sum().item())}
 
     # K5 at the vision env's shape
-    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
     venv = VisionAcroEnv(acro=env, renderer="raycast_pallas", target_only=False)
     vstate, _ = venv.reset_batched(gen, pworld, None, n)
     cam_pos, cam_R = venv._camera(vstate)
@@ -95,10 +158,9 @@ def main() -> int:
 
     res["k5"] = {"cuda_ms": smoke.cuda_ms(k5, 200),
                  "kernel_ms": kernel_ms(k5, 200, "render_depth_kernel"),
-                 "levels_sum": float(k5().double().sum().item())}
+                 "checksum": float(k5().double().sum().item())}
 
     # K6 from a fresh reset and on a steady-state bank
-    world = env.default_world(dev)
     st, _ = vector_reset(env, gen, n, world)
     banks = {"fresh": (vk.chase_state_matrix(st), ek.env_world_matrix(world))}
     st, w, _, _, _ = vk.fused_vision_env_rollout(env, st, world, 8192)
@@ -109,8 +171,7 @@ def main() -> int:
 
         res[f"k6_{label}"] = {"cuda_ms": smoke.cuda_ms(k6, 20),
                               "kernel_ms": kernel_ms(k6, 20, "chase_kernel"),
-                              "bank_sum": float(s28[:3].double().sum().item()),
-                              "rsum": float(k6()[1].double().sum().item())}
+                              "checksum": float(k6()[1].double().sum().item())}
 
     # bench.py::measure_vision's K-slope on the chase main path
     st, _ = vector_reset(env, gen, n, world)
