@@ -104,7 +104,26 @@ each:
    sample and env step (thread 0 of each block reads ``%globaltimer`` at each
    phase boundary; ms a launch, mean over the blocks), each beside one
    cuBLAS bf16 ``torch.matmul`` of the same products as a yardstick the port
-   never calls.
+   never calls;
+16. ``ActorCritic`` on the card against the CPU (float32, TF32 off,
+   1e-5), then the state learner with its counters at 0: ``train_acro`` at
+   ``bench.py``'s trainer shape (4096 envs, T = 32, 30 iterations,
+   ``scan_chunk=10``, the first chunk left out): the eager ``AcroEnv.step``
+   once a step, no kernel of K2-K8 (the counters stay 0, printed); finite
+   losses and rewards, trained env-steps/s, the rollout/learner split and a
+   trace as in phase 12;
+17. the state race learner with its counters at 0: ``train_race`` at the
+   JAX function's defaults (1024 races of 4 agents, 4096 learner rows,
+   T = 32), as phase 16, with the mean gates passed;
+18. the flagship eval with its counters at 0: ``play_policy`` on the
+   shipped racer (``runs/flagship_torch``, ``load_flagship``) with its
+   meta.json play kwargs at ``bench.py::measure_flagship_gates``'s shape (32
+   envs, 2000 steps, chunks of 500, the deterministic mean action, the bf16
+   patch net) for seeds 7, 8 and 9: each seed's ``final_gates_passed_mean``,
+   their mean and spread beside the JAX package's 51.72 gates on the TPU
+   (``BENCH_r05.json``; a count of gates, not a speed), eval env-steps/s,
+   the K5 launches (the env's render, one a step) and the device's busy
+   share over 100 eval steps. Fails if the mean falls below 85 % of 51.72.
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -170,6 +189,11 @@ TRAIN_ITERS = 30  # bench.py::measure_vision_trainer: 1024 envs, 30 iterations, 
 TRAIN_CHUNK = 10
 K7_STEPS = 32  # the trainer's T
 RACE_STACK = 4  # bench.py::measure_vision_race_trainer: frame_stack=4, gate_size=5.0
+STATE_ENVS = 4096  # bench.py's trainer shape for train_acro: 4096 envs, T = 32
+RACE_RACES, RACE_AGENTS = 1024, 4  # train_race's defaults: 4096 learner rows
+FLAGSHIP_ENVS, FLAGSHIP_STEPS, FLAGSHIP_CHUNK = 32, 2000, 500  # measure_flagship_gates
+FLAGSHIP_SEEDS = (7, 8, 9)
+FLAGSHIP_TPU_GATES = 51.72  # the JAX package's eval on the TPU (BENCH_r05.json)
 
 # H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
@@ -475,10 +499,11 @@ def race_ops(hw: int, cfg, n_patches: int, K: int, G: int):
 RACE_RESET_OPS = 4 * 13 + 2 * 8 + 6 + 20  # 4 draws, 2 Box-Muller pairs, jitter, gate-0 distances
 
 
-def trainer_split(label: str, trainer) -> None:
+def trainer_split(label: str, trainer, rollout: str = "kernel + bootstrap frame") -> None:
     """One trainer iteration split with CUDA events into the rollout (one
-    kernel launch and the bootstrap frame) and the rest (the learner), best
-    of 3 after a warm-up, then one iteration traced under torch.profiler."""
+    kernel launch and the bootstrap frame, or T eager env steps) and the
+    rest (the learner), best of 3 after a warm-up, then one iteration
+    traced under torch.profiler."""
     tstate, _ = trainer.train_iteration(trainer.state)  # warm-up
     split = []
     for _ in range(3):
@@ -492,7 +517,7 @@ def trainer_split(label: str, trainer) -> None:
         torch.cuda.synchronize()
         split.append((ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])))
     roll_ms, iter_ms = min(r for r, _ in split), min(i for _, i in split)
-    log(f"{label} iteration split (CUDA events, best of 3): rollout (kernel + bootstrap frame) "
+    log(f"{label} iteration split (CUDA events, best of 3): rollout ({rollout}) "
         f"{roll_ms:.6f} ms, whole iteration {iter_ms:.6f} ms, learner {iter_ms - roll_ms:.6f} "
         f"ms; all {[[round(a, 6), round(b, 6)] for a, b in split]}")
 
@@ -859,6 +884,117 @@ def train_rows(label: str, log_dir: Path, iters: int):
                                      math.isfinite(r["mean_reward"]) for r in rows):
         raise AssertionError(f"{label}: missing or non-finite losses or rewards")
     return rows
+
+
+def state_learner(label: str, train, make, smi: str, **kw) -> None:
+    """A state trainer's main path with its counters at 0 (it launches no
+    kernel: the counters must stay 0), its rate, the split and a trace."""
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{label}_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train(num_iterations=TRAIN_ITERS, scan_chunk=TRAIN_CHUNK, print_every=0,
+                log_dir=str(log_dir), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    if any(counts.values()):
+        raise AssertionError(f"{label}: the eager path launched {counts}")
+    rows = train_rows(label, log_dir, TRAIN_ITERS)
+    gates = (f", mean gates passed {rows[0]['mean_gates_passed']:.6f} -> "
+             f"{rows[-1]['mean_gates_passed']:.6f}" if "mean_gates_passed" in rows[0] else "")
+    log(f"{label} main path: {res.steps_per_second:.6e} trained env-steps/s ({json.dumps(kw)}, "
+        f"T={K7_STEPS}, {TRAIN_ITERS} iterations in chunks of {TRAIN_CHUNK}, first chunk left "
+        f"out; {wall:.3f} s in all), reward {res.mean_reward_first:.6f} -> "
+        f"{res.mean_reward_last:.6f}{gates}, last loss {rows[-1]['loss']:.6f}; kernel "
+        f"launches {json.dumps(counts)}; on {smi}")
+    trainer_split(label, make(**kw), rollout=f"{K7_STEPS} eager env steps")
+
+
+def state_net_check(dev) -> float:
+    """ActorCritic on the card against the same weights on the CPU, over a
+    4096-env reset's observations: float32, TF32 off, within 1e-5."""
+    from fpyv_tpu_torch.models.policy import ActorCritic
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls")
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    _, obs = env.reset(torch.Generator().manual_seed(3), env.default_world("cpu"), (STATE_ENVS,))
+    net = ActorCritic(action_dim=4, obs_dim=env.obs_dim, device="cpu").init_params(
+        torch.Generator().manual_seed(4))
+    card = ActorCritic(action_dim=4, obs_dim=env.obs_dim, device=dev)
+    card.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        err = max((a.cpu() - b).abs().max().item() for a, b in zip(card(obs.to(dev)), net(obs)))
+    if not err <= 1e-5:
+        raise AssertionError(f"state net: max abs err {err} > 1e-5 against the CPU")
+    log(f"state net (ActorCritic, float32, N={STATE_ENVS}) on the card against the CPU: max abs "
+        f"err {err}")
+    return err
+
+
+def flagship_eval(smi: str) -> None:
+    """The shipped racer's deterministic eval at bench.py's shape, three
+    seeds, with the K5 launches and the device's busy share."""
+    # imported here, as the state trainers in main: tools/ab_kernels.py runs
+    # this file's timer against older checkouts, which lack these modules
+    from fpyv_tpu_torch import interop
+    from fpyv_tpu_torch.apps.play import load_flagship, make_player, play_policy
+
+    t0 = time.perf_counter()
+    net, play_kw = load_flagship()
+    play_kw.pop("seed", None)
+    params = net.state_dict()
+    log(f"flagship: loaded runs/flagship_torch in {time.perf_counter() - t0:.3f} s, play kwargs "
+        f"{json.dumps(play_kw)}")
+    gates, rates = [], []
+    for seed in FLAGSHIP_SEEDS:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = play_policy(env_name="vision_race", steps=FLAGSHIP_STEPS, num_envs=FLAGSHIP_ENVS,
+                          chunk=FLAGSHIP_CHUNK, seed=seed, params=params, **play_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launch_counts)
+        if counts.get("render_depth", 0) < FLAGSHIP_STEPS or any(
+                v for k, v in counts.items() if k != "render_depth"):
+            raise AssertionError(f"flagship eval: expected one K5 launch a step and no other "
+                                 f"kernel, saw {counts}")
+        if not (math.isfinite(out["final_gates_passed_mean"])
+                and math.isfinite(out["mean_reward_per_step"])):
+            raise AssertionError(f"flagship eval: non-finite output {out}")
+        gates.append(out["final_gates_passed_mean"])
+        rates.append(FLAGSHIP_ENVS * out["steps"] / wall)
+        log(f"flagship eval seed {seed}: final_gates_passed_mean {gates[-1]:.6f}, mean reward "
+            f"per step {out['mean_reward_per_step']:.6f}, {out['crash_events']} crash events, "
+            f"{rates[-1]:.6e} eval env-steps/s ({FLAGSHIP_ENVS} envs x {out['steps']} steps in "
+            f"chunks of {FLAGSHIP_CHUNK}, {wall:.3f} s), launches {json.dumps(counts)}")
+    mean = sum(gates) / len(gates)
+    spread = max(gates) - min(gates)
+    log(f"flagship eval: final_gates_passed_mean over seeds {list(FLAGSHIP_SEEDS)}: mean "
+        f"{mean:.6f}, spread (max - min) {spread:.6f}, std "
+        f"{(sum((g - mean) ** 2 for g in gates) / len(gates)) ** 0.5:.6f}; the JAX package on "
+        f"the TPU: {FLAGSHIP_TPU_GATES} gates (BENCH_r05.json, a count of gates, not a speed); "
+        f"eval {sum(rates) / len(rates):.6e} env-steps/s on {smi}")
+    if mean < 0.85 * FLAGSHIP_TPU_GATES:
+        raise AssertionError(f"flagship eval: mean gates {mean} below 85 % of "
+                             f"{FLAGSHIP_TPU_GATES}")
+    player = make_player("vision_race", interop.policy_params_to_numpy(net),
+                         num_envs=FLAGSHIP_ENVS, **play_kw)
+    gen = torch.Generator().manual_seed(FLAGSHIP_SEEDS[0])
+    with torch.no_grad():
+        st, obs = player.reset(gen)
+
+        def hundred_steps():
+            nonlocal st, obs
+            for _ in range(100):
+                st, obs, *_ = player.step(st, obs, gen)
+            torch.cuda.synchronize()
+
+        hundred_steps()  # warm-up
+        busy, top = device_busy(hundred_steps, top=6)
+    log(f"flagship eval trace (100 steps, {FLAGSHIP_ENVS} envs): device busy {busy:.6f} of the "
+        f"wall time; top kernels by device time (ms): {json.dumps(top)}")
 
 
 def main() -> int:
@@ -1439,6 +1575,26 @@ def main() -> int:
 
     # ---- 15. inside K7 and K8: the step's phases, the products' yardstick --------------
     actor_phases(dev, gen, rig)
+
+    # ---- 16. state learner main path, counters from 0 -----------------------------------
+    from fpyv_tpu_torch.apps.train import (make_acro_trainer, make_race_trainer, train_acro,
+                                           train_race)
+
+    t0 = time.perf_counter()
+    state_net_check(dev)
+    state_learner("state learner", train_acro, make_acro_trainer, smi, num_envs=STATE_ENVS)
+    log(f"phase 16 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 17. state race learner main path, counters from 0 ------------------------------
+    t0 = time.perf_counter()
+    state_learner("state race learner", train_race, make_race_trainer, smi,
+                  num_envs=RACE_RACES, n_agents=RACE_AGENTS)
+    log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 18. flagship eval, counters from 0 ---------------------------------------------
+    t0 = time.perf_counter()
+    flagship_eval(smi)
+    log(f"phase 18 took {time.perf_counter() - t0:.3f} s")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

@@ -1,5 +1,16 @@
-"""Pixel PPO trainers (mirrors ``fpyv_tpu.apps.train``'s ``train_vision``
-and ``train_vision_race`` on their kernel rollout paths).
+"""PPO trainers (mirrors ``fpyv_tpu.apps.train``'s ``train_acro``,
+``train_race``, and ``train_vision`` and ``train_vision_race`` on their
+kernel rollout paths).
+
+``train_acro`` trains the state-observation ``ActorCritic`` on ``AcroEnv``
+(quaternion attitude, the default world), and ``train_race`` one shared
+``ActorCritic`` for every agent of ``MultiRaceEnv`` (a flat batch of
+``num_envs * n_agents`` learner rows through ``make_shared_policy_env_step``,
+gates passed in the metrics). Both step the eager env once a step inside
+``make_ppo``'s per-step rollout (:func:`fpyv_tpu_torch.rl.ppo.make_step_rollout`),
+as the JAX trainers step ``AcroEnv.step`` and the race env under
+``jax.vmap``; the env hands the learner terminations only (crashes, not
+time limits).
 
 ``train_vision`` trains ``PixelActorCritic(torso="patch")`` on per-env
 randomized worlds with the policy-in-kernel rollout: every iteration is one
@@ -17,10 +28,10 @@ through K5, then the same learner. Its PPO carry is (state matrix, frame
 history), and checkpoints hold both.
 
 Not ported yet, and refused with a ValueError instead of the JAX trainer's
-silent fallback to its scan rollout (ROADMAP queue 1): the scan rollout, the
-conv torso, the target-only and splat views, multi-device training, the
-world curriculum, Adam's bf16 first moment, multi-agent racing and the GRU.
-``train_acro`` (the state learner) waits in the same queue.
+silent fallback to its scan rollout (ROADMAP queue 1): the pixel trainers'
+scan rollout, the conv torso, the target-only and splat views, the world
+curriculum, Adam's bf16 first moment and multi-agent pixel racing (item 3),
+the GRU (item 4), and multi-device training in every trainer (item 8).
 """
 
 from __future__ import annotations
@@ -33,14 +44,14 @@ import torch
 
 from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.envs.acro import AcroEnv
-from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv
+from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv, make_shared_policy_env_step
 from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv
 from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
-from fpyv_tpu_torch.models.policy import PixelActorCritic
+from fpyv_tpu_torch.models.policy import ActorCritic, PixelActorCritic
 from fpyv_tpu_torch.ops.policy_kernel import PP, acro_state_to_cols, make_kernel_vision_ppo_parts
 from fpyv_tpu_torch.ops.race_kernel import make_kernel_race_ppo_parts
 from fpyv_tpu_torch.physics.drone import DroneParams
-from fpyv_tpu_torch.rl.ppo import PpoConfig, make_ppo, scan_train
+from fpyv_tpu_torch.rl.ppo import PpoConfig, make_ppo, make_step_rollout, scan_train
 from fpyv_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from fpyv_tpu_torch.utils.metrics import MetricsLogger
 from fpyv_tpu_torch.utils.profiling import Throughput
@@ -98,11 +109,11 @@ def _generators(seed: int):
 
 
 @dataclass
-class VisionTrainer:
-    """A kernel-rollout trainer's pieces: the PPO state (the net, Adam, the
-    env carry, the bootstrap obs, the generator), one iteration, and the
-    rollout alone (one K7 or K8 launch and the bootstrap frame), which the
-    iteration runs first."""
+class Trainer:
+    """A trainer's pieces: the PPO state (the net, Adam, the env carry, the
+    bootstrap obs, the generator), one iteration, and the rollout alone (T
+    eager env steps, or one K7 or K8 launch and the bootstrap frame), which
+    the iteration runs first."""
 
     state: object
     train_iteration: object
@@ -113,7 +124,7 @@ def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0
                         randomize_worlds: bool = True, rig=None, learning_rate: float = 3e-4,
                         num_minibatches: int = 8, update_epochs: int = 2,
                         compute_dtype: str = "bf16", patch_pool: int = 1,
-                        kernel_exact_logprob: bool = False, device=None) -> VisionTrainer:
+                        kernel_exact_logprob: bool = False, device=None) -> Trainer:
     """train_vision's kernel path, ready to run: the env bank in its worlds,
     the net, the PPO learner around the K7 rollout (arguments as
     :func:`train_vision`'s)."""
@@ -143,13 +154,170 @@ def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0
     rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
                                  exact_logprob=kernel_exact_logprob)
     init, train_iteration = make_ppo(apply_fn, None, config, rollout_fn=rollout_fn)
-    return VisionTrainer(init(net, cols, obs_from_cols(cols), g_train), train_iteration,
+    return Trainer(init(net, cols, obs_from_cols(cols), g_train), train_iteration,
                          rollout_fn)
 
 
 def _not_ported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (ROADMAP queue 1); the port trains the "
                       "kernel rollout: torso='patch', renderer='raycast', one device")
+
+
+def _one_device_only() -> ValueError:
+    return ValueError("distributed=True is not ported yet (ROADMAP queue 1 item 8: "
+                      "multi-GPU); the port trains on one device")
+
+
+def _resume_and_train(trainer: Trainer, *, resume, checkpoint_dir, **loop) -> TrainResult:
+    state, start_iter = trainer.state, 0
+    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
+        start_iter = latest_step(checkpoint_dir)
+        state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
+        print(f"resumed from checkpoint at iteration {start_iter}")
+    return _train_loop(state, trainer.train_iteration, start_iter=start_iter,
+                       checkpoint_dir=checkpoint_dir, **loop)
+
+
+def _apply(net, obs):
+    return net(obs)
+
+
+def make_acro_trainer(num_envs: int = 4096, num_steps: int = 32, seed: int = 0,
+                      randomize: bool = False, hidden=(128, 128), learning_rate: float = 3e-4,
+                      shuffle_block: int = 64, device=None) -> Trainer:
+    """train_acro's pieces, ready to run: the env bank on the default
+    world, ``ActorCritic``, the PPO learner around the per-step rollout
+    (arguments as :func:`train_acro`'s)."""
+    device = resolve_device(device)
+    env = AcroEnv(params=DroneParams(att_mode="quat"), randomize=randomize)
+    world = env.default_world(device)
+    _, g_env, g_net, g_train = _generators(seed)
+    net = ActorCritic(action_dim=4, obs_dim=env.obs_dim, hidden=hidden,
+                      device=device).init_params(g_net)
+    config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
+                       shuffle_block=shuffle_block)
+
+    def env_step(env_state, action, generator):
+        st, obs, reward, _, info = env.step(env_state, action, world, generator=generator)
+        # hand the learner terminations only: a time-limit truncation
+        # bootstraps V(s') (the env still auto-resets on either)
+        return st, obs, reward, info["crashed"]
+
+    env_state, obs = env.reset(g_env, world, (num_envs,))
+    rollout_fn = make_step_rollout(_apply, env_step, config)
+    init, train_iteration = make_ppo(_apply, None, config, rollout_fn=rollout_fn)
+    return Trainer(init(net, env_state, obs, g_train), train_iteration, rollout_fn)
+
+
+def train_acro(
+    num_envs: int = 4096,
+    num_iterations: int = 100,
+    num_steps: int = 32,
+    seed: int = 0,
+    distributed: bool = False,
+    log_dir: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 50,
+    resume: bool = False,
+    randomize: bool = False,
+    hidden=(128, 128),
+    learning_rate: float = 3e-4,
+    print_every: int = 10,
+    scan_chunk: int = 25,  # iterations between host reads of the infos
+    shuffle_block: int = 64,  # PPO minibatch shuffle granularity (rl/ppo.py)
+    device=None,  # CUDA unless "cpu"
+) -> TrainResult:
+    """State-observation PPO on ``AcroEnv``: returns the rewards of the
+    first and last iteration and the trained env-steps/s after the first
+    chunk."""
+    if distributed:
+        raise _one_device_only()
+    trainer = make_acro_trainer(num_envs=num_envs, num_steps=num_steps, seed=seed,
+                                randomize=randomize, hidden=hidden,
+                                learning_rate=learning_rate, shuffle_block=shuffle_block,
+                                device=device)
+    return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
+                             num_envs=num_envs, num_steps=num_steps,
+                             num_iterations=num_iterations, scan_chunk=scan_chunk,
+                             log_dir=log_dir, print_every=print_every,
+                             checkpoint_every=checkpoint_every)
+
+
+def make_race_trainer(num_envs: int = 1024, n_agents: int = 4, num_steps: int = 32,
+                      seed: int = 0, hidden=(128, 128), learning_rate: float = 3e-4,
+                      gate_size: float = 5.0, max_episode_steps: int = 2000,
+                      agent_collision_radius: float = 0.35, w_overtake: float = 0.0,
+                      others_in_obs: bool = True, permute_spawns: bool = False,
+                      device=None) -> Trainer:
+    """train_race's pieces, ready to run: the race bank on the default
+    track, one shared ``ActorCritic``, the PPO learner over the flat
+    ``num_envs * n_agents`` agent batch (arguments as :func:`train_race`'s)."""
+    device = resolve_device(device)
+    env = MultiRaceEnv(n_agents=n_agents, gate_size=gate_size,
+                       max_episode_steps=max_episode_steps,
+                       agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
+                       others_in_obs=others_in_obs, permute_spawns=permute_spawns)
+    world = env.default_world(device)
+    env_step, reset_fn = make_shared_policy_env_step(env, world, n_envs=num_envs)
+    _, g_env, g_net, g_train = _generators(seed)
+    net = ActorCritic(action_dim=4, obs_dim=env.obs_dim, hidden=hidden,
+                      device=device).init_params(g_net)
+    config = PpoConfig(num_envs=num_envs * n_agents, num_steps=num_steps,
+                       learning_rate=learning_rate)
+
+    def race_metrics(env_state):
+        gates = env_state.gates_passed.to(torch.float32)
+        t = torch.clamp_min(env_state.t, 1).to(torch.float32)[..., None]
+        # the rolling per-step passing rate (x100) survives the resets that
+        # zero the counters
+        return {"mean_gates_passed": gates.mean(),
+                "gates_per_100_steps": (gates / t).mean() * 100.0}
+
+    env_state, obs = reset_fn(g_env)
+    rollout_fn = make_step_rollout(_apply, env_step, config)
+    init, train_iteration = make_ppo(_apply, None, config, metrics_fn=race_metrics,
+                                     rollout_fn=rollout_fn)
+    return Trainer(init(net, env_state, obs, g_train), train_iteration, rollout_fn)
+
+
+def train_race(
+    num_envs: int = 1024,  # races (learner rows: num_envs * n_agents)
+    n_agents: int = 4,
+    num_iterations: int = 300,
+    num_steps: int = 32,
+    seed: int = 0,
+    distributed: bool = False,
+    log_dir: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
+    resume: bool = False,
+    hidden=(128, 128),
+    learning_rate: float = 3e-4,
+    print_every: int = 10,
+    scan_chunk: int = 25,
+    gate_size: float = 5.0,  # a resumed run may shrink the gates (curriculum)
+    max_episode_steps: int = 2000,
+    agent_collision_radius: float = 0.35,  # 0 turns contact off (curriculum)
+    w_overtake: float = 0.0,  # reward per race position gained
+    others_in_obs: bool = True,  # False zeroes the opponents' block of the obs
+    permute_spawns: bool = False,  # random spawn slot per agent and episode
+    device=None,  # CUDA unless "cpu"
+) -> TrainResult:
+    """Shared-policy PPO on the multi-agent race env: every agent of every
+    race acts through one ``ActorCritic``; the metrics log the mean gates
+    passed and the gates per 100 steps."""
+    if distributed:
+        raise _one_device_only()
+    trainer = make_race_trainer(
+        num_envs=num_envs, n_agents=n_agents, num_steps=num_steps, seed=seed, hidden=hidden,
+        learning_rate=learning_rate, gate_size=gate_size, max_episode_steps=max_episode_steps,
+        agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
+        others_in_obs=others_in_obs, permute_spawns=permute_spawns, device=device)
+    return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
+                             num_envs=num_envs * n_agents, num_steps=num_steps,
+                             num_iterations=num_iterations, scan_chunk=scan_chunk,
+                             log_dir=log_dir, print_every=print_every,
+                             checkpoint_every=checkpoint_every)
 
 
 def train_vision(
@@ -193,7 +361,7 @@ def train_vision(
     if renderer not in ("raycast", "raycast_pallas") or target_only:
         raise _not_ported(f"renderer={renderer!r}, target_only={target_only}")
     if distributed:
-        raise _not_ported("distributed=True")
+        raise _one_device_only()
     if curriculum_iters:
         raise _not_ported("curriculum_iters")
     if adam_mu_dtype is not None:
@@ -203,15 +371,11 @@ def train_vision(
         rig=rig, learning_rate=learning_rate, num_minibatches=num_minibatches,
         update_epochs=update_epochs, compute_dtype=compute_dtype, patch_pool=patch_pool,
         kernel_exact_logprob=kernel_exact_logprob, device=device)
-    state, start_iter = trainer.state, 0
-    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
-        start_iter = latest_step(checkpoint_dir)
-        state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
-        print(f"resumed from checkpoint at iteration {start_iter}")
-    return _train_loop(state, trainer.train_iteration, num_envs=num_envs, num_steps=num_steps,
-                       num_iterations=num_iterations, start_iter=start_iter,
-                       scan_chunk=scan_chunk, log_dir=log_dir, print_every=print_every,
-                       checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+    return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
+                             num_envs=num_envs, num_steps=num_steps,
+                             num_iterations=num_iterations, scan_chunk=scan_chunk,
+                             log_dir=log_dir, print_every=print_every,
+                             checkpoint_every=checkpoint_every)
 
 
 def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0,
@@ -222,7 +386,7 @@ def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: in
                              gate_onehot: bool = True, frame_stack: int = 1,
                              n_obstacles: int = 0, obstacle_period: int = 600,
                              patch_pool: int = 1, kernel_exact_logprob: bool = False,
-                             device=None) -> VisionTrainer:
+                             device=None) -> Trainer:
     """train_vision_race's kernel path, ready to run: the race bank on the
     default track, the frame-stacked net, the PPO learner around the K8
     rollout (arguments as :func:`train_vision_race`'s)."""
@@ -252,7 +416,7 @@ def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: in
                                  exact_logprob=kernel_exact_logprob)
     init, train_iteration = make_ppo(apply_fn, None, config, metrics_fn=race_metrics,
                                      rollout_fn=rollout_fn)
-    return VisionTrainer(init(net, carry, obs_from_carry(carry), g_train), train_iteration,
+    return Trainer(init(net, carry, obs_from_carry(carry), g_train), train_iteration,
                          rollout_fn)
 
 
@@ -305,7 +469,7 @@ def train_vision_race(
     if torso != "patch":
         raise _not_ported(f"torso={torso!r}")
     if distributed:
-        raise _not_ported("distributed=True")
+        raise _one_device_only()
     if adam_mu_dtype is not None:
         raise _not_ported(f"adam_mu_dtype={adam_mu_dtype!r}")
     trainer = make_vision_race_trainer(
@@ -316,12 +480,8 @@ def train_vision_race(
         gate_onehot=gate_onehot, frame_stack=frame_stack, n_obstacles=n_obstacles,
         obstacle_period=obstacle_period, patch_pool=patch_pool,
         kernel_exact_logprob=kernel_exact_logprob, device=device)
-    state, start_iter = trainer.state, 0
-    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
-        start_iter = latest_step(checkpoint_dir)
-        state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
-        print(f"resumed from checkpoint at iteration {start_iter}")
-    return _train_loop(state, trainer.train_iteration, num_envs=num_envs, num_steps=num_steps,
-                       num_iterations=num_iterations, start_iter=start_iter,
-                       scan_chunk=scan_chunk, log_dir=log_dir, print_every=print_every,
-                       checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+    return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
+                             num_envs=num_envs, num_steps=num_steps,
+                             num_iterations=num_iterations, scan_chunk=scan_chunk,
+                             log_dir=log_dir, print_every=print_every,
+                             checkpoint_every=checkpoint_every)

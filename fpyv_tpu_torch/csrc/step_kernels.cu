@@ -2,21 +2,23 @@
 //
 // K2 replaces fpyv_tpu/ops/pallas_step.py:_kernel_single (pallas_drone_step);
 // K3 replaces fpyv_tpu/ops/pallas_step.py:_kernel_rollout (pallas_rollout).
+// K2 is K3 at K = 1 (the same signature and physics), so both launch the
+// one rollout kernel below.
 //
 // Layout: the state is an SoA (15, N) float32 matrix and the action (4, N).
-// K2: thread n owns env n, so a warp's load of one row is one coalesced
-// 128-byte transaction. K3: kLanes adjacent lanes own env n (lanes.cuh),
-// each with the env's 15 rows in registers for all K steps and the contact
-// terms of its motor points, summed in K1's order from shared memory; a
-// block holds 32 envs. The sphere (5, S) and cylinder (6, C) rows are
-// copied into shared memory once per block, and the loops run over the
-// real counts.
+// kLanes adjacent lanes own env n (lanes.cuh) below kOneThreadEnvs envs,
+// one thread from there, each with the env's 15 rows in registers for all
+// K steps and the contact terms of its motor points, summed in K1's order
+// from shared memory; a block holds 32 envs. The sphere (5, S) and cylinder
+// (6, C) rows are copied into shared memory once per block, and the loops
+// run over the real counts.
 //
-// Bound on the H100: K2 moves 152 bytes per env for ~450 float32 operations
-// (one-sphere world), K3 the same bytes for K times the operations, so both
-// are bound by operations — in practice by latency: K3 at N = 4096 is one
-// env's chain of K dependent steps, which the lanes shorten and spread over
-// 4x the warps. K2's one step is paced by its wrapper on the host.
+// Bound on the H100: a step moves 152 bytes per env for ~450 float32
+// operations (one-sphere world), K steps the same bytes for K times the
+// operations, so both are bound by operations — in practice by latency: K3
+// at N = 4096 is one env's chain of K dependent steps, which the lanes
+// shorten and spread over 4x the warps. K2's one step is paced by its
+// wrapper on the host.
 #include "lanes.cuh"
 
 #include <cstring>
@@ -29,34 +31,6 @@ using fpyv::Spheres;
 using fpyv::StepConsts;
 
 namespace {
-
-constexpr int kBlock = 32;
-
-__global__ void drone_step_kernel(StepConsts k, const float* __restrict__ state,
-                                  const float* __restrict__ action,
-                                  const float* __restrict__ spheres, int S,
-                                  const float* __restrict__ cyl, int C,
-                                  float* __restrict__ out, int n) {
-  extern __shared__ float sh[];
-  float* sw = sh;          // (5, S) sphere rows
-  float* sc = sh + 5 * S;  // (6, C) cylinder rows
-  fpyv::load_shared(sw, spheres, 5 * S);
-  fpyv::load_shared(sc, cyl, 6 * C);
-  __syncthreads();
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float s[kStateRows];
-#pragma unroll
-  for (int r = 0; r < kStateRows; ++r) s[r] = state[r * n + e];
-  float a[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) a[r] = action[r * n + e];
-  const Spheres sp{sw, sw + S, sw + 2 * S, sw + 3 * S, sw + 4 * S, S};
-  const Cylinders cv{sc, C};
-  fpyv::step_components<false, false>(k, sp, cv, s, a, EnvPhysics{});
-#pragma unroll
-  for (int r = 0; r < kStateRows; ++r) out[r * n + e] = s[r];
-}
 
 template <int L>
 __global__ void __launch_bounds__(L * kEnvsPerBlock)
@@ -129,20 +103,8 @@ const char* fpyv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Returns the cudaError_t of the launch (0 on success).
-int fpyv_drone_step(const float* consts, int n_consts, const float* state, const float* action,
-                    const float* spheres, int S, const float* cyl, int C, float* out, int n,
-                    void* stream) {
-  StepConsts k;
-  if (!read_consts(consts, n_consts, &k)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t shmem = sizeof(float) * (5 * S + 6 * C);
-  drone_step_kernel<<<(n + kBlock - 1) / kBlock, kBlock, shmem,
-                      static_cast<cudaStream_t>(stream)>>>(k, state, action, spheres, S, cyl,
-                                                           C, out, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Below kOneThreadEnvs envs kLanes lanes own an env, from there one thread.
+// Returns the cudaError_t of the launch (0 on success). Below kOneThreadEnvs
+// envs kLanes lanes own an env, from there one thread.
 int fpyv_rollout(const float* consts, int n_consts, const float* state, const float* action,
                  const float* spheres, int S, const float* cyl, int C, float* out, int n,
                  int n_steps, void* stream) {
@@ -153,6 +115,13 @@ int fpyv_rollout(const float* consts, int n_consts, const float* state, const fl
     return launch_rollout<fpyv::kLanes>(k, state, action, spheres, S, cyl, C, out, n, n_steps,
                                         st);
   return launch_rollout<1>(k, state, action, spheres, S, cyl, C, out, n, n_steps, st);
+}
+
+// K2: the rollout kernel for one step.
+int fpyv_drone_step(const float* consts, int n_consts, const float* state, const float* action,
+                    const float* spheres, int S, const float* cyl, int C, float* out, int n,
+                    void* stream) {
+  return fpyv_rollout(consts, n_consts, state, action, spheres, S, cyl, C, out, n, 1, stream);
 }
 
 }  // extern "C"

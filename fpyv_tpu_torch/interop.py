@@ -18,11 +18,16 @@ history) go through :func:`race_state_from_numpy` and
 :func:`race_state_to_numpy`.
 
 Policy weights carry across through :func:`policy_params_from_numpy` and
-:func:`policy_params_to_numpy`: the Flax tree ``{"params": {"patch_embed",
-"patch_pool"?, "fc0", "pi_mean", "v_out", "log_std"}}`` of numpy arrays
-against :class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`'s
-``state_dict``, a frame-stacked ``patch_embed`` (K*64, 128) included. A Flax ``kernel`` is ``(in, out)`` and an ``nn.Linear``
-weight ``(out, in)``, so kernels are transposed.
+:func:`policy_params_to_numpy`, for both nets: the Flax tree ``{"params":
+{"patch_embed", "patch_pool"?, "fc0", "pi_mean", "v_out", "log_std"}}`` of
+numpy arrays against :class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`'s
+``state_dict`` (a frame-stacked ``patch_embed`` (K*64, 128) included), and
+``{"params": {"pi_dense{i}", "v_dense{i}"?, "pi_mean", "v_out", "log_std"}}``
+against :class:`~fpyv_tpu_torch.models.policy.ActorCritic`'s. A PPO state's
+checkpoint nests the tree once more (``{"params": {"params": ...}}``, the
+state's field around Flax's collection); every level is peeled. A Flax
+``kernel`` is ``(in, out)`` and an ``nn.Linear`` weight ``(out, in)``, so
+kernels are transposed.
 """
 
 from __future__ import annotations
@@ -127,10 +132,13 @@ def _layer_key(name: str) -> str:
 
 
 def policy_params_from_numpy(tree: dict, device=None) -> dict:
-    """A Flax ``PixelActorCritic`` parameter tree of numpy arrays -> a
+    """A Flax ``PixelActorCritic`` or ``ActorCritic`` parameter tree of
+    numpy arrays, bare, under ``"params"`` or under ``"params"`` twice, -> a
     ``state_dict`` on ``device`` (CUDA unless told)."""
     device = resolve_device(device)
-    p = tree["params"] if "params" in tree else tree
+    p = tree
+    while "params" in p:
+        p = p["params"]
     out = {}
     for name, leaf in p.items():
         if name == "log_std":
@@ -142,8 +150,8 @@ def policy_params_from_numpy(tree: dict, device=None) -> dict:
 
 
 def policy_params_to_numpy(net) -> dict:
-    """A ``PixelActorCritic`` (or its ``state_dict``) -> the Flax tree
-    ``{"params": {...}}`` of numpy arrays."""
+    """A ``PixelActorCritic`` or ``ActorCritic`` (or its ``state_dict``)
+    -> the Flax tree ``{"params": {...}}`` of numpy arrays."""
     sd = net.state_dict() if hasattr(net, "state_dict") else net
     params = {}
     for key, value in sd.items():

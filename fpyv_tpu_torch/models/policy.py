@@ -1,4 +1,11 @@
-"""Pixel actor-critic for the PPO learner (mirrors ``fpyv_tpu.models.policy``).
+"""Actor-critics for the PPO learner (mirrors ``fpyv_tpu.models.policy``).
+
+:class:`ActorCritic` is the state-observation net of ``train_acro`` and
+``train_race``: a tanh (or relu) MLP torso for the Gaussian mean and a
+second one for the value (one shared torso with ``shared_torso``), a free,
+clipped ``log_std``, orthogonal initial kernels (scale sqrt(2) in the
+torsos, 0.01 for ``pi_mean``, 1 for ``v_out``) and zero biases, every layer
+float32.
 
 :class:`PixelActorCritic` with the ``"patch"`` torso: the depth image splits
 into 8x8 patches, each embeds through one dense layer, optional pooled
@@ -68,6 +75,65 @@ def orthogonal_(weight: torch.Tensor, scale: float, generator: torch.Generator) 
         q = q.T
     with torch.no_grad():
         weight.copy_((scale * q).T.to(weight.dtype))
+
+
+class ActorCritic(nn.Module):
+    """Gaussian policy and value heads over a shared or separate MLP torso.
+
+    ``obs_dim`` fixes the first layers' width, which Flax infers at its
+    first call. ``forward(obs)`` takes obs (..., O) and returns (mean (...,
+    A), clipped log_std (A,), value (...,)). Layers keep Flax's names:
+    ``pi_dense{i}``, ``v_dense{i}``, ``pi_mean``, ``v_out`` and ``log_std``.
+    """
+
+    def __init__(self, action_dim: int, obs_dim: int, hidden: Sequence[int] = (128, 128),
+                 activation: str = "tanh", shared_torso: bool = False,
+                 log_std_init: float = -0.5, log_std_min: float = -5.0,
+                 log_std_max: float = 1.5, device=None):
+        super().__init__()
+        if activation not in ("tanh", "relu"):
+            raise ValueError(f"activation must be 'tanh' or 'relu', got {activation!r}")
+        self.action_dim, self.obs_dim, self.hidden = action_dim, obs_dim, tuple(hidden)
+        self.activation, self.shared_torso = activation, shared_torso
+        self.log_std_init, self.log_std_min, self.log_std_max = (log_std_init, log_std_min,
+                                                                  log_std_max)
+        kw = dict(dtype=torch.float32, device=device)
+        for torso in ("pi",) if shared_torso else ("pi", "v"):
+            width = obs_dim
+            for i, h in enumerate(self.hidden):
+                self.add_module(f"{torso}_dense{i}", nn.Linear(width, h, **kw))
+                width = h
+        width = self.hidden[-1] if self.hidden else obs_dim
+        self.pi_mean = nn.Linear(width, action_dim, **kw)
+        self.v_out = nn.Linear(width, 1, **kw)
+        self.log_std = nn.Parameter(torch.full((action_dim,), float(log_std_init), **kw))
+
+    def init_params(self, generator: torch.Generator) -> "ActorCritic":
+        """Flax's initial parameters: ``orthogonal(sqrt(2))`` torso kernels,
+        ``orthogonal(0.01)`` for ``pi_mean``, ``orthogonal(1)`` for
+        ``v_out``, zero biases, ``log_std = log_std_init``."""
+        for name, layer in self.named_children():
+            scale = {"pi_mean": 0.01, "v_out": 1.0}.get(name, math.sqrt(2.0))
+            orthogonal_(layer.weight, scale, generator)
+            with torch.no_grad():
+                layer.bias.zero_()
+        with torch.no_grad():
+            self.log_std.fill_(float(self.log_std_init))
+        return self
+
+    def _torso(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        act = torch.tanh if self.activation == "tanh" else torch.relu
+        for i in range(len(self.hidden)):
+            x = act(dense(getattr(self, f"{name}_dense{i}"), x, None))
+        return x
+
+    def forward(self, obs: torch.Tensor):
+        pi_x = self._torso(obs, "pi")
+        mean = dense(self.pi_mean, pi_x, None)
+        log_std = torch.clamp(self.log_std, self.log_std_min, self.log_std_max)
+        v_x = pi_x if self.shared_torso else self._torso(obs, "v")
+        value = dense(self.v_out, v_x, None)[..., 0]
+        return mean, log_std, value
 
 
 class PixelActorCritic(nn.Module):

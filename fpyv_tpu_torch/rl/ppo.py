@@ -114,30 +114,14 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def make_ppo(
-    apply_fn: Callable,  # apply_fn(params, obs) -> (mean, log_std, value)
-    env_step: Optional[Callable],  # env_step(env_state, action, generator)
-    #   -> (env_state, obs, reward, done)
-    config: PpoConfig,
-    metrics_fn: Optional[Callable] = None,  # metrics_fn(env_state) -> dict
-    rollout_fn: Optional[Callable] = None,  # replaces the default per-step
-    #   rollout: rollout_fn(state) -> (env_state, last_obs, traj), traj a
-    #   (T, N, ...) Transition; it draws from state.generator
-):
-    """Build (init, train_iteration) for a vectorized env.
+def make_step_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig):
+    """``make_ppo``'s default rollout: T steps of the policy and
+    ``env_step``, one at a time, the action noise drawn from
+    ``state.generator``. ``rollout(state) -> (env_state, last_obs, traj)``,
+    traj a (T, N, ...) Transition."""
 
-    ``env_step`` steps the whole env bank with auto-reset inside it:
-    actions (N, A) in, obs (N, ...) / reward (N,) / done (N,) out.
-    ``metrics_fn`` maps the post-rollout env state to extra scalar metrics
-    merged into the iteration info.
-    """
-
-    def init(params: torch.nn.Module, env_state, obs0, generator: torch.Generator) -> PpoState:
-        opt = torch.optim.Adam(params.parameters(), lr=config.learning_rate, eps=1e-5)
-        return PpoState(params=params, opt_state=opt, env_state=env_state, last_obs=obs0,
-                        generator=generator, update_count=0)
-
-    def _rollout(state: PpoState):
+    @torch.no_grad()
+    def rollout(state: PpoState):
         env_state, obs, steps = state.env_state, state.last_obs, []
         for _ in range(config.num_steps):
             mean, log_std, value = apply_fn(state.params, obs)
@@ -159,6 +143,34 @@ def make_ppo(
         traj = Transition(**{f.name: stack(f.name) for f in dataclasses.fields(Transition)})
         return env_state, obs, traj
 
+    return rollout
+
+
+def make_ppo(
+    apply_fn: Callable,  # apply_fn(params, obs) -> (mean, log_std, value)
+    env_step: Optional[Callable],  # env_step(env_state, action, generator)
+    #   -> (env_state, obs, reward, done)
+    config: PpoConfig,
+    metrics_fn: Optional[Callable] = None,  # metrics_fn(env_state) -> dict
+    rollout_fn: Optional[Callable] = None,  # replaces the default per-step
+    #   rollout: rollout_fn(state) -> (env_state, last_obs, traj), traj a
+    #   (T, N, ...) Transition; it draws from state.generator
+):
+    """Build (init, train_iteration) for a vectorized env.
+
+    ``env_step`` steps the whole env bank with auto-reset inside it:
+    actions (N, A) in, obs (N, ...) / reward (N,) / done (N,) out.
+    ``metrics_fn`` maps the post-rollout env state to extra scalar metrics
+    merged into the iteration info.
+    """
+
+    rollout = make_step_rollout(apply_fn, env_step, config) if rollout_fn is None else rollout_fn
+
+    def init(params: torch.nn.Module, env_state, obs0, generator: torch.Generator) -> PpoState:
+        opt = torch.optim.Adam(params.parameters(), lr=config.learning_rate, eps=1e-5)
+        return PpoState(params=params, opt_state=opt, env_state=env_state, last_obs=obs0,
+                        generator=generator, update_count=0)
+
     def _loss(params, batch: Transition, advantages, targets):
         mean, log_std, value = apply_fn(params, batch.obs)
         log_prob = gaussian_log_prob(mean, log_std, batch.action)
@@ -179,8 +191,7 @@ def make_ppo(
     def train_iteration(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
         net, opt, gen = state.params, state.opt_state, state.generator
         with torch.no_grad():
-            env_state, last_obs, traj = (_rollout(state) if rollout_fn is None
-                                         else rollout_fn(state))
+            env_state, last_obs, traj = rollout(state)
             _, _, last_value = apply_fn(net, last_obs)
             advantages, targets = compute_gae(traj.reward, traj.value, traj.done, last_value,
                                               config.gamma, config.gae_lambda)

@@ -26,7 +26,8 @@ env takes the kernel's actions), with frames, flags and t still equal and
 the policy's mean and value within TOL_BF16_HEADS (4e-3,
 tests/test_torch_actor_order.py) of the kernel's. K8 (the race rollout)
 likewise: frames (the stacks), env ends, t, next gate, gates passed and the
-flush flag equal, the rest within K7's tolerances.
+flush flag equal, the rest within K7's tolerances. The state net
+(``ActorCritic``, float32, TF32 off) holds its CPU outputs within 1e-5.
 """
 
 import numpy as np
@@ -564,3 +565,24 @@ def test_cuda_train_vision_race_launches_k8(cuda_device):
     assert _build.launch_counts["race_vision_rollout"] == 3
     assert _build.launch_counts["render_depth"] >= 3
     assert np.isfinite(res.mean_reward_last)
+
+
+@pytest.mark.cuda
+def test_state_net_on_the_card_matches_the_cpu(cuda_device):
+    """ActorCritic (train_acro's and train_race's net) on the card against
+    the same weights on the CPU over a 4096-env reset's observations:
+    float32 with TF32 off, within 1e-5."""
+    from fpyv_tpu_torch.models.policy import ActorCritic
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    _, obs = env.reset(torch.Generator().manual_seed(3), env.default_world("cpu"), (4096,))
+    net = ActorCritic(action_dim=4, obs_dim=env.obs_dim, device="cpu").init_params(
+        torch.Generator().manual_seed(4))
+    card = ActorCritic(action_dim=4, obs_dim=env.obs_dim, device=cuda_device)
+    card.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        ref, out = net(obs), card(obs.to(cuda_device))
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+    assert ref[2].abs().max() > 1e-2  # premise: the value head is not all zero

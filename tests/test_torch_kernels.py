@@ -428,7 +428,8 @@ walked = {m.name for m in pkgutil.walk_packages(fpyv_tpu_torch.__path__, "fpyv_t
 for name in ("ops.vision_kernel", "envs.vision_acro", "vision.raycast", "vision.renderer",
              "control.guidance", "sensors.uwb", "world.randomize", "world.render_bank",
              "models.policy", "rl.ppo", "rl.gae", "ops.policy_kernel", "apps.train",
-             "utils.checkpoint", "envs.multi_race", "envs.vision_race", "ops.race_kernel"):
+             "utils.checkpoint", "envs.multi_race", "envs.vision_race", "ops.race_kernel",
+             "apps.play"):
     assert "fpyv_tpu_torch." + name in walked, name
 print("ok", len([m for m in new if m.startswith("fpyv_tpu_torch")]))
 """

@@ -1,10 +1,13 @@
-"""The port's learner against the JAX package: ``PixelActorCritic`` with
-carried weights, the Flax <-> state_dict interop, ``compute_gae`` and one
-PPO update of ``make_ppo`` on a fixed trajectory.
+"""The port's learner against the JAX package: ``PixelActorCritic`` and
+``ActorCritic`` with carried weights, the Flax <-> state_dict interop,
+``compute_gae``, one PPO update of ``make_ppo`` on a fixed trajectory for
+either net, and the state trainers ``train_acro`` and ``train_race`` on the
+CPU with checkpoint resume.
 
 Tolerances:
-- float32 nets: 1e-6 absolute (the same float32 products, summed in another
-  order by the two libraries' matrix products);
+- float32 pixel nets: 1e-6 absolute (the same float32 products, summed in
+  another order by the two libraries' matrix products); ``ActorCritic``:
+  1e-5 absolute (tanh layers of up to 128 units, float32);
 - bf16 nets: 1e-3 of the output's largest magnitude. The layers round to
   bf16 after float32 sums taken in another order, so a hidden unit can land
   one bf16 step (2^-8 relative) away, which the float32 heads carry scaled
@@ -22,17 +25,22 @@ import numpy as np
 import pytest
 import torch
 
+from fpyv_tpu.models.policy import ActorCritic as JAC
 from fpyv_tpu.models.policy import PixelActorCritic as JNet
 from fpyv_tpu.rl.gae import compute_gae as jgae
 from fpyv_tpu.rl.ppo import PpoConfig as JConfig, Transition as JTransition, make_ppo as jmake
 from fpyv_tpu_torch import interop
+from fpyv_tpu_torch.apps.train import train_acro, train_race
+from fpyv_tpu_torch.models.policy import ActorCritic as TAC
 from fpyv_tpu_torch.models.policy import PixelActorCritic as TNet
 from fpyv_tpu_torch.rl.gae import compute_gae
 from fpyv_tpu_torch.rl import ppo as tppo
 from fpyv_tpu_torch.rl.ppo import PpoConfig, Transition, make_ppo
+from fpyv_tpu_torch.utils.checkpoint import restore_checkpoint
 
 H, W, NP = 24, 32, 12
 N = 16
+OBS = 17  # AcroEnv's observation width (quaternion attitude)
 
 
 def _nets(pool=1, prepatched=False, bf16=False, seed=0):
@@ -121,6 +129,70 @@ def test_init_follows_flax_distributions():
         assert not layer.bias.detach().any()
 
 
+def _ac_nets(hidden=(128, 128), activation="tanh", shared=False, seed=0):
+    jnet = JAC(action_dim=4, hidden=hidden, activation=activation, shared_torso=shared)
+    params = jax.tree.map(np.asarray, jnet.init(jax.random.key(seed),
+                                                jnp.zeros((1, OBS), jnp.float32)))
+    tnet = TAC(action_dim=4, obs_dim=OBS, hidden=hidden, activation=activation,
+               shared_torso=shared, device="cpu")
+    tnet.load_state_dict(interop.policy_params_from_numpy(params, "cpu"))
+    return jnet, params, tnet
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("activation", ["tanh", "relu"])
+@pytest.mark.parametrize("hidden", [(128, 128), (16, 16)])
+def test_actor_critic_matches_flax(hidden, activation, shared):
+    jnet, params, tnet = _ac_nets(hidden, activation, shared, seed=len(hidden) + hidden[0])
+    obs = np.random.default_rng(hidden[0]).normal(size=(N, 3, OBS)).astype(np.float32)
+    jm, jls, jv = jnet.apply(params, jnp.asarray(obs))
+    with torch.no_grad():
+        tm, tls, tv = tnet(torch.from_numpy(obs))
+    assert tm.shape == (N, 3, 4) and tv.shape == (N, 3) and tm.dtype == torch.float32
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(tls.detach().numpy(), np.asarray(jls))
+    assert np.abs(np.asarray(jv)).max() > 1e-2  # premise: the value head is not all zero
+    assert (set(params["params"]) - {"log_std"}
+            == {n for n, _ in tnet.named_children()})  # Flax's layer names
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_actor_critic_interop_round_trip(shared):
+    _, params, tnet = _ac_nets(shared=shared)
+    back = interop.policy_params_to_numpy(tnet)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    # a PPO state's checkpoint nests the tree once more
+    again = interop.policy_params_from_numpy({"params": back}, "cpu")
+    for k, v in tnet.state_dict().items():
+        torch.testing.assert_close(again[k], v, atol=0, rtol=0)
+
+
+def test_actor_critic_init_follows_flax():
+    """Orthogonal kernels at Flax's scales (sqrt 2 in the torsos, 0.01 and 1
+    for the heads), zero biases, log_std at its initial value: the Gram
+    matrices of the port's and Flax's initial kernels are the same."""
+    net = TAC(action_dim=4, obs_dim=OBS, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    _, jparams, _ = _ac_nets()
+    jp = jparams["params"]
+    for name, layer in net.named_children():
+        k = layer.weight.detach().double().T  # Flax's (in, out) kernel
+        scale = {"pi_mean": 0.01, "v_out": 1.0}.get(name, np.sqrt(2.0))
+        small = min(k.shape)
+        gram = k.T @ k if k.shape[0] >= k.shape[1] else k @ k.T
+        eye = scale**2 * torch.eye(small, dtype=torch.float64)
+        torch.testing.assert_close(gram, eye, atol=1e-5 * scale**2, rtol=0)
+        jk = jp[name]["kernel"].astype(np.float64)
+        jgram = jk.T @ jk if jk.shape[0] >= jk.shape[1] else jk @ jk.T
+        np.testing.assert_allclose(jgram, eye.numpy(), atol=1e-5 * scale**2, rtol=0)
+        assert not layer.bias.detach().any()
+    assert torch.equal(net.log_std.detach(), torch.full((4,), -0.5))
+    assert not torch.equal(net.pi_dense0.weight, net.v_dense0.weight)  # premise: fresh draws
+
+
 def test_unported_options_raise():
     with pytest.raises(ValueError, match="ROADMAP"):
         TNet(action_dim=4, n_patches=NP, torso="conv", device="cpu")
@@ -152,12 +224,42 @@ T_PPO = 4
 LOSS_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "approx_kl")
 
 
-def _trajectory(jnet, params, seed, reward_scale):
+def _ppo_setup(net, seed, reward_scale):
+    """The net pair, both apply functions, and a fixed trajectory: obs
+    (pixels and proprio, or the state vector) for T + 1 steps, actions
+    sampled around the JAX net's mean, stored log-probs and values moved
+    off the current net's, rewards and done flags."""
     rng = np.random.default_rng(seed)
-    px = rng.integers(0, 256, size=(T_PPO + 1, N, NP * 64)).astype(np.uint8)
-    pr = rng.normal(size=(T_PPO + 1, N, 5)).astype(np.float32)
-    mean, log_std, value = jnet.apply(params, jnp.asarray(px[:T_PPO].reshape(T_PPO, N, NP, 64)),
-                                      jnp.asarray(pr[:T_PPO]))
+    if net == "pixel":
+        jnet, params, tnet = _nets(prepatched=True)
+        px = rng.integers(0, 256, size=(T_PPO + 1, N, NP * 64)).astype(np.uint8)
+        pr = rng.normal(size=(T_PPO + 1, N, 5)).astype(np.float32)
+        obs = {"pixels": px, "proprio": pr}
+
+        def j_apply(p, o):
+            x = o["pixels"]
+            return jnet.apply(p, x.reshape(x.shape[:-1] + (NP, 64)), o["proprio"])
+
+        def t_apply(m, o):
+            x = o["pixels"]
+            return m(x.reshape(x.shape[:-1] + (NP, 64)), o["proprio"])
+    else:
+        jnet, params, tnet = _ac_nets(seed=1)
+        obs = rng.normal(size=(T_PPO + 1, N, OBS)).astype(np.float32)
+
+        def j_apply(p, o):
+            return jnet.apply(p, o)
+
+        def t_apply(m, o):
+            return m(o)
+
+    def part(sl, conv):
+        return ({k: conv(v[sl]) for k, v in obs.items()} if isinstance(obs, dict)
+                else conv(obs[sl]))
+
+    jobs, jlast = part(slice(0, T_PPO), jnp.asarray), part(T_PPO, jnp.asarray)
+    tobs, tlast = part(slice(0, T_PPO), torch.from_numpy), part(T_PPO, torch.from_numpy)
+    mean, log_std, value = j_apply(params, jobs)
     mean, value = np.asarray(mean), np.asarray(value)
     action = (mean + np.exp(np.asarray(log_std)) * rng.normal(size=mean.shape)).astype(np.float32)
     # stored log-probs and values off the current net's, so the ratio and the
@@ -166,42 +268,34 @@ def _trajectory(jnet, params, seed, reward_scale):
                             - np.asarray(log_std) - 0.5 * np.log(2 * np.pi), -1))
     lp = (lp + 0.05 * rng.normal(size=lp.shape)).astype(np.float32)
     value = (value + 0.3 * rng.normal(size=value.shape)).astype(np.float32)
-    return dict(px=px, pr=pr, action=action, log_prob=lp, value=value,
-                reward=(reward_scale * rng.normal(size=(T_PPO, N))).astype(np.float32),
-                done=rng.random((T_PPO, N)) < 0.2)
+    tr = dict(action=action, log_prob=lp, value=value,
+              reward=(reward_scale * rng.normal(size=(T_PPO, N))).astype(np.float32),
+              done=rng.random((T_PPO, N)) < 0.2)
+    return jnet, params, tnet, j_apply, t_apply, (jobs, jlast), (tobs, tlast), tr
 
 
-@pytest.mark.parametrize("case,max_grad_norm,reward_scale", [("clip fires", 1e-3, 1.0),
-                                                             ("no clip", 1e3, 10.0)])
-def test_ppo_update_matches_jax(case, max_grad_norm, reward_scale, monkeypatch):
-    jnet, params, tnet = _nets(prepatched=True)
-    tr = _trajectory(jnet, params, 3, reward_scale)
+@pytest.mark.parametrize("case,max_grad_norm,reward_scale,net", [
+    pytest.param("clip fires", 1e-3, 1.0, "pixel", id="clip fires-0.001-1.0"),
+    pytest.param("no clip", 1e3, 10.0, "pixel", id="no clip-1000.0-10.0"),
+    pytest.param("clip fires", 1e-3, 1.0, "state", id="state-clip fires-0.001-1.0"),
+    pytest.param("no clip", 1e3, 10.0, "state", id="state-no clip-1000.0-10.0")])
+def test_ppo_update_matches_jax(case, max_grad_norm, reward_scale, net, monkeypatch):
+    """One update of the port's make_ppo against optax's on the same batch,
+    for the pixel net and for ActorCritic."""
+    jnet, params, tnet, j_apply, t_apply, (jobs, jlast), (tobs, tlast), tr = _ppo_setup(
+        net, 3, reward_scale)
     kw = dict(num_envs=N, num_steps=T_PPO, update_epochs=1, num_minibatches=1,
               max_grad_norm=max_grad_norm)
-
-    def j_apply(p, obs):
-        px = obs["pixels"]
-        return jnet.apply(p, px.reshape(px.shape[:-1] + (NP, 64)), obs["proprio"])
-
-    jtraj = JTransition(obs={"pixels": jnp.asarray(tr["px"][:T_PPO]),
-                             "proprio": jnp.asarray(tr["pr"][:T_PPO])},
-                        action=jnp.asarray(tr["action"]), log_prob=jnp.asarray(tr["log_prob"]),
-                        value=jnp.asarray(tr["value"]), reward=jnp.asarray(tr["reward"]),
-                        done=jnp.asarray(tr["done"]))
-    jlast = {"pixels": jnp.asarray(tr["px"][T_PPO]), "proprio": jnp.asarray(tr["pr"][T_PPO])}
+    jtraj = JTransition(obs=jobs, action=jnp.asarray(tr["action"]),
+                        log_prob=jnp.asarray(tr["log_prob"]), value=jnp.asarray(tr["value"]),
+                        reward=jnp.asarray(tr["reward"]), done=jnp.asarray(tr["done"]))
     jinit, jiter = jmake(j_apply, None, JConfig(**kw),
                          rollout_fn=lambda s: (s.env_state, jlast, s.key, jtraj))
     jstate, jinfo = jiter(jinit(params, jnp.zeros(1), jlast, jax.random.key(0)))
 
-    def t_apply(net, obs):
-        px = obs["pixels"]
-        return net(px.reshape(px.shape[:-1] + (NP, 64)), obs["proprio"])
-
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in tr.items()}
-    ttraj = Transition(obs={"pixels": t["px"][:T_PPO], "proprio": t["pr"][:T_PPO]},
-                       action=t["action"], log_prob=t["log_prob"], value=t["value"],
+    ttraj = Transition(obs=tobs, action=t["action"], log_prob=t["log_prob"], value=t["value"],
                        reward=t["reward"], done=t["done"])
-    tlast = {"pixels": t["px"][T_PPO], "proprio": t["pr"][T_PPO]}
     norms = []
 
     def clip_spy(ps, max_norm):
@@ -222,6 +316,7 @@ def test_ppo_update_matches_jax(case, max_grad_norm, reward_scale, monkeypatch):
                                rtol=1e-6)
     new = jax.tree.leaves(interop.policy_params_to_numpy(tstate.params))
     ref = jax.tree.leaves(jax.tree.map(np.asarray, jstate.params))
+    assert len(new) == len(ref)
     for a, b in zip(new, ref):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
     moved = max(np.abs(b - p0).max() for b, p0 in zip(ref, jax.tree.leaves(params)))
@@ -304,3 +399,61 @@ def test_metrics_and_throughput(tmp_path):
     assert meter.rate() == 0.0
     out, (mean, std) = timeit(lambda x: x + 1, n=3)(1)
     assert out == 2 and mean >= 0 and std >= 0
+
+
+# ---------------------------------------------------------------------------
+# The state trainers on the CPU
+# ---------------------------------------------------------------------------
+
+TRAINERS = {"acro": train_acro, "race": train_race}
+
+
+def _train_state(tmp_path, kind, name, iterations, resume=False, log=False):
+    kw = dict(n_agents=2, max_episode_steps=6) if kind == "race" else {}
+    return TRAINERS[kind](num_envs=8, num_iterations=iterations, num_steps=4, seed=5,
+                          scan_chunk=1, hidden=(16, 16), checkpoint_dir=str(tmp_path / name),
+                          checkpoint_every=2, resume=resume,
+                          log_dir=str(tmp_path / "log") if log else None, print_every=0,
+                          device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kind", ["acro", "race"])
+def test_state_trainer_cpu_smoke(kind, tmp_path):
+    import json
+
+    res = _train_state(tmp_path, kind, "ck", 2, log=True)
+    assert res.iterations == 2
+    assert np.isfinite(res.mean_reward_first) and np.isfinite(res.mean_reward_last)
+    rows = [json.loads(ln) for ln in (tmp_path / "log" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [0, 1]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["approx_kl"]) for r in rows)
+    if kind == "race":
+        assert all(np.isfinite(r["mean_gates_passed"]) and np.isfinite(r["gates_per_100_steps"])
+                   for r in rows)
+
+
+@pytest.mark.parametrize("kind", ["acro", "race"])
+def test_state_trainer_resume_matches_unbroken_run(kind, tmp_path):
+    """4 iterations in one run against 2 + a resume for 2 more: the step-4
+    checkpoints (params, Adam, the env bank, last obs, generator) are equal."""
+    _train_state(tmp_path, kind, "whole", 4)
+    _train_state(tmp_path, kind, "split", 2)
+    _train_state(tmp_path, kind, "split", 2, resume=True)
+    a = restore_checkpoint(str(tmp_path / "whole"), 4)
+    b = restore_checkpoint(str(tmp_path / "split"), 4)
+    assert a["update_count"] == b["update_count"] == 4
+    flat_a, flat_b = jax.tree.leaves(a), jax.tree.leaves(b)
+    assert len(flat_a) == len(flat_b) > 10
+    for x, y in zip(flat_a, flat_b):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        else:
+            assert x == y
+    c = restore_checkpoint(str(tmp_path / "split"), 2)
+    assert not torch.equal(c["last_obs"], b["last_obs"])  # premise: the envs moved
+
+
+@pytest.mark.parametrize("kind", ["acro", "race"])
+def test_state_trainer_refuses_distributed(kind):
+    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
+        TRAINERS[kind](num_envs=8, num_iterations=1, distributed=True, device="cpu")

@@ -1,4 +1,4 @@
-"""Times K3, K4, K5 and K6 of one checkout of the PyTorch/CUDA port on one
+"""Times K2, K3, K4, K5 and K6 of one checkout of the PyTorch/CUDA port on one
 NVIDIA GPU, for a parent-against-change comparison with one timer.
 
     python3 tools/ab_kernels.py [ROOT]
@@ -16,7 +16,9 @@ two ways at ``chip_smoke.py``'s shapes:
   the mean over the launches the trace kept of the same calls, which
   leaves any copy around it out.
 
-K3: 4096 envs, K = 256, the hover action, from a reset on the default and
+K2: 4096 envs, one step, the hover action, from a reset on the default
+world (its kernel's name differs between checkouts: any kernel in the
+trace counts). K3: 4096 envs, K = 256, the hover action, from a reset on the default and
 on the params.yaml world. K4: 4096 envs, K = 64, hover, on the default
 world from a fresh reset and on a steady bank 1,000,000 steps on (crashes
 have put the envs' 1000-step episodes out of step, so some reset in every
@@ -101,6 +103,16 @@ def main() -> int:
     hover = torch.zeros(na, 4, device=dev)
     hover[:, 3] = smoke.THROTTLE
     a4 = sk.action_matrix(hover)
+
+    # K2 at the acro main path's shape
+    st, _ = vector_reset(env, gen, na, world)
+    s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(world)
+
+    def k2():
+        return sk.launch_drone_step(env.params, s15, a4, sph)
+
+    res["k2"] = {"cuda_ms": smoke.cuda_ms(k2, 200), "kernel_ms": kernel_ms(k2, 200, "kernel"),
+                 "checksum": float(k2().double().sum().item())}
 
     # K3 at the acro main path's shape, on both worlds
     for label, w, cyl in (("default", world, None), ("params", pworld, pcyl)):
