@@ -123,7 +123,34 @@ each:
    their mean and spread beside the JAX package's 51.72 gates on the TPU
    (``BENCH_r05.json``; a count of gates, not a speed), eval env-steps/s,
    the K5 launches (the env's render, one a step) and the device's busy
-   share over 100 eval steps. Fails if the mean falls below 85 % of 51.72.
+   share over 100 eval steps. Fails if the mean falls below 85 % of 51.72;
+19. the conv net and the GRU-128 net on the card against the CPU (256
+   frames of 96x72 levels), inside the nets' ``flax_reductions`` scope
+   (cuBLAS's bf16 reduced-precision reductions and cuDNN's TF32 off):
+   float32 within 1e-5; bf16 teacher-forced, every bf16 layer fed the CPU's
+   input within one bf16 step of its largest output of the CPU's, with at
+   most 1 % of its outputs off (the libraries' sum order; cuDNN's bf16
+   convolutions are not all correctly rounded), the float32 GRU and heads
+   fed the CPU's features within 1e-5, the end-to-end error printed; beside
+   each, what the library defaults would move;
+20. K5 on the 4-agent race's frames (256 races x 4 agents, the others as
+   per-camera spheres, with and without 3 obstacles) against
+   ``render_depth_reference``: levels equal, and its time;
+21. the conv scan trainer with its counters at 0: ``train_vision(rollout=
+   "scan", torso="conv", pixel_store="f32", update_epochs=4)`` (the JAX
+   package's round-2 recipe) at 1024 envs, T = 32, 6 iterations in chunks
+   of 2: K5 at least once an env step and no K7 or K8, finite losses,
+   trained env-steps/s (first chunk left out), the split and a trace as in
+   phase 12;
+22. the curriculum with its counters at 0: ``train_vision(curriculum_iters=4)``
+   (auto -> the scan rollout, patch torso) at 1024 envs, a chunk an
+   iteration: the worlds drawn before each chunk differ and ramp the active
+   cylinders with the difficulty, finite losses;
+23. the GRU race trainer with its counters at 0: ``train_vision_race(
+   num_envs=256, n_agents=4, permute_spawns=True, gru=128, gate_size=7.0)``
+   (``tools/experiments_r5.py:580``, 1024 learner rows), 6 iterations: K5 a
+   step, the rate, the split, a trace, the mean gates passed, and a finite,
+   non-zero hidden in the final checkpoint.
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -142,6 +169,7 @@ without either it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -194,6 +222,9 @@ RACE_RACES, RACE_AGENTS = 1024, 4  # train_race's defaults: 4096 learner rows
 FLAGSHIP_ENVS, FLAGSHIP_STEPS, FLAGSHIP_CHUNK = 32, 2000, 500  # measure_flagship_gates
 FLAGSHIP_SEEDS = (7, 8, 9)
 FLAGSHIP_TPU_GATES = 51.72  # the JAX package's eval on the TPU (BENCH_r05.json)
+SCAN_ITERS, SCAN_CHUNK = 6, 2  # the scan trainers: 6 iterations, the first chunk of 2 left out
+CURRICULUM_ITERS = 4
+GRU_RACES, GRU_AGENTS, GRU_WIDTH = 256, 4, 128  # tools/experiments_r5.py:580's recipe
 
 # H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
@@ -997,6 +1028,285 @@ def flagship_eval(smi: str) -> None:
         f"wall time; top kernels by device time (ms): {json.dumps(top)}")
 
 
+BF16_STEP = 2.0 ** -8  # one bf16 step at a layer's largest output, relative to it
+BF16_STEP_SHARE = 1e-2  # at most this share of a bf16 layer's outputs off at all
+
+
+def bf16_layers_teacher_forced(net, card, args, dev, scope=None) -> dict:
+    """Each bf16 layer of ``card`` (the card's copy of ``net``) fed the CPU
+    net's own input to that layer, in ``scope`` (default: the net's
+    ``flax_reductions``): (the largest difference from the CPU's output over
+    one bf16 step at the layer's largest output, the share of outputs that
+    differ) a layer; then the float32 rest (the GRU, the heads) fed the
+    CPU's features: its max abs error ("tail"). The libraries sum in
+    another order than the CPU, and cuDNN's bf16 convolutions are not all
+    correctly rounded from a float32 sum, so a few outputs land off."""
+    from fpyv_tpu_torch.models import policy as tpolicy
+
+    calls, names = [], {id(m): n for n, m in net.named_modules()}
+    real_dense, real_conv = tpolicy.dense, tpolicy.F.conv2d
+
+    def dense_rec(layer, x, dtype):
+        out = real_dense(layer, x, dtype)
+        if dtype is not None:
+            name = names[id(layer)]
+            calls.append((name, lambda xc: real_dense(card.get_submodule(name), xc, dtype),
+                          x, out))
+        return out
+
+    def conv_rec(x, w, **kw):
+        out = real_conv(x, w, **kw)
+        calls.append((f"conv{len(calls)}", lambda xc: real_conv(xc, w.to(dev), **kw), x, out))
+        return out
+
+    tpolicy.dense, tpolicy.F.conv2d = dense_rec, conv_rec
+    try:
+        with torch.no_grad():
+            feats = net.features(*args[:2])
+    finally:
+        tpolicy.dense, tpolicy.F.conv2d = real_dense, real_conv
+    stats = {}
+    with torch.no_grad(), (card.numerics() if scope is None else scope()):
+        for name, run, x, out in calls:
+            got, ref = run(x.to(dev)).cpu().float(), out.float()
+            d = (got - ref).abs()
+            stats[name] = [d.max().item() / (BF16_STEP * ref.abs().max().item()),
+                           (d > 0).float().mean().item()]
+        tail = card.heads(feats.to(dev), *(a.to(dev) for a in args[2:]))
+        ref_tail = net.heads(feats, *args[2:])
+    stats["tail"] = max((a.cpu() - b).abs().max().item() for a, b in zip(tail, ref_tail))
+    return stats
+
+
+def pixel_nets_check(dev) -> None:
+    """The conv net and the GRU net on the card against the same weights on
+    the CPU over 256 frames of 96x72 levels, inside the nets'
+    ``flax_reductions`` scope (no bf16 split-K reductions in cuBLAS, no TF32
+    in cuDNN): float32 end to end within 1e-5; bf16 teacher-forced layer by
+    layer (``bf16_layers_teacher_forced``), its end-to-end error printed
+    beside the CPU tests' 1e-3 of the largest output. Also prints what each
+    net would move with the library defaults left on."""
+    from fpyv_tpu_torch.models import policy as tpolicy
+
+    g = torch.Generator().manual_seed(6)
+    px = torch.randint(0, 256, (256, 72, 96), generator=g, dtype=torch.uint8)
+    flags = (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+             torch.backends.cudnn.allow_tf32)
+    for torso, gru, bf16 in (("conv", 0, False), ("conv", 0, True), ("patch", GRU_WIDTH, False),
+                             ("patch", GRU_WIDTH, True)):
+        proprio = 11 if gru else 5
+        kw = dict(action_dim=4, n_patches=108, proprio_dim=proprio, torso=torso, gru=gru,
+                  image_hw=(72, 96), compute_dtype=torch.bfloat16 if bf16 else None)
+        net = tpolicy.PixelActorCritic(device="cpu", **kw).init_params(
+            torch.Generator().manual_seed(5))
+        card = tpolicy.PixelActorCritic(device=dev, **kw)
+        card.load_state_dict(net.state_dict())
+        args = [px, torch.randn(256, proprio, generator=g)]
+        if gru:
+            args.append(torch.randn(256, gru, generator=g))
+        with torch.no_grad():
+            ref = net(*args)
+            out = card(*(a.to(dev) for a in args))
+        if (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+                torch.backends.cudnn.allow_tf32) != flags:
+            raise AssertionError("the pixel net left the library's flags changed")
+        errs = [(a.cpu() - b).abs().max().item() for a, b in zip(out, ref)]
+        rel = [e / max(b.abs().max().item(), 1e-30) for e, b in zip(errs, ref)]
+        label = f"{torso}{f' + GRU-{gru}' if gru else ''}, {'bf16' if bf16 else 'float32'}"
+        if not all(torch.isfinite(o).all() for o in out):
+            raise AssertionError(f"pixel net ({label}): non-finite outputs")
+        if bf16:
+            stats = bf16_layers_teacher_forced(net, card, args, dev)
+            bad = [k for k, v in stats.items() if k != "tail" and (
+                v[0] > 1.0 or v[1] > BF16_STEP_SHARE)]
+            if bad or not stats["tail"] <= 1e-5:
+                raise AssertionError(f"pixel net ({label}) teacher-forced: {stats}")
+            loose = bf16_layers_teacher_forced(net, card, args, dev, contextlib.nullcontext)
+            check = (f"teacher-forced, each bf16 layer's [max abs err over one bf16 step at its "
+                     f"largest output, share of outputs off] and the float32 tail's max abs err: "
+                     f"{json.dumps(stats)} (at most 1, {BF16_STEP_SHARE}, 1e-5); "
+                     f"with the library defaults {json.dumps(loose)}; end to end, max abs err "
+                     f"over the largest output")
+        else:
+            if not max(errs) <= 1e-5:
+                raise AssertionError(f"pixel net ({label}): errors {errs} above 1e-5")
+            check = "end to end within 1e-5; relative to the largest output"
+        # the same net with the library's defaults: what the scope keeps out
+        real = tpolicy.flax_reductions
+        tpolicy.flax_reductions = contextlib.nullcontext
+        try:
+            with torch.no_grad():
+                loose = card(*(a.to(dev) for a in args))
+        finally:
+            tpolicy.flax_reductions = real
+        loose_err = max((a.cpu() - b).abs().max().item() for a, b in zip(loose, ref))
+        log(f"pixel net ({label}, N=256, 96x72) on the card against the CPU: max abs err "
+            f"mean {errs[0]}, value {errs[2]}{f', hidden {errs[3]}' if gru else ''}; {check}: "
+            f"mean {rel[0]:.3e}, value {rel[2]:.3e}{f', hidden {rel[3]:.3e}' if gru else ''} "
+            f"(the CPU tests hold bf16 to 1e-3); with the library defaults (bf16 "
+            f"reduced-precision reduction {flags[0]}, cuDNN TF32 {flags[1]}) the max abs err "
+            f"would be {loose_err}")
+
+
+def race_render_check(dev, gen, smi: str) -> float:
+    """K5 on the 4-agent race's frames, the opponents (and 3 obstacles)
+    as per-camera spheres, against ``render_depth_reference``: levels
+    equal. 256 races x 4 agents (the GRU recipe's cameras), a few steps
+    from a reset. Returns the max abs error."""
+    from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
+
+    err = 0.0
+    for n_obstacles in (0, 3):
+        venv = VisionRaceEnv(race=MultiRaceEnv(n_agents=GRU_AGENTS, n_obstacles=n_obstacles,
+                                               max_episode_steps=2000, gate_size=7.0))
+        world = venv.default_world(dev)
+        st, _ = venv.reset_batched(gen, world, GRU_RACES)
+        act = torch.zeros(GRU_RACES * GRU_AGENTS, 4, device=dev)
+        act[:, 3] = -0.3
+        for _ in range(5):
+            st, *_ = venv.step_batched(st, act, world, generator=gen)
+        cam_pos, cam_R, rworld, include = venv.render_scene(st, world)
+        cfg, dcam, cam, wcol = vk.render_inputs(venv.rig, cam_pos, cam_R, rworld, venv.max_depth,
+                                                include, None, venv.frame_width)
+        out = vk.launch_render_depth(cfg, dcam, cam, wcol)
+        torch.cuda.synchronize()
+        ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+        bad = int((out != ref).sum().item())
+        lit = (ref > 0).float().mean().item()
+        if bad or lit <= 0.0 or cfg.n_spheres != GRU_AGENTS - 1 + n_obstacles:
+            raise AssertionError(f"K5 (race, A={GRU_AGENTS}, {n_obstacles} obstacles): {bad} "
+                                 f"levels differ, lit share {lit}, {cfg.n_spheres} spheres")
+        err = max(err, (out - ref).abs().max().item())
+        ms = cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 20)
+        log(f"K5 render_depth (race, {GRU_RACES} races x {GRU_AGENTS} agents = {cam.shape[0]} "
+            f"cameras, {cfg.n_spheres} spheres a camera: {GRU_AGENTS - 1} opponents + "
+            f"{n_obstacles} obstacles, 96x72): 0 of {out.numel()} levels differ, lit share "
+            f"{lit:.4f}, {ms:.6f} ms a launch on {smi}")
+    return err
+
+
+def scan_counts(label: str, iters: int, steps: int = K7_STEPS) -> dict:
+    """A scan trainer's launch counters: K5 at least once an env step, K7
+    and K8 never."""
+    counts = dict(_build.launch_counts)
+    if (counts.get("render_depth", 0) < iters * steps or counts.get("policy_vision_rollout")
+            or counts.get("race_vision_rollout")):
+        raise AssertionError(f"{label}: expected >= {steps} K5 launches an iteration and no "
+                             f"K7 or K8, saw {counts}")
+    log(f"{label} launches: {json.dumps(counts)} ({counts['render_depth'] / iters:.2f} K5 "
+        f"launches an iteration)")
+    return counts
+
+
+def scan_trainer(smi: str) -> None:
+    """JAX's documented round-2 recipe on the scan rollout: the conv torso,
+    float32 pixel storage, 4 epochs, 1024 envs in per-env randomized
+    worlds, the default 96x72 rig."""
+    from fpyv_tpu_torch.apps.train import make_vision_trainer
+
+    kw = dict(rollout="scan", torso="conv", pixel_store="f32", update_epochs=4)
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "scan_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_vision(num_envs=N_VISION, num_iterations=SCAN_ITERS, scan_chunk=SCAN_CHUNK,
+                       print_every=0, log_dir=str(log_dir), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scan_counts("conv scan trainer main path", SCAN_ITERS)
+    rows = train_rows("conv scan trainer", log_dir, SCAN_ITERS)
+    log(f"conv scan trainer main path: {res.steps_per_second:.6e} trained env-steps/s "
+        f"({json.dumps(kw)}, N={N_VISION}, T={K7_STEPS}, {SCAN_ITERS} iterations in chunks of "
+        f"{SCAN_CHUNK}, first chunk left out; {wall:.3f} s in all), reward "
+        f"{res.mean_reward_first:.6f} -> {res.mean_reward_last:.6f}, last loss "
+        f"{rows[-1]['loss']:.6f}, losses finite; on {smi}")
+    trainer_split("conv scan trainer", make_vision_trainer(num_envs=N_VISION, **kw),
+                  rollout=f"{K7_STEPS} eager env steps")
+
+
+def curriculum_trainer(smi: str) -> None:
+    """``train_vision(curriculum_iters=4)`` (auto -> the scan rollout, the
+    patch torso) at 1024 envs, a chunk an iteration: the worlds the hook
+    draws before each chunk differ from chunk to chunk and ramp the
+    obstacle count with the difficulty."""
+    from fpyv_tpu_torch.apps import train as tapp
+
+    drawn = []
+    real = tapp.curriculum_worlds
+
+    def spy(generator, n_envs, difficulty, **kw):
+        w = real(generator, n_envs, difficulty, **kw)
+        drawn.append((float(difficulty), int(w.cyl_active.sum().item()),
+                      float(w.cyl_center.sum().item())))
+        return w
+
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "curriculum_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    tapp.curriculum_worlds = spy
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = train_vision(num_envs=N_VISION, num_iterations=CURRICULUM_ITERS, scan_chunk=1,
+                           curriculum_iters=CURRICULUM_ITERS, print_every=0,
+                           log_dir=str(log_dir))
+    finally:
+        tapp.curriculum_worlds = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scan_counts("curriculum trainer", CURRICULUM_ITERS)
+    train_rows("curriculum trainer", log_dir, CURRICULUM_ITERS)
+    hooks = drawn[1:]  # the first draw is the start's, at difficulty 0
+    want = [min(1.0, it / CURRICULUM_ITERS) for it in range(CURRICULUM_ITERS)]
+    if ([d for d, _, _ in hooks] != want
+            or len({c for _, _, c in drawn}) != len(drawn)
+            or [a for _, a, _ in hooks] != [N_VISION * math.ceil(4 * d) for d in want]):
+        raise AssertionError(f"curriculum: the worlds did not change or ramp as asked: {drawn}")
+    log(f"curriculum trainer (curriculum_iters={CURRICULUM_ITERS}, N={N_VISION}, chunks of 1): "
+        f"worlds drawn before each chunk (difficulty, active cylinders, sum of centres) "
+        f"{json.dumps(hooks)}, every draw distinct; {res.steps_per_second:.6e} trained "
+        f"env-steps/s (first chunk left out; {wall:.3f} s in all), losses finite; on {smi}")
+
+
+def gru_race_trainer(smi: str) -> None:
+    """The repo's recurrent recipe (tools/experiments_r5.py:580): 256 races
+    of 4 agents (1024 learner rows), spawn slots permuted, GRU-128, gates
+    of 7 m, a few iterations: the rate, the split, the busy share, K5's
+    launches, the gates, and a finite, non-zero hidden in the checkpoint."""
+    from fpyv_tpu_torch.apps.train import make_vision_race_trainer
+    from fpyv_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    kw = dict(num_envs=GRU_RACES, n_agents=GRU_AGENTS, permute_spawns=True, gru=GRU_WIDTH,
+              gate_size=7.0)
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    log_dir, ck_dir = root / "gru_log", root / "gru_ck"
+    for d in (log_dir, ck_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_vision_race(num_iterations=SCAN_ITERS, scan_chunk=SCAN_CHUNK, print_every=0,
+                            log_dir=str(log_dir), checkpoint_dir=str(ck_dir),
+                            checkpoint_every=SCAN_ITERS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scan_counts("GRU race trainer main path", SCAN_ITERS)
+    rows = train_rows("GRU race trainer", log_dir, SCAN_ITERS)
+    hidden = restore_checkpoint(str(ck_dir), SCAN_ITERS)["env_state"][1]
+    if (hidden.shape != (GRU_RACES * GRU_AGENTS, GRU_WIDTH) or not torch.isfinite(hidden).all()
+            or not hidden.abs().max().item() > 0.0):
+        raise AssertionError(f"GRU race trainer: hidden {tuple(hidden.shape)} not finite or all "
+                             f"zero")
+    log(f"GRU race trainer main path: {res.steps_per_second:.6e} trained env-steps/s "
+        f"({json.dumps(kw)}, {GRU_RACES * GRU_AGENTS} learner rows, T={K7_STEPS}, "
+        f"{SCAN_ITERS} iterations in chunks of {SCAN_CHUNK}, first chunk left out; {wall:.3f} s "
+        f"in all), reward {res.mean_reward_first:.6f} -> {res.mean_reward_last:.6f}, mean gates "
+        f"passed {rows[0]['mean_gates_passed']:.6f} -> {rows[-1]['mean_gates_passed']:.6f}, "
+        f"last loss {rows[-1]['loss']:.6f}; hidden finite, max |h| "
+        f"{hidden.abs().max().item():.6f}, {(hidden != 0).any(-1).float().mean().item():.4f} of "
+        f"the rows non-zero; on {smi}")
+    trainer_split("GRU race trainer", make_vision_race_trainer(rollout="scan", **kw),
+                  rollout=f"{K7_STEPS} eager env steps")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1595,6 +1905,34 @@ def main() -> int:
     t0 = time.perf_counter()
     flagship_eval(smi)
     log(f"phase 18 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 19. the conv and GRU nets on the card against the CPU ---------------------------
+    t0 = time.perf_counter()
+    pixel_nets_check(dev)
+    log(f"phase 19 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 20. K5 on the 4-agent race's frames --------------------------------------------
+    t0 = time.perf_counter()
+    e5 = race_render_check(dev, gen, smi)
+    for kr in kernels:
+        if kr["name"] == "render_depth":
+            kr["max_abs_err"] = max(kr["max_abs_err"], e5)
+    log(f"phase 20 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 21. the conv scan trainer main path, counters from 0 ---------------------------
+    t0 = time.perf_counter()
+    scan_trainer(smi)
+    log(f"phase 21 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 22. the curriculum, counters from 0 ---------------------------------------------
+    t0 = time.perf_counter()
+    curriculum_trainer(smi)
+    log(f"phase 22 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 23. the GRU race trainer main path, counters from 0 ----------------------------
+    t0 = time.perf_counter()
+    gru_race_trainer(smi)
+    log(f"phase 23 took {time.perf_counter() - t0:.3f} s")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

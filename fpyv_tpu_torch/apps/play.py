@@ -10,10 +10,13 @@ step, crash events, the last step's gate counters (``final_gates_passed_mean``,
 - ``"vision"``: ``VisionAcroEnv(renderer="raycast", target_only=False)`` on
   params.yaml's world or per-env randomized worlds, ``PixelActorCritic``;
 - ``"vision_race"``: ``VisionRaceEnv`` (the FPV gate race, frame stacks,
-  obstacles) and the feedforward ``PixelActorCritic``;
+  obstacles, several agents) and ``PixelActorCritic``;
 - ``"race"``: ``MultiRaceEnv`` with one ``ActorCritic`` for every agent.
 
-The pixel nets run in bf16, as the JAX package's default ``compute_dtype``.
+The pixel nets run in bf16, as the JAX package's default ``compute_dtype``,
+with the patch or the conv torso as the weights hold. A GRU checkpoint
+(``gru`` in the weights) plays with its hidden state in the carry, zeroed
+where an episode ends, as in training.
 Each step runs the net and the eager env step (whose render is K5 on a CUDA
 state), as the JAX function steps its envs' ``step`` under ``jax.vmap``.
 Resets draw from a ``torch.Generator`` seeded with ``seed``.
@@ -25,8 +28,8 @@ the shipped flagship racer, converted once from its orbax checkpoint into
 ``runs/flagship_torch/policy.npz`` (``tools/convert_flagship.py``), with
 numpy alone.
 
-Not ported yet, and refused with a ValueError (ROADMAP queue 1): the GRU
-(item 4), the conv torso (item 3) and the video (item 9).
+Not ported yet, and refused with a ValueError: the video (ROADMAP queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -142,15 +145,47 @@ class Player:
     """One env bank and its policy: ``reset(generator) -> (state, obs)``,
     ``act(obs) -> mean action``, ``env_step(state, action, generator) ->
     (state, obs, reward, crashed, extra)``; a play step is
-    ``env_step(state, act(obs), generator)``."""
+    ``env_step(state, act(obs), generator)``. A GRU net (``gru > 0``)
+    carries ``(env state, hidden)`` as its state, and ``act(obs, hidden) ->
+    (mean action, hidden')``; the step zeroes the hidden where ``crashed``."""
 
     net: torch.nn.Module
     reset: Callable
     act: Callable
     env_step: Callable
+    gru: int = 0
 
     def step(self, state, obs, generator):
-        return self.env_step(state, self.act(obs), generator)
+        if not self.gru:
+            return self.env_step(state, self.act(obs), generator)
+        st, hidden = state
+        mean, hidden = self.act(obs, hidden)
+        st, obs, r, crashed, extra = self.env_step(st, mean, generator)
+        hidden = torch.where(crashed[..., None], torch.zeros_like(hidden), hidden)
+        return (st, hidden), obs, r, crashed, extra
+
+
+def _pixel_act(net: PixelActorCritic, proprio: Callable) -> Callable:
+    """``act`` of a pixel net: the mean action, and the new hidden with a GRU."""
+    if net.gru:
+        def act(obs, hidden):
+            mean, _, _, hidden = net(obs["pixels"], proprio(obs), hidden)
+            return mean, hidden
+    else:
+        def act(obs):
+            return net(obs["pixels"], proprio(obs))[0]
+    return act
+
+
+def _with_hidden(reset: Callable, rows: int, gru: int, device) -> Callable:
+    """A reset whose state carries a zero GRU hidden of ``rows`` rows."""
+    if not gru:
+        return reset
+
+    def reset_h(generator):
+        st, obs = reset(generator)
+        return (st, torch.zeros((rows, gru), dtype=torch.float32, device=device)), obs
+    return reset_h
 
 
 def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128),
@@ -164,12 +199,8 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
     device = resolve_device(device)
     torso = _detect_torso(tree) if torso is None else torso
     gru = _detect_gru(tree)
-    if env_name in ("vision", "vision_race"):
-        if gru:
-            raise _not_ported(f"gru={gru} (recurrent play)", 4)
-        if torso != "patch":
-            raise _not_ported(f"torso={torso!r}", 3)
     weights = interop.policy_params_from_numpy(tree, device)
+    rows = num_envs  # the rows a GRU's hidden holds: one an env, one an agent in a race
 
     if env_name == "acro":
         env = AcroEnv(params=DroneParams(att_mode="quat"))
@@ -194,14 +225,14 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
             world, bank = env.make_world(device=device)  # one world for every env
         W, H = env.rig.resolution
         net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PATCH_PIXELS, torso=torso,
-                               patch_pool=_detect_patch_pool(tree), device=device)
+                               patch_pool=_detect_patch_pool(tree), gru=gru, image_hw=(H, W),
+                               device=device)
 
         def reset(generator):
             return env.reset_batched(generator, world, bank, num_envs)
 
-        def act(obs):
-            proprio = torch.cat([obs["rates"], obs["accel_z"], obs["thrust"]], dim=-1)
-            return net(obs["pixels"], proprio)[0]
+        act = _pixel_act(net, lambda obs: torch.cat([obs["rates"], obs["accel_z"],
+                                                     obs["thrust"]], dim=-1))
 
         def env_step(st, action, generator):
             st, obs, r, _, info = env.step_batched(st, action, world, bank, generator=generator)
@@ -218,15 +249,14 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
         net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PATCH_PIXELS,
                                proprio_dim=5 + env.n_gates, torso=torso,
                                patch_pool=_detect_patch_pool(tree), frame_stack=frame_stack,
-                               device=device)
+                               gru=gru, image_hw=(H, W), device=device)
+        rows = num_envs * A
 
         def reset(generator):
             return env.reset_batched(generator, world, num_envs)
 
-        def act(obs):
-            proprio = torch.cat([obs["rates"], obs["accel_z"], obs["thrust"],
-                                 obs["gate_onehot"]], dim=-1)
-            return net(obs["pixels"], proprio)[0]
+        act = _pixel_act(net, lambda obs: torch.cat([obs["rates"], obs["accel_z"], obs["thrust"],
+                                                     obs["gate_onehot"]], dim=-1))
 
         def env_step(st, action, generator):
             st, obs, r, _, info = env.step_batched(st, action, world, generator=generator)
@@ -262,7 +292,8 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
         raise ValueError(f"unknown env {env_name!r}")
 
     net.load_state_dict(weights)
-    return Player(net=net, reset=reset, act=act, env_step=env_step)
+    return Player(net=net, reset=_with_hidden(reset, rows, gru, device), act=act,
+                  env_step=env_step, gru=gru)
 
 
 def play_policy(

@@ -1,6 +1,5 @@
 """PPO trainers (mirrors ``fpyv_tpu.apps.train``'s ``train_acro``,
-``train_race``, and ``train_vision`` and ``train_vision_race`` on their
-kernel rollout paths).
+``train_race``, ``train_vision`` and ``train_vision_race``).
 
 ``train_acro`` trains the state-observation ``ActorCritic`` on ``AcroEnv``
 (quaternion attitude, the default world), and ``train_race`` one shared
@@ -12,26 +11,41 @@ as the JAX trainers step ``AcroEnv.step`` and the race env under
 ``jax.vmap``; the env hands the learner terminations only (crashes, not
 time limits).
 
-``train_vision`` trains ``PixelActorCritic(torso="patch")`` on per-env
-randomized worlds with the policy-in-kernel rollout: every iteration is one
-launch of K7 (render, actor, sample, env step for T steps over all envs,
-:mod:`fpyv_tpu_torch.ops.policy_kernel`), the bootstrap frame through K5,
-then the PyTorch PPO learner (:mod:`fpyv_tpu_torch.rl.ppo`). Checkpoints
-hold the full state (params, Adam, env matrix, last obs, generator), so a
-resumed run continues exactly as an unbroken one.
+``train_vision`` trains ``PixelActorCritic`` on ``VisionAcroEnv``'s depth
+view, on per-env randomized worlds or params.yaml's, through one of two
+rollouts, chosen as the JAX trainer chooses (:func:`vision_rollout`):
 
-``train_vision_race`` trains the single-drone gate racer from pixels: a
-frame-stacked ``PixelActorCritic`` over ``VisionRaceEnv``'s FPV view of the
-gate track (with orbiting obstacles where asked), one launch of K8 an
-iteration (:mod:`fpyv_tpu_torch.ops.race_kernel`), the bootstrap frame
-through K5, then the same learner. Its PPO carry is (state matrix, frame
-history), and checkpoints hold both.
+- ``"kernel"``: every iteration is one launch of K7 (render, actor, sample,
+  env step for T steps over all envs, :mod:`fpyv_tpu_torch.ops.policy_kernel`)
+  and the bootstrap frame through K5, then the PyTorch PPO learner
+  (:mod:`fpyv_tpu_torch.rl.ppo`). It takes the patch torso on the raycast
+  view;
+- ``"scan"``: ``make_ppo``'s per-step rollout over the eager
+  ``VisionAcroEnv.step_batched`` (whose raycast render is one K5 launch a
+  step), for the conv torso, the splat and target-only views, float32
+  pixel storage and the world curriculum. The worlds ride the PPO carry as
+  ``(env_state, worlds)``; with ``curriculum_iters`` a hook before each
+  chunk resamples them at difficulty ``min(1, it / curriculum_iters)`` from a
+  generator seeded by the world seed and ``it``, so a resumed run equals an
+  unbroken one.
 
-Not ported yet, and refused with a ValueError instead of the JAX trainer's
-silent fallback to its scan rollout (ROADMAP queue 1): the pixel trainers'
-scan rollout, the conv torso, the target-only and splat views, the world
-curriculum, Adam's bf16 first moment and multi-agent pixel racing (item 3),
-the GRU (item 4), and multi-device training in every trainer (item 8).
+``train_vision_race`` trains the gate racer from pixels over
+``VisionRaceEnv``'s FPV view of the track (with orbiting obstacles where
+asked): one launch of K8 an iteration (:mod:`fpyv_tpu_torch.ops.race_kernel`)
+for one agent, the patch torso and no GRU, else the per-step scan rollout
+(:func:`race_rollout`), which takes ``n_agents > 1`` (every agent sees the
+others as spheres; ``num_envs * n_agents`` learner rows, each agent's done
+the env's flattened ``crashed``, race resets included), the conv torso and
+``gru > 0`` through :func:`fpyv_tpu_torch.rl.ppo.make_recurrent_ppo`, whose
+hidden rides the carry as ``(env_state, hidden)``.
+
+Checkpoints hold the full state (params, Adam, the env carry with its worlds,
+frame history or hidden, last obs, generator), so a resumed run continues
+exactly as an unbroken one. ``adam_mu_dtype="bf16"`` stores Adam's first
+moment in bfloat16 in every pixel trainer.
+
+Not ported yet, and refused with a ValueError: multi-device training in
+every trainer (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -51,10 +65,18 @@ from fpyv_tpu_torch.models.policy import ActorCritic, PixelActorCritic
 from fpyv_tpu_torch.ops.policy_kernel import PP, acro_state_to_cols, make_kernel_vision_ppo_parts
 from fpyv_tpu_torch.ops.race_kernel import make_kernel_race_ppo_parts
 from fpyv_tpu_torch.physics.drone import DroneParams
-from fpyv_tpu_torch.rl.ppo import PpoConfig, make_ppo, make_step_rollout, scan_train
+from fpyv_tpu_torch.rl.ppo import (
+    PpoConfig,
+    make_ppo,
+    make_recurrent_ppo,
+    make_recurrent_rollout,
+    make_step_rollout,
+    scan_train,
+)
 from fpyv_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from fpyv_tpu_torch.utils.metrics import MetricsLogger
 from fpyv_tpu_torch.utils.profiling import Throughput
+from fpyv_tpu_torch.world.randomize import curriculum_worlds
 
 
 @dataclass
@@ -67,11 +89,12 @@ class TrainResult:
 
 def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, start_iter,
                 scan_chunk, log_dir, print_every, checkpoint_dir,
-                checkpoint_every) -> TrainResult:
+                checkpoint_every, chunk_hook=None) -> TrainResult:
     """The chunked host loop: ``scan_chunk`` iterations, then ONE
     device-to-host read of their infos, which also ends the chunk's device
     work before the meter counts it. The first chunk is left out of the
-    rate (warm-up)."""
+    rate (warm-up). ``chunk_hook(state, it) -> state`` (optional) runs
+    before each chunk: the curriculum's world resample."""
     logger = MetricsLogger(log_dir, print_every=print_every)
     meter = Throughput()
     first_reward = last_reward = float("nan")
@@ -80,6 +103,8 @@ def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, 
     first_chunk = True
     while it < end:
         n = min(scan_chunk, end - it)
+        if chunk_hook is not None:
+            state = chunk_hook(state, it)
         state, infos = scan_train(train_iteration, state, n)
         keys = list(infos)
         host = torch.stack([infos[k].to(torch.float32) for k in keys]).cpu().numpy()
@@ -108,59 +133,154 @@ def _generators(seed: int):
     return [torch.Generator().manual_seed(int(s)) for s in seeds]
 
 
+def _chunk_generator(seed: int, it: int) -> torch.Generator:
+    """The curriculum's worlds for the chunk starting at iteration ``it``:
+    a generator from the world seed and ``it`` (JAX's ``fold_in(k_world,
+    it)``)."""
+    world_seed = int(np.random.SeedSequence(seed).generate_state(4)[0])
+    return torch.Generator().manual_seed(
+        int(np.random.SeedSequence([world_seed, it]).generate_state(1)[0]))
+
+
 @dataclass
 class Trainer:
     """A trainer's pieces: the PPO state (the net, Adam, the env carry, the
-    bootstrap obs, the generator), one iteration, and the rollout alone (T
+    bootstrap obs, the generator), one iteration, the rollout alone (T
     eager env steps, or one K7 or K8 launch and the bootstrap frame), which
-    the iteration runs first."""
+    the iteration runs first, and the hook run before each chunk (or
+    None)."""
 
     state: object
     train_iteration: object
     rollout_fn: object
+    chunk_hook: object = None
+
+
+def _cdt(compute_dtype: str):
+    if compute_dtype not in ("bf16", "f32"):
+        raise ValueError(f"compute_dtype must be 'bf16' or 'f32', got {compute_dtype!r}")
+    return torch.bfloat16 if compute_dtype == "bf16" else None
+
+
+def vision_rollout(rollout: str, *, torso: str = "patch", renderer: str = "raycast",
+                   target_only: bool = False, curriculum_iters: Optional[int] = None) -> str:
+    """``train_vision``'s rollout, by the JAX trainer's rule: ``"auto"``
+    takes the kernel (K7) exactly for the patch torso on the ``"raycast"``
+    view, without ``target_only`` and without a curriculum, and the scan
+    rollout for anything else, and prints its choice; ``"kernel"`` raises
+    for a recipe K7 does not take."""
+    if rollout not in ("auto", "kernel", "scan"):
+        raise ValueError(f"rollout must be 'auto', 'kernel' or 'scan', got {rollout!r}")
+    if rollout == "auto":
+        supported = (torso == "patch" and renderer == "raycast" and not target_only
+                     and not curriculum_iters)
+        rollout = "kernel" if supported else "scan"
+        print(f"train_vision: rollout='auto' takes the {rollout} rollout")
+    if rollout == "kernel":
+        if torso != "patch" or renderer != "raycast":
+            raise ValueError("rollout='kernel' requires torso='patch' and renderer='raycast'")
+        if curriculum_iters:
+            raise ValueError("rollout='kernel' does not compose with curriculum_iters (the "
+                             "worlds bake into the kernel's world columns)")
+        if target_only:
+            raise ValueError("rollout='kernel' renders the whole world; target_only runs on "
+                             "the scan rollout")
+    return rollout
+
+
+def race_rollout(rollout: str, *, n_agents: int = 1, torso: str = "patch", gru: int = 0) -> str:
+    """``train_vision_race``'s rollout, by the JAX trainer's rule:
+    ``"auto"`` takes the kernel (K8) exactly for one agent, the patch torso
+    and no GRU, and the scan rollout for anything else, and prints its
+    choice; ``"kernel"`` raises for a recipe K8 does not take."""
+    if rollout not in ("auto", "kernel", "scan"):
+        raise ValueError(f"rollout must be 'auto', 'kernel' or 'scan', got {rollout!r}")
+    if rollout == "auto":
+        rollout = "kernel" if (n_agents == 1 and torso == "patch" and not gru) else "scan"
+        print(f"train_vision_race: rollout='auto' takes the {rollout} rollout")
+    if rollout == "kernel":
+        if gru:
+            raise ValueError("gru runs on the scan rollout (the kernel's temporal mechanism is "
+                             "the K-frame stack)")
+        if n_agents != 1:
+            raise ValueError("rollout='kernel' is single-agent (multi-agent FPV views read "
+                             "cross-env opponent positions)")
+        if torso != "patch":
+            raise ValueError("rollout='kernel' requires torso='patch'")
+    return rollout
 
 
 def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0,
                         randomize_worlds: bool = True, rig=None, learning_rate: float = 3e-4,
                         num_minibatches: int = 8, update_epochs: int = 2,
                         compute_dtype: str = "bf16", patch_pool: int = 1,
-                        kernel_exact_logprob: bool = False, device=None) -> Trainer:
-    """train_vision's kernel path, ready to run: the env bank in its worlds,
-    the net, the PPO learner around the K7 rollout (arguments as
-    :func:`train_vision`'s)."""
-    if compute_dtype not in ("bf16", "f32"):
-        raise ValueError(f"compute_dtype must be 'bf16' or 'f32', got {compute_dtype!r}")
-    cdt = torch.bfloat16 if compute_dtype == "bf16" else None
+                        kernel_exact_logprob: bool = False, renderer: str = "raycast",
+                        target_only: bool = False, torso: str = "patch",
+                        pixel_store: str = "u8", curriculum_iters: Optional[int] = None,
+                        adam_mu_dtype: Optional[str] = None, rollout: str = "kernel",
+                        device=None) -> Trainer:
+    """train_vision's pieces, ready to run on ``rollout`` ("kernel" or
+    "scan", as :func:`vision_rollout` resolves it): the env bank in its
+    worlds, the net, the PPO learner around the K7 or the per-step rollout
+    (arguments as :func:`train_vision`'s)."""
+    cdt = _cdt(compute_dtype)
     device = resolve_device(device)
-    # the kernel integrates attitude as a quaternion; the obs carries none
-    venv = VisionAcroEnv(acro=AcroEnv(params=DroneParams(att_mode="quat")), renderer="raycast",
-                         target_only=False, pixel_dtype="u8",
-                         **({"rig": rig} if rig is not None else {}))
+    config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
+                       num_minibatches=num_minibatches, update_epochs=update_epochs,
+                       adam_mu_dtype=adam_mu_dtype)
     g_world, g_env, g_net, g_train = _generators(seed)
+    rig_kw = {"rig": rig} if rig is not None else {}
+    if rollout == "kernel":
+        # the kernel integrates attitude as a quaternion; the obs carries none
+        venv = VisionAcroEnv(acro=AcroEnv(params=DroneParams(att_mode="quat")),
+                             renderer="raycast", target_only=False, pixel_dtype="u8", **rig_kw)
+    else:
+        venv = VisionAcroEnv(renderer=renderer, target_only=target_only,
+                             pixel_dtype=pixel_store, **rig_kw)
     if randomize_worlds:
         worlds, bank = venv.make_randomized_worlds(g_world, num_envs, device=device)
+        if curriculum_iters:
+            worlds = curriculum_worlds(g_world, num_envs, 0.0, device=device)
     else:
         worlds, bank = venv.make_world(device=device)
     W, H = venv.rig.resolution
-    net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PP, torso="patch",
-                           prepatched=True, compute_dtype=cdt, patch_pool=patch_pool,
+    net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PP, torso=torso,
+                           prepatched=rollout == "kernel", compute_dtype=cdt,
+                           patch_pool=patch_pool, image_hw=(H, W),
                            device=device).init_params(g_net)
-    config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
-                       num_minibatches=num_minibatches, update_epochs=update_epochs)
-    apply_fn, make_rollout_fn, obs_from_cols = make_kernel_vision_ppo_parts(
-        venv, worlds, net, num_envs)
-    env_state, _ = venv.reset_batched(g_env, worlds, bank, num_envs)
-    cols = acro_state_to_cols(env_state)
-    rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
-                                 exact_logprob=kernel_exact_logprob)
+    env_state, obs = venv.reset_batched(g_env, worlds, bank, num_envs)
+    if rollout == "kernel":
+        apply_fn, make_rollout_fn, obs_from_cols = make_kernel_vision_ppo_parts(
+            venv, worlds, net, num_envs)
+        cols = acro_state_to_cols(env_state)
+        rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
+                                     exact_logprob=kernel_exact_logprob)
+        init, train_iteration = make_ppo(apply_fn, None, config, rollout_fn=rollout_fn)
+        return Trainer(init(net, cols, obs_from_cols(cols), g_train), train_iteration,
+                       rollout_fn)
+
+    def apply_fn(net, obs):
+        return net(obs["pixels"], torch.cat([obs["rates"], obs["accel_z"], obs["thrust"]],
+                                            dim=-1))
+
+    # the worlds ride the carry, so the curriculum hook swaps them as data
+    def env_step(carry, action, generator):
+        st, w = carry
+        st, obs, reward, _, info = venv.step_batched(st, action, w, bank, generator=generator)
+        return (st, w), obs, reward, info["crashed"]
+
+    rollout_fn = make_step_rollout(apply_fn, env_step, config)
     init, train_iteration = make_ppo(apply_fn, None, config, rollout_fn=rollout_fn)
-    return Trainer(init(net, cols, obs_from_cols(cols), g_train), train_iteration,
-                         rollout_fn)
+    chunk_hook = None
+    if curriculum_iters:
+        def chunk_hook(state, it):
+            difficulty = min(1.0, it / curriculum_iters)
+            new_worlds = curriculum_worlds(_chunk_generator(seed, it), num_envs, difficulty,
+                                           device=device)
+            return state.replace(env_state=(state.env_state[0], new_worlds))
 
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP queue 1); the port trains the "
-                      "kernel rollout: torso='patch', renderer='raycast', one device")
+    return Trainer(init(net, (env_state, worlds), obs, g_train), train_iteration, rollout_fn,
+                   chunk_hook)
 
 
 def _one_device_only() -> ValueError:
@@ -175,7 +295,7 @@ def _resume_and_train(trainer: Trainer, *, resume, checkpoint_dir, **loop) -> Tr
         state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
         print(f"resumed from checkpoint at iteration {start_iter}")
     return _train_loop(state, trainer.train_iteration, start_iter=start_iter,
-                       checkpoint_dir=checkpoint_dir, **loop)
+                       checkpoint_dir=checkpoint_dir, chunk_hook=trainer.chunk_hook, **loop)
 
 
 def _apply(net, obs):
@@ -337,40 +457,41 @@ def train_vision(
     scan_chunk: int = 20,
     num_minibatches: int = 8,
     update_epochs: int = 2,
-    renderer: str = "raycast",
-    target_only: bool = False,
-    compute_dtype: str = "bf16",  # actor compute: "bf16" | "f32"
-    torso: str = "patch",
-    curriculum_iters: Optional[int] = None,
+    renderer: str = "raycast",  # "raycast" | "raycast_pallas" | "splat" (scan rollout)
+    target_only: bool = False,  # render the chased target alone (scan rollout)
+    compute_dtype: str = "bf16",  # image-torso compute: "bf16" | "f32"
+    torso: str = "patch",  # "patch" | "conv" (scan rollout)
+    pixel_store: str = "u8",  # (scan rollout) rollout pixels as "u8" levels or "f32"
+    curriculum_iters: Optional[int] = None,  # (scan rollout) ramp world difficulty 0 -> 1
+    #   over this many iterations; needs randomize_worlds; worlds resample every chunk
     patch_pool: int = 1,  # consecutive patch embeddings mixed per fc block
-    adam_mu_dtype: Optional[str] = None,
+    adam_mu_dtype: Optional[str] = None,  # "bf16" stores Adam's first moment in bfloat16
     kernel_exact_logprob: bool = False,  # True recomputes log_prob/value with
     #   the learner's forward over the stored obs (epoch-0 ratio exactly 1);
     #   False trusts the kernel's own, as the JAX trainer's default
-    rollout: str = "auto",  # "auto" and "kernel": the K7 rollout
+    rollout: str = "auto",  # "kernel" (K7), "scan" (the per-step rollout) or
+    #   "auto": the JAX trainer's rule (vision_rollout)
     device=None,  # CUDA unless "cpu" (the kernels' plain versions)
 ) -> TrainResult:
-    """Pixels-to-action PPO on ``VisionAcroEnv``'s full-world depth view:
-    every env in its own randomized world (``randomize_worlds``), or all in
-    params.yaml's world. Returns the rewards of the first and last
-    iteration and the trained env-steps/s after the first chunk."""
-    if rollout not in ("auto", "kernel"):
-        raise _not_ported(f"rollout={rollout!r}")
-    if torso != "patch":
-        raise _not_ported(f"torso={torso!r}")
-    if renderer not in ("raycast", "raycast_pallas") or target_only:
-        raise _not_ported(f"renderer={renderer!r}, target_only={target_only}")
+    """Pixels-to-action PPO on ``VisionAcroEnv``'s depth view (the whole
+    world through the raycast by default): every env in its own randomized
+    world (``randomize_worlds``), or all in params.yaml's world. Returns the
+    rewards of the first and last iteration and the trained env-steps/s
+    after the first chunk. ``torso="conv", pixel_store="f32",
+    update_epochs=4`` is the JAX package's round-2 recipe."""
     if distributed:
         raise _one_device_only()
-    if curriculum_iters:
-        raise _not_ported("curriculum_iters")
-    if adam_mu_dtype is not None:
-        raise _not_ported(f"adam_mu_dtype={adam_mu_dtype!r}")
+    if curriculum_iters and not randomize_worlds:
+        raise ValueError("curriculum_iters requires randomize_worlds=True")
+    rollout = vision_rollout(rollout, torso=torso, renderer=renderer, target_only=target_only,
+                             curriculum_iters=curriculum_iters)
     trainer = make_vision_trainer(
         num_envs=num_envs, num_steps=num_steps, seed=seed, randomize_worlds=randomize_worlds,
         rig=rig, learning_rate=learning_rate, num_minibatches=num_minibatches,
         update_epochs=update_epochs, compute_dtype=compute_dtype, patch_pool=patch_pool,
-        kernel_exact_logprob=kernel_exact_logprob, device=device)
+        kernel_exact_logprob=kernel_exact_logprob, renderer=renderer, target_only=target_only,
+        torso=torso, pixel_store=pixel_store, curriculum_iters=curriculum_iters,
+        adam_mu_dtype=adam_mu_dtype, rollout=rollout, device=device)
     return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
                              num_envs=num_envs, num_steps=num_steps,
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
@@ -386,43 +507,89 @@ def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: in
                              gate_onehot: bool = True, frame_stack: int = 1,
                              n_obstacles: int = 0, obstacle_period: int = 600,
                              patch_pool: int = 1, kernel_exact_logprob: bool = False,
+                             n_agents: int = 1, agent_collision_radius: float = 0.35,
+                             w_overtake: float = 0.0, permute_spawns: bool = False,
+                             show_opponents: bool = True, torso: str = "patch", gru: int = 0,
+                             adam_mu_dtype: Optional[str] = None, rollout: str = "kernel",
                              device=None) -> Trainer:
-    """train_vision_race's kernel path, ready to run: the race bank on the
-    default track, the frame-stacked net, the PPO learner around the K8
-    rollout (arguments as :func:`train_vision_race`'s)."""
-    if compute_dtype not in ("bf16", "f32"):
-        raise ValueError(f"compute_dtype must be 'bf16' or 'f32', got {compute_dtype!r}")
-    cdt = torch.bfloat16 if compute_dtype == "bf16" else None
+    """train_vision_race's pieces, ready to run on ``rollout`` ("kernel" or
+    "scan", as :func:`race_rollout` resolves it): the race bank on the
+    default track, the net, the PPO learner (recurrent with ``gru > 0``)
+    around the K8 or the per-step rollout (arguments as
+    :func:`train_vision_race`'s)."""
+    cdt = _cdt(compute_dtype)
     device = resolve_device(device)
     venv = VisionRaceEnv(
-        race=MultiRaceEnv(n_agents=1, gate_size=gate_size, max_episode_steps=max_episode_steps,
-                          n_obstacles=n_obstacles, obstacle_period=obstacle_period),
+        race=MultiRaceEnv(n_agents=n_agents, gate_size=gate_size,
+                          max_episode_steps=max_episode_steps,
+                          agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
+                          n_obstacles=n_obstacles, obstacle_period=obstacle_period,
+                          permute_spawns=permute_spawns),
         frame_width=frame_width, gate_onehot=gate_onehot, frame_stack=frame_stack,
-        **({"rig": rig} if rig is not None else {}))
+        show_opponents=show_opponents, **({"rig": rig} if rig is not None else {}))
     _, g_env, g_net, g_train = _generators(seed)
     world = venv.default_world(device)
     W, H = venv.rig.resolution
     net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PP, proprio_dim=5 + venv.n_gates,
-                           torso="patch", prepatched=True, compute_dtype=cdt,
-                           patch_pool=patch_pool, frame_stack=frame_stack,
-                           device=device).init_params(g_net)
-    config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
-                       num_minibatches=num_minibatches, update_epochs=update_epochs,
-                       ent_coef=ent_coef)
-    apply_fn, make_rollout_fn, obs_from_carry, init_carry, race_metrics = (
-        make_kernel_race_ppo_parts(venv, world, net, num_envs))
-    carry = init_carry(g_env)
-    rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
-                                 exact_logprob=kernel_exact_logprob)
+                           torso=torso, prepatched=rollout == "kernel", compute_dtype=cdt,
+                           patch_pool=patch_pool, frame_stack=frame_stack, gru=gru,
+                           image_hw=(H, W), device=device).init_params(g_net)
+    config = PpoConfig(num_envs=num_envs * n_agents, num_steps=num_steps,
+                       learning_rate=learning_rate, num_minibatches=num_minibatches,
+                       update_epochs=update_epochs, ent_coef=ent_coef,
+                       adam_mu_dtype=adam_mu_dtype)
+    if rollout == "kernel":
+        apply_fn, make_rollout_fn, obs_from_carry, init_carry, race_metrics = (
+            make_kernel_race_ppo_parts(venv, world, net, num_envs))
+        carry = init_carry(g_env)
+        rollout_fn = make_rollout_fn(num_steps, compute_dtype=cdt,
+                                     exact_logprob=kernel_exact_logprob)
+        init, train_iteration = make_ppo(apply_fn, None, config, metrics_fn=race_metrics,
+                                         rollout_fn=rollout_fn)
+        return Trainer(init(net, carry, obs_from_carry(carry), g_train), train_iteration,
+                       rollout_fn)
+
+    def proprio(obs):
+        return torch.cat([obs["rates"], obs["accel_z"], obs["thrust"], obs["gate_onehot"]],
+                         dim=-1)
+
+    def env_step(env_state, action, generator):
+        st, obs, reward, _, info = venv.step_batched(env_state, action, world,
+                                                     generator=generator)
+        return st, obs, reward, info["crashed"]
+
+    def race_metrics(env_state):
+        rs = getattr(env_state, "race", env_state)  # the frame-stacked carry
+        gates = rs.gates_passed.to(torch.float32)
+        t = torch.clamp_min(rs.t, 1).to(torch.float32)[..., None]
+        return {"mean_gates_passed": gates.mean(),
+                "gates_per_100_steps": (gates / t).mean() * 100.0}
+
+    env_state, obs = venv.reset_batched(g_env, world, num_envs)
+    if gru:
+        def apply_fn_r(net, obs, hidden):
+            return net(obs["pixels"], proprio(obs), hidden)
+
+        rollout_fn = make_recurrent_rollout(apply_fn_r, env_step, config)
+        init, train_iteration = make_recurrent_ppo(apply_fn_r, None, config,
+                                                   metrics_fn=race_metrics,
+                                                   rollout_fn=rollout_fn)
+        hidden0 = torch.zeros((num_envs * n_agents, gru), dtype=torch.float32, device=device)
+        return Trainer(init(net, env_state, obs, hidden0, g_train), train_iteration,
+                       rollout_fn)
+
+    def apply_fn(net, obs):
+        return net(obs["pixels"], proprio(obs))
+
+    rollout_fn = make_step_rollout(apply_fn, env_step, config)
     init, train_iteration = make_ppo(apply_fn, None, config, metrics_fn=race_metrics,
                                      rollout_fn=rollout_fn)
-    return Trainer(init(net, carry, obs_from_carry(carry), g_train), train_iteration,
-                         rollout_fn)
+    return Trainer(init(net, env_state, obs, g_train), train_iteration, rollout_fn)
 
 
 def train_vision_race(
-    num_envs: int = 1024,
-    n_agents: int = 1,
+    num_envs: int = 1024,  # races (learner rows: num_envs * n_agents)
+    n_agents: int = 1,  # > 1: every agent sees the others as spheres (scan rollout)
     num_iterations: int = 300,
     num_steps: int = 32,
     seed: int = 0,
@@ -439,39 +606,34 @@ def train_vision_race(
     gate_size: float = 5.0,
     max_episode_steps: int = 2000,
     frame_width: float = 0.35,
-    torso: str = "patch",
+    torso: str = "patch",  # "patch" | "conv" (scan rollout)
     compute_dtype: str = "bf16",
     ent_coef: float = 0.01,  # pixels explore harder than state obs
     gate_onehot: bool = True,  # False: race from the pixels and the IMU alone
     frame_stack: int = 1,  # the last K depth frames as the pixel obs
+    agent_collision_radius: float = 0.35,  # 0 turns contact off (curriculum)
+    w_overtake: float = 0.0,  # reward per race position gained
+    permute_spawns: bool = False,  # random spawn slot per agent and episode
+    show_opponents: bool = True,  # False leaves the other agents out of the frame
     n_obstacles: int = 0,  # obstacle spheres orbiting the track (contact = crash)
     obstacle_period: int = 600,  # steps per obstacle revolution
-    rollout: str = "auto",  # "auto" and "kernel": the K8 rollout
+    rollout: str = "auto",  # "kernel" (K8), "scan" (the per-step rollout) or
+    #   "auto": the JAX trainer's rule (race_rollout)
     patch_pool: int = 1,
-    adam_mu_dtype: Optional[str] = None,
+    adam_mu_dtype: Optional[str] = None,  # "bf16" stores Adam's first moment in bfloat16
     kernel_exact_logprob: bool = False,
-    gru: int = 0,
+    gru: int = 0,  # a GRU of this width between torso and heads, trained by
+    #   the sequence-minibatched recurrent PPO (scan rollout)
     rig=None,
     device=None,  # CUDA unless "cpu" (the kernels' plain versions)
 ) -> TrainResult:
-    """Gate racing from pixels: the single-drone ``MultiRaceEnv`` whose
-    observation is the FPV depth view of the gate track
-    (``VisionRaceEnv``), trained with the PPO recipe of ``train_vision``;
-    the metrics log gates passed. The multi-agent knobs of the JAX trainer
-    (collision radius, overtake reward, spawn permutation, opponents in
-    view) come with ``n_agents > 1``, which is not ported yet."""
-    if rollout not in ("auto", "kernel"):
-        raise _not_ported(f"rollout={rollout!r}")
-    if n_agents != 1:
-        raise _not_ported(f"n_agents={n_agents} (multi-agent racing)")
-    if gru:
-        raise _not_ported(f"gru={gru} (recurrent PPO)")
-    if torso != "patch":
-        raise _not_ported(f"torso={torso!r}")
+    """Gate racing from pixels: ``MultiRaceEnv`` whose observation is each
+    agent's FPV depth view of the gate track (``VisionRaceEnv``), trained
+    with the PPO recipe of ``train_vision``; every agent of every race acts
+    through one shared net, and the metrics log gates passed."""
     if distributed:
         raise _one_device_only()
-    if adam_mu_dtype is not None:
-        raise _not_ported(f"adam_mu_dtype={adam_mu_dtype!r}")
+    rollout = race_rollout(rollout, n_agents=n_agents, torso=torso, gru=gru)
     trainer = make_vision_race_trainer(
         num_envs=num_envs, num_steps=num_steps, seed=seed, rig=rig,
         learning_rate=learning_rate, num_minibatches=num_minibatches,
@@ -479,9 +641,12 @@ def train_vision_race(
         frame_width=frame_width, compute_dtype=compute_dtype, ent_coef=ent_coef,
         gate_onehot=gate_onehot, frame_stack=frame_stack, n_obstacles=n_obstacles,
         obstacle_period=obstacle_period, patch_pool=patch_pool,
-        kernel_exact_logprob=kernel_exact_logprob, device=device)
+        kernel_exact_logprob=kernel_exact_logprob, n_agents=n_agents,
+        agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
+        permute_spawns=permute_spawns, show_opponents=show_opponents, torso=torso, gru=gru,
+        adam_mu_dtype=adam_mu_dtype, rollout=rollout, device=device)
     return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
-                             num_envs=num_envs, num_steps=num_steps,
+                             num_envs=num_envs * n_agents, num_steps=num_steps,
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
                              log_dir=log_dir, print_every=print_every,
                              checkpoint_every=checkpoint_every)

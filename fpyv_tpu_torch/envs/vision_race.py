@@ -83,13 +83,15 @@ class VisionRaceEnv:
 
     # -- observation ---------------------------------------------------------
 
-    def _render(self, state: MultiRaceState, world: World) -> torch.Tensor:
-        """uint8 depth frames (..., A, H, W) of every agent's camera."""
+    def render_scene(self, state: MultiRaceState, world: World):
+        """What the raycast renders for every agent's camera: (cam_pos (n, 3),
+        cam_R (n, 3, 3), the world, include), n = every leading index times
+        A; with opponents in view or obstacles, a per-camera world whose
+        spheres are the other agents and the obstacles at episode time t."""
         A = self.race.n_agents
         pos = state.drones.pos  # (..., A, 3)
         cam_pos, cam_R = camera_pose(self.rig, pos, _att_to_rotmat(self.params, state.drones.att))
         lead = tuple(pos.shape[:-1])
-        W, H = self.rig.resolution
         sph_c, sph_r = [], []
         if A > 1 and self.show_opponents:
             idx = torch.tensor([[j for j in range(A) if j != i] for i in range(A)],
@@ -108,12 +110,16 @@ class VisionRaceEnv:
             centers = torch.cat(sph_c, dim=-2)
             rworld = per_camera_world(world, centers.reshape((-1,) + centers.shape[-2:]),
                                       torch.cat(sph_r, dim=-1).reshape(-1, centers.shape[-2]))
-            include = ("spheres", "gates", "ground")
-        else:
-            rworld, include = world, ("gates", "ground")
-        img = render_depth_raycast(self.rig, *cams, rworld, max_depth=self.max_depth,
+            return (*cams, rworld, ("spheres", "gates", "ground"))
+        return (*cams, world, ("gates", "ground"))
+
+    def _render(self, state: MultiRaceState, world: World) -> torch.Tensor:
+        """uint8 depth frames (..., A, H, W) of every agent's camera."""
+        W, H = self.rig.resolution
+        cam_pos, cam_R, rworld, include = self.render_scene(state, world)
+        img = render_depth_raycast(self.rig, cam_pos, cam_R, rworld, max_depth=self.max_depth,
                                    include=include, frame_width=self.frame_width)
-        return img.reshape(lead + (H, W))
+        return img.reshape(tuple(state.drones.pos.shape[:-1]) + (H, W))
 
     def _obs(self, state: MultiRaceState, world: World):
         """Per-agent obs dict; every leaf keeps the (..., A, ...) axes."""

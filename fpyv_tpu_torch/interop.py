@@ -19,15 +19,18 @@ history) go through :func:`race_state_from_numpy` and
 
 Policy weights carry across through :func:`policy_params_from_numpy` and
 :func:`policy_params_to_numpy`, for both nets: the Flax tree ``{"params":
-{"patch_embed", "patch_pool"?, "fc0", "pi_mean", "v_out", "log_std"}}`` of
-numpy arrays against :class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`'s
-``state_dict`` (a frame-stacked ``patch_embed`` (K*64, 128) included), and
+{"patch_embed", "patch_pool"? | "conv0".."conv2", "fc0", "gru"?, "pi_mean",
+"v_out", "log_std"}}`` of numpy arrays against
+:class:`~fpyv_tpu_torch.models.policy.PixelActorCritic`'s ``state_dict`` (a
+frame-stacked ``patch_embed`` (K*64, 128) included; ``gru`` nests
+``{ir, iz, in, hr, hz, hn}``, ``hr`` and ``hz`` without a bias), and
 ``{"params": {"pi_dense{i}", "v_dense{i}"?, "pi_mean", "v_out", "log_std"}}``
 against :class:`~fpyv_tpu_torch.models.policy.ActorCritic`'s. A PPO state's
 checkpoint nests the tree once more (``{"params": {"params": ...}}``, the
 state's field around Flax's collection); every level is peeled. A Flax
 ``kernel`` is ``(in, out)`` and an ``nn.Linear`` weight ``(out, in)``, so
-kernels are transposed.
+dense kernels are transposed; a conv kernel is HWIO in Flax and OIHW in an
+``nn.Conv2d``.
 """
 
 from __future__ import annotations
@@ -126,9 +129,18 @@ def chase_to_numpy(result) -> dict:
                 **{k: _numpy(v) for k, v in zip(CHASE_FIELDS[2:], counts)})
 
 
-def _layer_key(name: str) -> str:
-    """Flax layer name -> the module attribute holding it."""
-    return "patch_pool_layer" if name == "patch_pool" else name
+# Flax layer name <-> the module attribute holding it, where they differ
+_MODULE_NAMES = {"patch_pool": "patch_pool_layer", "gru": "gru_cell"}
+_FLAX_NAMES = {v: k for k, v in _MODULE_NAMES.items()}
+
+
+def _weight_from_kernel(kernel) -> np.ndarray:
+    k = np.asarray(kernel)
+    return k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T  # HWIO -> OIHW; (in, out) -> (out, in)
+
+
+def _kernel_from_weight(weight: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(weight.transpose(2, 3, 1, 0) if weight.ndim == 4 else weight.T)
 
 
 def policy_params_from_numpy(tree: dict, device=None) -> dict:
@@ -140,12 +152,20 @@ def policy_params_from_numpy(tree: dict, device=None) -> dict:
     while "params" in p:
         p = p["params"]
     out = {}
+
+    def layer(prefix, leaf):
+        out[f"{prefix}.weight"] = _tensor(_weight_from_kernel(leaf["kernel"]), device)
+        if "bias" in leaf:
+            out[f"{prefix}.bias"] = _tensor(leaf["bias"], device)
+
     for name, leaf in p.items():
         if name == "log_std":
             out["log_std"] = _tensor(leaf, device)
-            continue
-        out[f"{_layer_key(name)}.weight"] = _tensor(np.asarray(leaf["kernel"]).T, device)
-        out[f"{_layer_key(name)}.bias"] = _tensor(leaf["bias"], device)
+        elif "kernel" in leaf:
+            layer(_MODULE_NAMES.get(name, name), leaf)
+        else:  # a cell of layers (the GRU)
+            for sub, sub_leaf in leaf.items():
+                layer(f"{_MODULE_NAMES.get(name, name)}.{sub}", sub_leaf)
     return out
 
 
@@ -158,11 +178,13 @@ def policy_params_to_numpy(net) -> dict:
         if key == "log_std":
             params["log_std"] = _numpy(value)
             continue
-        layer, kind = key.rsplit(".", 1)
-        name = "patch_pool" if layer == "patch_pool_layer" else layer
+        *path, kind = key.split(".")
+        node = params
+        for i, part in enumerate(path):
+            node = node.setdefault(_FLAX_NAMES.get(part, part) if i == 0 else part, {})
         arr = _numpy(value)
-        params.setdefault(name, {})["kernel" if kind == "weight" else "bias"] = (
-            np.ascontiguousarray(arr.T) if kind == "weight" else arr)
+        node["kernel" if kind == "weight" else "bias"] = (
+            _kernel_from_weight(arr) if kind == "weight" else arr)
     return {"params": params}
 
 

@@ -16,24 +16,45 @@ into the patch embed: each frame is split into patches and the K frames of a
 patch are concatenated, so the embed contracts K*64 pixels (one frame is
 the K = 1 case, with the same parameters and outputs).
 
+The ``"conv"`` torso: three 3x3, stride-2 convolutions of ``channels``
+(16, 32, 32) with ReLU, a K-frame stack as K input channels, then the same
+fc stack and heads. Flax pads ``"SAME"`` asymmetrically at stride 2 (an even
+side gets 0 before and 1 after, an odd side 1 on each side), so the pads are
+computed per side and applied with ``F.pad``; the features are flattened in
+Flax's NHWC order (h, w, c), so fc0's rows follow Flax's.
+
+Flax's layers sum in float32 and round once. On the card the pixel net
+runs its forward pass, and the learner its backward pass, inside
+:meth:`PixelActorCritic.numerics`: cuBLAS's bf16 reduced-precision
+reductions (its default, which lets split-K partial sums round to bf16)
+and cuDNN's TF32 (its default for float32 convolutions) are off there, and
+only there.
+
+``gru > 0`` puts Flax's ``GRUCell`` between the torso and the heads, in
+float32: ``r = sigmoid(W_ir x + b_ir + W_hr h)``, ``z = sigmoid(W_iz x +
+b_iz + W_hz h)``, ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``, ``h' =
+(1 - z) n + z h``. It is six ``nn.Linear``s named as Flax's (``hr`` and
+``hz`` without a bias), not ``torch.nn.GRUCell``, which adds biases to the
+recurrent gates.
+
 Layers are ``nn.Linear`` (weight ``(out, in)``; Flax's kernel is ``(in,
-out)``, :mod:`fpyv_tpu_torch.interop` transposes). A layer with
-``compute_dtype`` follows Flax's ``Dense(dtype=...)`` exactly: parameters
-stay float32; the input, weight and bias are cast to the compute type; the
+out)``, :mod:`fpyv_tpu_torch.interop` transposes) and ``nn.Conv2d`` (OIHW;
+Flax's HWIO). A layer with ``compute_dtype`` follows Flax's
+``Dense(dtype=...)`` and ``Conv(dtype=...)`` exactly: parameters stay
+float32; the input, weight and bias are cast to the compute type; the
 product is rounded to it, then the bias is added in it. Without a compute
 type the layer is float32, product then bias. :meth:`init_params` draws
 Flax's initial distributions from a ``torch.Generator``.
-
-The conv torso (the scan rollout's) and the GRU (recurrent PPO's) are not
-ported yet (ROADMAP queue 1) and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fpyv_tpu_torch.device import divisor
@@ -51,10 +72,34 @@ def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> to
     return torch.matmul(x.to(dtype), layer.weight.to(dtype).T) + layer.bias.to(dtype)
 
 
+def same_pads(size: int, kernel: int = 3, stride: int = 2) -> Tuple[int, int]:
+    """Flax's (XLA's) ``"SAME"`` padding of one side: (before, after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+@contextlib.contextmanager
+def flax_reductions():
+    """Inside the scope only: cuBLAS sums bf16 products in float32 (no bf16
+    reduced-precision split-K reductions) and cuDNN's float32 convolutions
+    run without TF32, so a layer rounds once, after a float32 sum, as
+    Flax's ``Dense`` and ``Conv`` do."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    prev = (matmul.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32)
+    matmul.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32 = False, False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction, cudnn.allow_tf32 = prev
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """Flax's default kernel init on an ``(out, in)`` weight: truncated
-    normal with std sqrt(1 / fan_in), drawn by the inverse CDF."""
-    std = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    """Flax's default kernel init on an ``(out, in)`` weight, or a conv's
+    ``(out, in, kh, kw)`` one: truncated normal with std sqrt(1 / fan_in),
+    fan_in = in * kh * kw, drawn by the inverse CDF."""
+    fan_in = math.prod(weight.shape[1:])
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
     u = torch.rand(weight.shape, generator=generator, dtype=torch.float64,
                    device=generator.device)
@@ -136,58 +181,114 @@ class ActorCritic(nn.Module):
         return mean, log_std, value
 
 
-class PixelActorCritic(nn.Module):
-    """Patch torso over depth images + Gaussian policy and value heads.
+class GRUCell(nn.Module):
+    """Flax's ``GRUCell`` (flax 0.12.3) in float32: input layers ``ir``,
+    ``iz``, ``in`` with biases, recurrent layers ``hr``, ``hz`` without and
+    ``hn`` with one (inside ``r * (...)``). ``forward(h, x) -> h'``."""
 
-    ``n_patches`` (``(H/8)*(W/8)``), ``proprio_dim`` and ``frame_stack``
-    fix the layer widths that Flax infers at its first call.
-    ``forward(pixels, proprio)`` takes pixels (..., H, W), a stack
-    (..., K, H, W) of ``frame_stack`` frames (newest last), or (...,
-    n_patches, K*64) with ``prepatched=True`` (patch-stack-major order, as
-    the in-kernel rollouts emit them), in [0, 1] float or as uint8 levels
-    (divided by 255 through float32); proprio (..., P). Returns (mean (...,
-    A), clipped log_std (A,), value (...,)).
+    def __init__(self, in_dim: int, features: int, device=None):
+        super().__init__()
+        kw = dict(dtype=torch.float32, device=device)
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, nn.Linear(in_dim, features, **kw))
+        for name in ("hr", "hz"):
+            self.add_module(name, nn.Linear(features, features, bias=False, **kw))
+        self.hn = nn.Linear(features, features, **kw)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        """lecun_normal input kernels, orthogonal recurrent kernels, zero biases."""
+        for name, layer in self.named_children():
+            if name.startswith("i"):
+                lecun_normal_(layer.weight, generator)
+            else:
+                orthogonal_(layer.weight, 1.0, generator)
+            if layer.bias is not None:
+                with torch.no_grad():
+                    layer.bias.zero_()
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        def lin(name, v):
+            layer = getattr(self, name)
+            out = torch.matmul(v, layer.weight.T)
+            return out if layer.bias is None else out + layer.bias
+
+        r = torch.sigmoid(lin("ir", x) + lin("hr", h))
+        z = torch.sigmoid(lin("iz", x) + lin("hz", h))
+        n = torch.tanh(lin("in", x) + r * lin("hn", h))
+        return (1.0 - z) * n + z * h
+
+
+class PixelActorCritic(nn.Module):
+    """Image torso over depth images (+ an optional GRU) + Gaussian policy
+    and value heads.
+
+    ``n_patches`` (``(H/8)*(W/8)``, the patch torso's), ``image_hw`` ((H, W),
+    the conv torso's), ``proprio_dim`` and ``frame_stack`` fix the layer
+    widths that Flax infers at its first call. ``forward(pixels, proprio)``
+    takes pixels (..., H, W), a stack (..., K, H, W) of ``frame_stack``
+    frames (newest last), or (..., n_patches, K*64) with ``prepatched=True``
+    (patch-stack-major order, as the in-kernel rollouts emit them), in [0, 1]
+    float or as uint8 levels (divided by 255 through float32); proprio (...,
+    P). Returns (mean (..., A), clipped log_std (A,), value (...,)); with
+    ``gru > 0`` ``forward(pixels, proprio, hidden)`` takes hidden (...,
+    gru) and returns (mean, log_std, value, hidden').
     """
 
-    def __init__(self, action_dim: int, n_patches: int, proprio_dim: int = 5,
+    def __init__(self, action_dim: int, n_patches: int = 0, proprio_dim: int = 5,
                  hidden: Sequence[int] = (256,), log_std_init: float = -0.5,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16, torso: str = "conv",
                  patch: int = 8, embed: int = 128, prepatched: bool = False,
                  patch_pool: int = 1, gru: int = 0, log_std_min: float = -5.0,
-                 log_std_max: float = 1.5, frame_stack: int = 1, device=None):
+                 log_std_max: float = 1.5, frame_stack: int = 1,
+                 image_hw: Optional[Tuple[int, int]] = None,
+                 channels: Sequence[int] = (16, 32, 32), device=None):
         super().__init__()
-        if torso != "patch":
-            raise ValueError(f"torso={torso!r} is not ported yet (ROADMAP queue 1: the conv "
-                             "torso rides with the scan rollout); use torso='patch'")
-        if gru:
-            raise ValueError("gru > 0 is not ported yet (ROADMAP queue 1: recurrent PPO)")
-        if patch_pool < 1 or n_patches % patch_pool:
+        if torso not in ("patch", "conv"):
+            raise ValueError(f"torso must be 'patch' or 'conv', got {torso!r}")
+        if torso == "conv" and (prepatched or image_hw is None):
+            raise ValueError("torso='conv' needs image_hw=(H, W) and no prepatched pixels")
+        if torso == "patch" and (patch_pool < 1 or n_patches % patch_pool):
             raise ValueError(f"patch_pool={patch_pool} must divide n_patches={n_patches}")
         self.action_dim, self.n_patches, self.proprio_dim = action_dim, n_patches, proprio_dim
         self.hidden = tuple(hidden)
         self.compute_dtype = compute_dtype
         self.torso, self.patch, self.embed = torso, patch, embed
         self.prepatched, self.patch_pool, self.gru = prepatched, patch_pool, gru
-        self.frame_stack = frame_stack
+        self.frame_stack, self.image_hw, self.channels = frame_stack, image_hw, tuple(channels)
         self.log_std_init, self.log_std_min, self.log_std_max = (log_std_init, log_std_min,
                                                                   log_std_max)
         kw = dict(dtype=torch.float32, device=device)
-        self.patch_embed = nn.Linear(frame_stack * patch * patch, embed, **kw)
-        if patch_pool > 1:
-            self.patch_pool_layer = nn.Linear(patch_pool * embed, embed, **kw)
-        width = (n_patches // patch_pool) * embed + proprio_dim
-        for i, h in enumerate(self.hidden):
-            self.add_module(f"fc{i}", nn.Linear(width, h, **kw))
-            width = h
+        if torso == "patch":
+            self.patch_embed = nn.Linear(frame_stack * patch * patch, embed, **kw)
+            if patch_pool > 1:
+                self.patch_pool_layer = nn.Linear(patch_pool * embed, embed, **kw)
+            width = (n_patches // patch_pool) * embed + proprio_dim
+        else:
+            h, w, c = image_hw[0], image_hw[1], frame_stack
+            for i, ch in enumerate(self.channels):
+                self.add_module(f"conv{i}", nn.Conv2d(c, ch, 3, stride=2, **kw))
+                h, w, c = -(-h // 2), -(-w // 2), ch
+            width = h * w * c + proprio_dim
+        for i, hdim in enumerate(self.hidden):
+            self.add_module(f"fc{i}", nn.Linear(width, hdim, **kw))
+            width = hdim
+        if gru:
+            self.gru_cell = GRUCell(width, gru, device=device)
+            width = gru
         self.pi_mean = nn.Linear(width, action_dim, **kw)
         self.v_out = nn.Linear(width, 1, **kw)
         self.log_std = nn.Parameter(torch.full((action_dim,), float(log_std_init), **kw))
 
-    # Flax names the pool layer "patch_pool", the config field's name here
+    # Flax names the pool layer "patch_pool" and the cell "gru", the config
+    # fields' names here
     def _named_layers(self):
-        yield "patch_embed", self.patch_embed
-        if self.patch_pool > 1:
-            yield "patch_pool", self.patch_pool_layer
+        if self.torso == "patch":
+            yield "patch_embed", self.patch_embed
+            if self.patch_pool > 1:
+                yield "patch_pool", self.patch_pool_layer
+        else:
+            for i in range(len(self.channels)):
+                yield f"conv{i}", getattr(self, f"conv{i}")
         for i in range(len(self.hidden)):
             yield f"fc{i}", getattr(self, f"fc{i}")
         yield "pi_mean", self.pi_mean
@@ -195,7 +296,8 @@ class PixelActorCritic(nn.Module):
 
     def init_params(self, generator: torch.Generator) -> "PixelActorCritic":
         """Flax's initial parameters: lecun_normal kernels and zero biases,
-        ``orthogonal(0.01)`` for ``pi_mean``, ``log_std = log_std_init``."""
+        ``orthogonal(0.01)`` for ``pi_mean``, the GRU's own (lecun_normal
+        inputs, orthogonal recurrent kernels), ``log_std = log_std_init``."""
         for name, layer in self._named_layers():
             if name == "pi_mean":
                 orthogonal_(layer.weight, 0.01, generator)
@@ -203,9 +305,17 @@ class PixelActorCritic(nn.Module):
                 lecun_normal_(layer.weight, generator)
             with torch.no_grad():
                 layer.bias.zero_()
+        if self.gru:
+            self.gru_cell.init_params(generator)
         with torch.no_grad():
             self.log_std.fill_(float(self.log_std_init))
         return self
+
+    def numerics(self):
+        """The scope of the net's layers (:func:`flax_reductions`); the
+        forward pass runs in it, and the learner runs the backward pass in
+        it too."""
+        return flax_reductions()
 
     def patchify(self, pixels: torch.Tensor, stacked: bool = False) -> torch.Tensor:
         """(..., H, W) -> (..., NP, patch^2), patches row-major over the
@@ -223,29 +333,68 @@ class PixelActorCritic(nn.Module):
         x = x.reshape(lead + (K, (H // p) * (W // p), p * p)).movedim(-3, -2)
         return x.reshape(lead + ((H // p) * (W // p), K * p * p))
 
-    def forward(self, pixels: torch.Tensor, proprio: torch.Tensor):
+    def _conv_torso(self, pixels: torch.Tensor, dt) -> torch.Tensor:
+        """(..., K, H, W) -> the flattened (..., h*w*c) features, NHWC order."""
+        lead = pixels.shape[:-3]
+        x = pixels.reshape((-1,) + tuple(pixels.shape[-3:]))
+        if dt is not None:
+            x = x.to(dt)
+        for i in range(len(self.channels)):
+            layer = getattr(self, f"conv{i}")
+            (t, b), (lft, r) = same_pads(x.shape[-2]), same_pads(x.shape[-1])
+            x = F.pad(x, (lft, r, t, b))
+            w = layer.weight if dt is None else layer.weight.to(dt)
+            x = F.conv2d(x, w, stride=2)
+            x = x + (layer.bias if dt is None else layer.bias.to(dt))[:, None, None]
+            x = torch.relu(x)
+        return x.permute(0, 2, 3, 1).reshape(lead + (-1,))
+
+    def forward(self, pixels: torch.Tensor, proprio: torch.Tensor,
+                hidden: Optional[torch.Tensor] = None):
+        with self.numerics():
+            return self.heads(self.features(pixels, proprio), hidden)
+
+    def features(self, pixels: torch.Tensor, proprio: torch.Tensor) -> torch.Tensor:
+        """The torso and the fc stack: (..., hidden[-1]) in the compute
+        dtype, the heads' input."""
         dt = self.compute_dtype
         if pixels.dtype == torch.uint8:
             # via float32 true division, as the kernel's policy input
             pixels = pixels.to(torch.float32) / divisor(255.0, pixels)
-        if self.prepatched:
-            x = pixels
+        if self.torso == "conv":
+            if pixels.ndim < 3 or proprio.ndim + 1 >= pixels.ndim:
+                pixels = pixels[..., None, :, :]  # one frame: K = 1 channel
+            x = self._conv_torso(pixels, dt)
         else:
-            x = self.patchify(pixels, stacked=pixels.ndim >= 3 and proprio.ndim + 1 < pixels.ndim)
-        lead = x.shape[:-2]
-        if dt is not None:
-            x = x.to(dt)
-        x = torch.relu(dense(self.patch_embed, x, dt))
-        if self.patch_pool > 1:
-            NP = x.shape[-2]
-            x = x.reshape(lead + (NP // self.patch_pool, self.patch_pool * self.embed))
-            x = torch.relu(dense(self.patch_pool_layer, x, dt))
-        x = x.reshape(lead + (-1,))
+            if self.prepatched:
+                x = pixels
+            else:
+                x = self.patchify(pixels,
+                                  stacked=pixels.ndim >= 3 and proprio.ndim + 1 < pixels.ndim)
+            lead = x.shape[:-2]
+            if dt is not None:
+                x = x.to(dt)
+            x = torch.relu(dense(self.patch_embed, x, dt))
+            if self.patch_pool > 1:
+                NP = x.shape[-2]
+                x = x.reshape(lead + (NP // self.patch_pool, self.patch_pool * self.embed))
+                x = torch.relu(dense(self.patch_pool_layer, x, dt))
+            x = x.reshape(lead + (-1,))
         x = torch.cat([x, proprio.to(x.dtype)], dim=-1)
         for i in range(len(self.hidden)):
             x = torch.relu(dense(getattr(self, f"fc{i}"), x, dt))
-        x = x.to(torch.float32)  # heads in float32
+        return x
+
+    def heads(self, x: torch.Tensor, hidden: Optional[torch.Tensor] = None):
+        """Flax's ``_heads``: the GRU (with ``gru > 0``) and the Gaussian
+        policy and value heads, all in float32."""
+        x = x.to(torch.float32)
+        if self.gru:
+            hidden = self.gru_cell(hidden, x)
+            x = hidden
         mean = dense(self.pi_mean, x, None)
         log_std = torch.clamp(self.log_std, self.log_std_min, self.log_std_max)
         value = dense(self.v_out, x, None)[..., 0]
+        if self.gru:
+            return mean, log_std, value, hidden
         return mean, log_std, value

@@ -16,10 +16,18 @@ Matching optax: ``optax.clip_by_global_norm`` scales by ``max_norm / norm``
 with no epsilon (``clip_grad_norm_`` adds 1e-6, so the rule is written out);
 ``optax.adam(lr, eps=1e-5)`` is ``torch.optim.Adam(lr=lr, eps=1e-5)``; the
 advantage std is the population std (``correction=0``).
+``PpoConfig.adam_mu_dtype="bf16"`` (optax's ``adam(mu_dtype=bfloat16)``)
+takes :class:`AdamBf16Mu`, the port's own Adam step, since
+``torch.optim.Adam`` keeps its moments in the parameters' dtype.
+
+:func:`make_recurrent_ppo` is the GRU policy's learner (JAX's
+``make_recurrent_ppo``): the hidden state rides the env carry, and the
+learner replays whole env sequences from the iteration's first hidden.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -27,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from fpyv_tpu_torch.device import divisor
 from fpyv_tpu_torch.rl.gae import compute_gae
 
 
@@ -43,17 +52,17 @@ class PpoConfig:
     vf_coef: float = 0.5
     max_grad_norm: float = 0.5
     learning_rate: float = 3e-4
-    # Adam first-moment dtype: None = float32; "bf16" is not ported yet
+    # Adam first-moment dtype: None = float32; "bf16" stores it in bfloat16
+    # (AdamBf16Mu; the second moment stays float32)
     adam_mu_dtype: Optional[str] = None
     # shuffle granularity in rows of the flattened (T*N) batch: blocks of
     # consecutive rows (the same timestep across `shuffle_block` envs) move
-    # together
+    # together; in envs for the recurrent learner
     shuffle_block: int = 64
 
     def __post_init__(self):
-        if self.adam_mu_dtype is not None:
-            raise ValueError(f"adam_mu_dtype={self.adam_mu_dtype!r} is not ported yet "
-                             "(ROADMAP queue 1); use None (float32)")
+        if self.adam_mu_dtype not in (None, "bf16"):
+            raise ValueError(f"adam_mu_dtype must be None or 'bf16', got {self.adam_mu_dtype!r}")
 
 
 @dataclass
@@ -114,6 +123,123 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
+class AdamBf16Mu(torch.optim.Optimizer):
+    """optax 0.2.6's ``adam(lr, eps=eps, mu_dtype=jnp.bfloat16)``, step for
+    step: the new first moment ``(1 - b1) * g + b1 * mu`` is computed in
+    float32 from the stored bf16 moment, where ``b1 * mu`` is a bf16 product
+    with ``b1`` rounded to bf16 (JAX's weakly typed scalar takes the moment's
+    dtype); this step's update ``-lr * mu_hat / (sqrt(nu_hat) + eps)`` uses
+    that float32 value, and only the stored moment is rounded to bf16. The
+    second moment stays float32. The bias corrections ``1 - b**t`` are taken
+    in double and rounded to float32, as optax computes them under x64 (in
+    float32 without it: one ulp away). The state (``exp_avg`` bf16,
+    ``exp_avg_sq`` float32, ``step``) is saved and restored in those dtypes."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2, lr, eps = group["b1"], group["b2"], group["lr"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                g = p.grad
+                mu = (1 - b1) * g + torch.tensor(b1, dtype=torch.bfloat16) * st["exp_avg"]
+                nu = (1 - b2) * g**2 + b2 * st["exp_avg_sq"]
+                st["step"] += 1
+                mu_hat = mu / divisor(1.0 - b1 ** st["step"], mu)
+                nu_hat = nu / divisor(1.0 - b2 ** st["step"], nu)
+                p.add_(-lr * (mu_hat / (torch.sqrt(nu_hat) + eps)))
+                st["exp_avg"] = mu.to(torch.bfloat16)
+                st["exp_avg_sq"] = nu
+        return None
+
+    def load_state_dict(self, state_dict):
+        # torch.optim casts floating state to the parameter's dtype on load
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+
+def make_optimizer(params: torch.nn.Module, config: PpoConfig) -> torch.optim.Optimizer:
+    """optax's ``adam(lr, eps=1e-5, mu_dtype=...)`` for ``config``."""
+    if config.adam_mu_dtype == "bf16":
+        return AdamBf16Mu(params.parameters(), lr=config.learning_rate, eps=1e-5)
+    return torch.optim.Adam(params.parameters(), lr=config.learning_rate, eps=1e-5)
+
+
+def action_noise(mean: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The rollout's standard normal action noise, shaped as ``mean``, drawn
+    from ``generator`` on its own device and moved to ``mean``'s."""
+    return torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                       device=generator.device).to(mean.device)
+
+
+def permutation(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """An epoch's shuffle of ``n`` blocks."""
+    return torch.randperm(n, generator=generator, device=generator.device).to(device)
+
+
+def _numerics(net):
+    """The net's numerics scope for its backward pass (the pixel net's
+    ``flax_reductions``), or none."""
+    scope = getattr(net, "numerics", None)
+    return scope() if scope is not None else contextlib.nullcontext()
+
+
+def _update(net, opt, loss, max_grad_norm: float) -> None:
+    opt.zero_grad(set_to_none=True)
+    with _numerics(net):
+        loss.backward()
+    clip_by_global_norm_(net.parameters(), max_grad_norm)
+    opt.step()
+
+
+def _ppo_terms(config: PpoConfig, batch: "Transition", log_prob, value, entropy_log_std,
+               advantages, targets):
+    """The clipped surrogate, the clipped value loss and the entropy bonus."""
+    ratio = torch.exp(log_prob - batch.log_prob)
+    adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    pg1 = ratio * adv
+    pg2 = torch.clamp(ratio, 1.0 - config.clip_eps, 1.0 + config.clip_eps) * adv
+    pg_loss = -torch.mean(torch.minimum(pg1, pg2))
+    v_clipped = batch.value + torch.clamp(value - batch.value, -config.clip_eps,
+                                          config.clip_eps)
+    v_loss = 0.5 * torch.mean(torch.maximum((value - targets) ** 2, (v_clipped - targets) ** 2))
+    ent = torch.mean(gaussian_entropy(entropy_log_std))
+    total = pg_loss + config.vf_coef * v_loss - config.ent_coef * ent
+    return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent,
+                   "approx_kl": torch.mean(batch.log_prob - log_prob)}
+
+
+def _stack_steps(steps):
+    def stack(name):
+        vals = [getattr(t, name) for t in steps]
+        if isinstance(vals[0], dict):
+            return {k: torch.stack([v[k] for v in vals]) for k in vals[0]}
+        return torch.stack(vals)
+
+    return Transition(**{f.name: stack(f.name) for f in dataclasses.fields(Transition)})
+
+
+def _info(losses, metrics, traj, metrics_fn, env_state):
+    info = {"loss": torch.stack(losses).mean(),
+            "mean_reward": traj.reward.mean(),
+            "mean_episode_done": traj.done.to(torch.float32).mean(),
+            **{k: torch.stack(v).mean() for k, v in metrics.items()}}
+    if metrics_fn is not None:
+        info.update(metrics_fn(env_state))
+    return info
+
+
 def make_step_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig):
     """``make_ppo``'s default rollout: T steps of the policy and
     ``env_step``, one at a time, the action noise drawn from
@@ -125,23 +251,13 @@ def make_step_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig)
         env_state, obs, steps = state.env_state, state.last_obs, []
         for _ in range(config.num_steps):
             mean, log_std, value = apply_fn(state.params, obs)
-            noise = torch.randn(mean.shape, generator=state.generator, dtype=mean.dtype,
-                                device=state.generator.device).to(mean.device)
-            action = mean + torch.exp(log_std) * noise
+            action = mean + torch.exp(log_std) * action_noise(mean, state.generator)
             log_prob = gaussian_log_prob(mean, log_std, action)
             env_state, next_obs, reward, done = env_step(env_state, action, state.generator)
             steps.append(Transition(obs=obs, action=action, log_prob=log_prob, value=value,
                                     reward=reward, done=done))
             obs = next_obs
-
-        def stack(name):
-            vals = [getattr(t, name) for t in steps]
-            if isinstance(vals[0], dict):
-                return {k: torch.stack([v[k] for v in vals]) for k in vals[0]}
-            return torch.stack(vals)
-
-        traj = Transition(**{f.name: stack(f.name) for f in dataclasses.fields(Transition)})
-        return env_state, obs, traj
+        return env_state, obs, _stack_steps(steps)
 
     return rollout
 
@@ -167,26 +283,14 @@ def make_ppo(
     rollout = make_step_rollout(apply_fn, env_step, config) if rollout_fn is None else rollout_fn
 
     def init(params: torch.nn.Module, env_state, obs0, generator: torch.Generator) -> PpoState:
-        opt = torch.optim.Adam(params.parameters(), lr=config.learning_rate, eps=1e-5)
-        return PpoState(params=params, opt_state=opt, env_state=env_state, last_obs=obs0,
-                        generator=generator, update_count=0)
+        return PpoState(params=params, opt_state=make_optimizer(params, config),
+                        env_state=env_state, last_obs=obs0, generator=generator,
+                        update_count=0)
 
     def _loss(params, batch: Transition, advantages, targets):
         mean, log_std, value = apply_fn(params, batch.obs)
         log_prob = gaussian_log_prob(mean, log_std, batch.action)
-        ratio = torch.exp(log_prob - batch.log_prob)
-        adv = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
-        pg1 = ratio * adv
-        pg2 = torch.clamp(ratio, 1.0 - config.clip_eps, 1.0 + config.clip_eps) * adv
-        pg_loss = -torch.mean(torch.minimum(pg1, pg2))
-        v_clipped = batch.value + torch.clamp(value - batch.value, -config.clip_eps,
-                                              config.clip_eps)
-        v_loss = 0.5 * torch.mean(torch.maximum((value - targets) ** 2,
-                                                (v_clipped - targets) ** 2))
-        ent = torch.mean(gaussian_entropy(log_std))
-        total = pg_loss + config.vf_coef * v_loss - config.ent_coef * ent
-        return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": ent,
-                       "approx_kl": torch.mean(batch.log_prob - log_prob)}
+        return _ppo_terms(config, batch, log_prob, value, log_std, advantages, targets)
 
     def train_iteration(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
         net, opt, gen = state.params, state.opt_state, state.generator
@@ -212,7 +316,7 @@ def make_ppo(
 
         losses, metrics = [], {}
         for _ in range(config.update_epochs):
-            perm = torch.randperm(n_blocks, generator=gen, device=gen.device).to(device)
+            perm = permutation(n_blocks, gen, device)
 
             def shuffle(x):
                 xb = x.reshape((n_blocks, block) + tuple(x.shape[1:]))
@@ -226,23 +330,133 @@ def make_ppo(
                 mb = Transition(**{f.name: _tree_map(lambda x: x[sl], getattr(shuffled, f.name))
                                    for f in dataclasses.fields(Transition)})
                 loss, m = _loss(net, mb, adv_sh[sl], tgt_sh[sl])
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                clip_by_global_norm_(net.parameters(), config.max_grad_norm)
-                opt.step()
+                _update(net, opt, loss, config.max_grad_norm)
                 losses.append(loss.detach())
                 for k, v in m.items():
                     metrics.setdefault(k, []).append(v.detach())
 
-        info = {"loss": torch.stack(losses).mean(),
-                "mean_reward": traj.reward.mean(),
-                "mean_episode_done": traj.done.to(torch.float32).mean(),
-                **{k: torch.stack(v).mean() for k, v in metrics.items()}}
-        if metrics_fn is not None:
-            info.update(metrics_fn(env_state))
         new_state = state.replace(env_state=env_state, last_obs=last_obs,
                                   update_count=state.update_count + 1)
-        return new_state, info
+        return new_state, _info(losses, metrics, traj, metrics_fn, env_state)
+
+    return init, train_iteration
+
+
+def _zero_done(hidden: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    return torch.where(done[..., None], torch.zeros_like(hidden), hidden)
+
+
+def make_recurrent_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig):
+    """:func:`make_recurrent_ppo`'s rollout: T steps of the GRU policy and
+    ``env_step``; the hidden (the second half of ``state.env_state``) is
+    zeroed where ``done`` fires. ``rollout(state) -> ((env_state, hidden),
+    last_obs, traj)``."""
+
+    @torch.no_grad()
+    def rollout(state: PpoState):
+        (env_state, hidden), obs, steps = state.env_state, state.last_obs, []
+        for _ in range(config.num_steps):
+            mean, log_std, value, h2 = apply_fn(state.params, obs, hidden)
+            action = mean + torch.exp(log_std) * action_noise(mean, state.generator)
+            log_prob = gaussian_log_prob(mean, log_std, action)
+            env_state, next_obs, reward, done = env_step(env_state, action, state.generator)
+            hidden = _zero_done(h2, done)
+            steps.append(Transition(obs=obs, action=action, log_prob=log_prob, value=value,
+                                    reward=reward, done=done))
+            obs = next_obs
+        return (env_state, hidden), obs, _stack_steps(steps)
+
+    return rollout
+
+
+def make_recurrent_ppo(
+    apply_fn: Callable,  # apply_fn(params, obs, hidden) -> (mean, log_std, value, hidden')
+    env_step: Optional[Callable],  # env_step(env_state, action, generator)
+    #   -> (env_state, obs, reward, done); done doubles as the hidden's reset
+    #   mask, so it marks episode boundaries
+    config: PpoConfig,
+    metrics_fn: Optional[Callable] = None,
+    rollout_fn: Optional[Callable] = None,  # replaces make_recurrent_rollout's
+):
+    """Recurrent PPO for a GRU policy (JAX's ``make_recurrent_ppo``).
+
+    - The hidden rides ``PpoState.env_state`` as ``(env_state, hidden)``, so
+      checkpoints hold it; the rollout zeroes it where ``done`` fires and the
+      bootstrap value takes the final hidden.
+    - The learner is sequence-minibatched: a minibatch is a set of envs with
+      their whole T steps, re-scanned from the iteration's first hidden and
+      zeroed at ``batch.done`` (truncated BPTT over the rollout's T). Envs are
+      shuffled in blocks of ``max(1, min(shuffle_block, mb_envs))`` envs, or
+      singly when that block does not divide both ``num_envs`` and
+      ``mb_envs``. The entropy is taken from the first step's ``log_std``.
+    - As in JAX, ``num_envs % num_minibatches`` envs drop out of each epoch's
+      update (``mb_envs = num_envs // num_minibatches``): the ones the
+      permutation puts last.
+    """
+
+    rollout = (make_recurrent_rollout(apply_fn, env_step, config) if rollout_fn is None
+               else rollout_fn)
+
+    def init(params: torch.nn.Module, env_state, obs0, hidden0: torch.Tensor,
+             generator: torch.Generator) -> PpoState:
+        return PpoState(params=params, opt_state=make_optimizer(params, config),
+                        env_state=(env_state, hidden0), last_obs=obs0, generator=generator,
+                        update_count=0)
+
+    def _seq_loss(params, batch: Transition, h0, advantages, targets):
+        """batch leaves (T, M, ...); h0 (M, H); advantages, targets (T, M)."""
+        h, log_probs, values, log_stds = h0, [], [], []
+        for t in range(batch.reward.shape[0]):
+            obs_t = _tree_map(lambda x: x[t], batch.obs)
+            mean, log_std, value, h2 = apply_fn(params, obs_t, h)
+            log_probs.append(gaussian_log_prob(mean, log_std, batch.action[t]))
+            values.append(value)
+            log_stds.append(log_std)
+            h = _zero_done(h2, batch.done[t])
+        return _ppo_terms(config, batch, torch.stack(log_probs), torch.stack(values),
+                          log_stds[0], advantages, targets)
+
+    def train_iteration(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
+        net, opt, gen = state.params, state.opt_state, state.generator
+        h0 = state.env_state[1]  # the hidden at the rollout's first step
+        with torch.no_grad():
+            (env_state, hidden), last_obs, traj = rollout(state)
+            _, _, last_value, _ = apply_fn(net, last_obs, hidden)
+            advantages, targets = compute_gae(traj.reward, traj.value, traj.done, last_value,
+                                              config.gamma, config.gae_lambda)
+
+        num_envs = traj.reward.shape[1]
+        mb_envs = num_envs // config.num_minibatches
+        block = max(1, min(config.shuffle_block, mb_envs))
+        if num_envs % block or mb_envs % block:
+            block = 1
+        n_blocks, blocks_per_mb = num_envs // block, mb_envs // block
+        device = advantages.device
+
+        def take(x, bidx):  # (T, N, ...) -> the blocks' envs (T, mb_envs, ...)
+            xb = x.reshape((x.shape[0], n_blocks, block) + tuple(x.shape[2:]))
+            return xb[:, bidx].reshape((x.shape[0], mb_envs) + tuple(x.shape[2:]))
+
+        losses, metrics = [], {}
+        for _ in range(config.update_epochs):
+            perm = permutation(n_blocks, gen, device)
+            for idx in range(config.num_minibatches):
+                bidx = perm[idx * blocks_per_mb:(idx + 1) * blocks_per_mb]
+                mb = Transition(**{f.name: _tree_map(lambda x: take(x, bidx),
+                                                     getattr(traj, f.name))
+                                   for f in dataclasses.fields(Transition)})
+                h0_mb = h0.reshape((n_blocks, block) + tuple(h0.shape[1:]))[bidx].reshape(
+                    (mb_envs,) + tuple(h0.shape[1:]))
+                loss, m = _seq_loss(net, mb, h0_mb, take(advantages, bidx),
+                                    take(targets, bidx))
+                _update(net, opt, loss, config.max_grad_norm)
+                losses.append(loss.detach())
+                for k, v in m.items():
+                    metrics.setdefault(k, []).append(v.detach())
+
+        new_state = state.replace(env_state=(env_state, hidden), last_obs=last_obs,
+                                  update_count=state.update_count + 1)
+        return new_state, _info(losses, metrics, traj, metrics_fn, env_state)
 
     return init, train_iteration
 

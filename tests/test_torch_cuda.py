@@ -27,7 +27,16 @@ the policy's mean and value within TOL_BF16_HEADS (4e-3,
 tests/test_torch_actor_order.py) of the kernel's. K8 (the race rollout)
 likewise: frames (the stacks), env ends, t, next gate, gates passed and the
 flush flag equal, the rest within K7's tolerances. The state net
-(``ActorCritic``, float32, TF32 off) holds its CPU outputs within 1e-5.
+(``ActorCritic``, float32, TF32 off) holds its CPU outputs within 1e-5; so
+do the conv and GRU pixel nets in float32, inside their ``flax_reductions``
+scope (cuBLAS's bf16 reduced-precision reductions and cuDNN's TF32 off:
+Flax's float32 sums, one rounding). In bf16 the libraries sum in another
+order than the CPU and cuDNN's bf16 convolutions are not all correctly
+rounded, so a few of a layer's outputs land off: the bf16 nets are
+teacher-forced layer by layer (within one bf16 step at the layer's largest
+output, at most 1 % of its outputs off; the float32 GRU and heads on the
+CPU's features within 1e-5). K5 renders the 4-agent race, the opponents and
+obstacles as per-camera spheres, with levels equal.
 """
 
 import numpy as np
@@ -586,3 +595,141 @@ def test_state_net_on_the_card_matches_the_cpu(cuda_device):
     for a, b in zip(out, ref):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
     assert ref[2].abs().max() > 1e-2  # premise: the value head is not all zero
+
+
+def _pixel_net_pair(device, torso, gru, bf16, hw=(72, 96), proprio=5):
+    from fpyv_tpu_torch.models.policy import PixelActorCritic
+
+    kw = dict(action_dim=4, n_patches=(hw[0] // 8) * (hw[1] // 8), proprio_dim=proprio,
+              torso=torso, gru=gru, image_hw=hw,
+              compute_dtype=torch.bfloat16 if bf16 else None)
+    net = PixelActorCritic(device="cpu", **kw).init_params(torch.Generator().manual_seed(5))
+    card = PixelActorCritic(device=device, **kw)
+    card.load_state_dict(net.state_dict())
+    return net, card
+
+
+def _bf16_layers_teacher_forced(net, card, args, device):
+    """Each bf16 layer of the card's net fed the CPU net's own input to it:
+    its outputs within one bf16 step at the layer's largest output (2^-8 of
+    it) of the CPU's and at most 1 % of them off; the float32 tail (the
+    GRU, the heads) fed the CPU's features within 1e-5."""
+    from fpyv_tpu_torch.models import policy as tpolicy
+
+    calls, names = [], {id(m): n for n, m in net.named_modules()}
+    real_dense, real_conv = tpolicy.dense, tpolicy.F.conv2d
+
+    def dense_rec(layer, x, dtype):
+        out = real_dense(layer, x, dtype)
+        if dtype is not None:
+            name = names[id(layer)]
+            calls.append((lambda xc: real_dense(card.get_submodule(name), xc, dtype), x, out))
+        return out
+
+    def conv_rec(x, w, **kw):
+        out = real_conv(x, w, **kw)
+        calls.append((lambda xc: real_conv(xc, w.to(device), **kw), x, out))
+        return out
+
+    tpolicy.dense, tpolicy.F.conv2d = dense_rec, conv_rec
+    try:
+        with torch.no_grad():
+            feats = net.features(*args[:2])
+    finally:
+        tpolicy.dense, tpolicy.F.conv2d = real_dense, real_conv
+    assert len(calls) >= 2
+    with torch.no_grad(), card.numerics():
+        for run, x, out in calls:
+            got, ref = run(x.to(device)).cpu().float(), out.float()
+            d = (got - ref).abs()
+            assert d.max() <= 2.0 ** -8 * ref.abs().max() and (d > 0).float().mean() <= 1e-2
+        tail = card.heads(feats.to(device), *(a.to(device) for a in args[2:]))
+        for a, b in zip(tail, net.heads(feats, *args[2:])):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("torso,gru,bf16", [("conv", 0, False), ("conv", 0, True),
+                                            ("patch", 128, False), ("patch", 128, True),
+                                            ("conv", 128, False)])
+def test_pixel_nets_on_the_card_match_the_cpu(cuda_device, torso, gru, bf16):
+    """The conv net (train_vision's round-2 recipe) and the GRU net (the
+    race's recurrent recipe, GRU-128) on the card against the same weights
+    on the CPU over 256 frames of 96x72 levels, cuBLAS's bf16
+    reduced-precision reductions and cuDNN's TF32 off inside the net and as
+    they were after: float32 end to end within 1e-5; bf16 teacher-forced
+    layer by layer. (End to end, one fc0 unit a bf16 step away, which the
+    libraries' other sum order gives about 1 in 5000 units, moves the
+    untrained policy mean by ~1e-3 of its largest value through pi_mean's
+    0.01-scale weights, so the CPU tests' bf16 tolerance does not hold there
+    on the card.)"""
+    proprio = 11 if gru else 5
+    net, card = _pixel_net_pair(cuda_device, torso, gru, bf16, proprio=proprio)
+    g = torch.Generator().manual_seed(6)
+    px = torch.randint(0, 256, (256, 72, 96), generator=g, dtype=torch.uint8)
+    pr = torch.randn(256, proprio, generator=g)
+    args = [px, pr] + ([torch.randn(256, gru, generator=g)] if gru else [])
+    flags = (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+             torch.backends.cudnn.allow_tf32)
+    with torch.no_grad():
+        ref = net(*args)
+        out = card(*(a.to(cuda_device) for a in args))
+    assert (torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            torch.backends.cudnn.allow_tf32) == flags
+    assert all(torch.isfinite(o).all() for o in out)
+    if bf16:
+        _bf16_layers_teacher_forced(net, card, args, cuda_device)
+    else:
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+    assert ref[2].abs().max() > 1e-2  # premise: the value head is not all zero
+
+
+def race_frames(device, n_races=64, n_agents=4, steps=5):
+    """The 4-agent race with 3 obstacles, a few steps from a reset: K5's
+    inputs for every agent's camera (the others and the obstacles as
+    per-camera spheres)."""
+    from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv
+    from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
+
+    venv = VisionRaceEnv(race=MultiRaceEnv(n_agents=n_agents, n_obstacles=3,
+                                           max_episode_steps=2000))
+    world = venv.default_world(device)
+    g = torch.Generator().manual_seed(8)
+    st, _ = venv.reset_batched(g, world, n_races)
+    act = torch.zeros(n_races * n_agents, 4, device=device)
+    act[:, 3] = -0.3
+    for _ in range(steps):
+        st, *_ = venv.step_batched(st, act, world, generator=g)
+    cam_pos, cam_R, rworld, include = venv.render_scene(st, world)
+    return venv, vk.render_inputs(venv.rig, cam_pos, cam_R, rworld, venv.max_depth, include,
+                                  None, venv.frame_width)
+
+
+@pytest.mark.cuda
+def test_cuda_k5_renders_the_four_agent_race(cuda_device):
+    venv, (cfg, dcam, cam, wcol) = race_frames(cuda_device)
+    assert cfg.n_spheres == 3 + 3  # 3 opponents and 3 obstacles a camera
+    out = vk.launch_render_depth(cfg, dcam, cam, wcol)
+    torch.cuda.synchronize()
+    ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    assert (ref > 0).float().mean() > 0.05  # premise: the track is in view
+
+
+@pytest.mark.cuda
+def test_cuda_scan_trainers_launch_k5_a_step(cuda_device):
+    """train_vision on the scan rollout (conv torso) and the GRU race
+    trainer at 2 agents: K5 once an env step and the bootstrap aside
+    nothing else (K7 and K8 at 0), finite rewards."""
+    from fpyv_tpu_torch.apps.train import train_vision, train_vision_race
+
+    for train, kw in ((train_vision, dict(rollout="scan", torso="conv")),
+                      (train_vision_race, dict(n_agents=2, gru=16))):
+        _build.reset_launch_counts()
+        res = train(num_envs=64, num_iterations=2, num_steps=8, scan_chunk=1, print_every=0,
+                    **kw)
+        assert _build.launch_counts["render_depth"] >= 2 * 8
+        assert _build.launch_counts["policy_vision_rollout"] == 0
+        assert _build.launch_counts["race_vision_rollout"] == 0
+        assert np.isfinite(res.mean_reward_last)

@@ -298,15 +298,10 @@ def test_play_policy_reads_a_port_checkpoint(tmp_path):
     assert out["steps"] == 4 and np.isfinite(out["mean_reward_per_step"])
 
 
-@pytest.mark.parametrize("case,item", [("gru", 4), ("conv", 3), ("video", 9)])
+# conv and GRU weights play in tests/test_torch_scan_trainers.py
+@pytest.mark.parametrize("case,item", [("video", 9)])
 def test_play_policy_refuses_unported_paths(case, item):
-    tree = _flagship_tree()
-    kw = dict(env_name="vision_race", frame_stack=4, steps=4, chunk=4, device="cpu")
-    if case == "gru":
-        tree = {"params": dict(tree["params"], gru={"hz": {"kernel": np.zeros((8, 8))}})}
-    elif case == "conv":
-        tree = {"params": {"conv0": {"kernel": np.zeros((3, 3, 4, 16))}}}
-    else:
-        kw["save_video"] = "flight.mp4"
+    kw = dict(env_name="vision_race", frame_stack=4, steps=4, chunk=4, device="cpu",
+              save_video="flight.mp4")
     with pytest.raises(ValueError, match=f"ROADMAP queue 1 item {item}"):
-        play_policy(params=tree, **kw)
+        play_policy(params=_flagship_tree(), **kw)

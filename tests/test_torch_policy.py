@@ -193,13 +193,16 @@ def test_actor_critic_init_follows_flax():
     assert not torch.equal(net.pi_dense0.weight, net.v_dense0.weight)  # premise: fresh draws
 
 
-def test_unported_options_raise():
-    with pytest.raises(ValueError, match="ROADMAP"):
+def test_bad_options_raise():
+    """The conv torso, the GRU and Adam's bf16 moment are ported
+    (tests/test_torch_conv_gru.py, tests/test_torch_recurrent.py); what
+    neither package has raises."""
+    with pytest.raises(ValueError, match="torso must be"):
+        TNet(action_dim=4, n_patches=NP, torso="vit", device="cpu")
+    with pytest.raises(ValueError, match="image_hw"):
         TNet(action_dim=4, n_patches=NP, torso="conv", device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TNet(action_dim=4, n_patches=NP, torso="patch", gru=32, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        PpoConfig(adam_mu_dtype="bf16")
+    with pytest.raises(ValueError, match="adam_mu_dtype"):
+        PpoConfig(adam_mu_dtype="fp8")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
