@@ -150,7 +150,26 @@ each:
    num_envs=256, n_agents=4, permute_spawns=True, gru=128, gate_size=7.0)``
    (``tools/experiments_r5.py:580``, 1024 learner rows), 6 iterations: K5 a
    step, the rate, the split, a trace, the mean gates passed, and a finite,
-   non-zero hidden in the final checkpoint.
+   non-zero hidden in the final checkpoint;
+24. SAC's actor and twin critic, and one train step with one update
+   (batch 2048 from a replay of 66 560), on the card against the same
+   weights, replay and draws on the CPU (the draws fed through the
+   learner's seams; float32, TF32 off): forward within 1e-5, losses,
+   alpha and entropy within 1e-6 + 1e-5 relative, every parameter within
+   1e-6 + 1e-4 relative;
+25. the SAC main path with its counters at 0 (they must stay 0):
+   ``train_sac``'s defaults (1024 envs, buffer 500 000, batch 2048, 8
+   updates a step, 50 warm-up steps), 300 iterations in chunks of 100, the
+   first left out: trained env-steps/s (transitions stored a second), the
+   reward, alpha and entropy, the replay's fill (a spy on its insert), the
+   split of an iteration (the env step and its insert, the updates) and a
+   trace;
+26. the ES main path with its counters at 0: ``train_es(env_name="acro")``'s
+   defaults (256 candidates x 256 envs x 60 steps), 6 generations in
+   chunks of 2, the first left out: fitness-rollout env-steps/s and the
+   generation-best fitness; one generation split with CUDA events into
+   the candidates' batched forward, the eager env step and the rest, and
+   a trace; then 2 generations on ``env_name="rotate"``, finite fitness.
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -225,6 +244,10 @@ FLAGSHIP_TPU_GATES = 51.72  # the JAX package's eval on the TPU (BENCH_r05.json)
 SCAN_ITERS, SCAN_CHUNK = 6, 2  # the scan trainers: 6 iterations, the first chunk of 2 left out
 CURRICULUM_ITERS = 4
 GRU_RACES, GRU_AGENTS, GRU_WIDTH = 256, 4, 128  # tools/experiments_r5.py:580's recipe
+SAC_ENVS, SAC_BATCH, SAC_BUFFER = 1024, 2048, 500_000  # train_sac's defaults (8 updates a step)
+SAC_WARMUP, SAC_ITERS, SAC_CHUNK = 50, 300, 100  # the first chunk of 100 left out
+SAC_PREFILL = 65536  # phase 24's replay before its one step
+ES_ITERS, ES_CHUNK = 6, 2  # train_es's defaults: 256 candidates x 256 envs x 60 steps
 
 # H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
@@ -367,7 +390,9 @@ def read_counts(label: str, names, launches: dict) -> None:
 def device_busy(fn, top: int = 5):
     """Run fn under torch.profiler: (summed device time of the kernels /
     wall time, the ``top`` kernels by device time in ms). Only device-side
-    events count (an ``aten::`` op's row repeats its kernels' time); the sum
+    events count (an ``aten::`` op's row repeats its kernels' time), and no
+    user annotation (``Optimizer.step#Adam.step`` is a device-side range
+    around Adam's kernels, which would count them twice); the sum
     over-counts where kernels overlap; 0.0 where the trace shows no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -378,7 +403,8 @@ def device_busy(fn, top: int = 5):
         wall = time.perf_counter() - t0
     by_name = {}  # names cut to 60 characters; kernels that share a cut name add up
     for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) == DeviceType.CUDA:
+        if (getattr(ev, "device_type", None) == DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             by_name[ev.key[:60]] = by_name.get(ev.key[:60], 0.0) + ev.device_time_total
     busy = sum(by_name.values()) * 1e-6 / wall
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
@@ -1307,6 +1333,255 @@ def gru_race_trainer(smi: str) -> None:
                   rollout=f"{K7_STEPS} eager env steps")
 
 
+@contextlib.contextmanager
+def swapped(owner, name: str, value):
+    """``owner.name`` replaced by ``value`` inside the scope (a seam fed with
+    fixed draws, or a spy); yields the original."""
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield real
+    finally:
+        setattr(owner, name, real)
+
+
+def event_spy(spans: dict, kind: str, fn):
+    """``fn`` wrapped to record a pair of CUDA events around each call, kept
+    in ``spans[kind]``."""
+    def wrapper(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*a, **k)
+        ev[1].record()
+        spans[kind].append(ev)
+        return out
+    return wrapper
+
+
+def sac_update_check(dev) -> None:
+    """The SAC actor and critic, and one train step with one update, on the
+    card against the same weights, replay and draws on the CPU (float32,
+    TF32 off). The draws go through the learner's seams
+    (``rl.replay.replay_indices``, ``rl.sac.squash_noise``); the env step
+    is a fixed transition. Forward within 1e-5; the update's losses, alpha
+    and entropy within 1e-6 + 1e-5 relative, every parameter of the actor,
+    critic and target critic and log_alpha within 1e-6 + 1e-4 relative."""
+    from fpyv_tpu_torch.models.policy import SquashedGaussianActor, TwinQNetwork
+    from fpyv_tpu_torch.rl import replay as rp
+    from fpyv_tpu_torch.rl import sac as rs
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls")
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    g = torch.Generator().manual_seed(5)
+    _, obs = env.reset(g, env.default_world("cpu"), (SAC_ENVS,))
+    O = env.obs_dim
+    actor = SquashedGaussianActor(4, O, device="cpu").init_params(g)
+    critic = TwinQNetwork(O, 4, device="cpu").init_params(g)
+    pre = (torch.randn(SAC_PREFILL, O, generator=g), 2.0 * torch.rand(SAC_PREFILL, 4, generator=g)
+           - 1.0, torch.randn(SAC_PREFILL, generator=g), torch.randn(SAC_PREFILL, O, generator=g),
+           torch.rand(SAC_PREFILL, generator=g) < 0.05)
+    step_out = (obs + 0.01 * torch.randn(obs.shape, generator=g),
+                torch.randn(SAC_ENVS, generator=g), torch.rand(SAC_ENVS, generator=g) < 0.05)
+    idx = torch.randint(0, SAC_PREFILL + SAC_ENVS, (SAC_BATCH,), generator=g)
+    noises = (torch.randn(SAC_ENVS, 4, generator=g), torch.randn(SAC_BATCH, 4, generator=g),
+              torch.randn(SAC_BATCH, 4, generator=g))  # the action's, the next action's, the actor's
+
+    def run(device):
+        a = SquashedGaussianActor(4, O, device=device)
+        c = TwinQNetwork(O, 4, device=device)
+        a.load_state_dict(actor.state_dict())
+        c.load_state_dict(critic.state_dict())
+        nxt, rew, done = (x.to(device) for x in step_out)
+        cfg = rs.SacConfig(num_envs=SAC_ENVS, buffer_capacity=SAC_BUFFER, batch_size=SAC_BATCH)
+        init, step = rs.make_sac(lambda st, act, gen: (st, nxt, rew, done), cfg, O, 4)
+        state = init(a, c, None, obs.to(device), torch.Generator(device=device))
+        state = state.replace(buffer=rp.replay_add_batch(state.buffer,
+                                                         *(x.to(device) for x in pre)))
+        queue = list(noises)
+        with torch.no_grad():
+            fwd = (*a(obs.to(device)), *c(obs.to(device), pre[1][:SAC_ENVS].to(device)))
+        with swapped(rs, "squash_noise", lambda shape, gen, dtype, d: queue.pop(0).to(d)), \
+                swapped(rp, "replay_indices", lambda b, high, gen, d: idx.to(d)):
+            state, metrics = step(state)
+        if queue:
+            raise AssertionError("phase 24: the step took fewer draws than fed")
+        params = {f"{net}.{k}": v.detach() for net, m in (("actor", state.actor),
+                                                           ("critic", state.critic),
+                                                           ("target", state.target_critic))
+                  for k, v in m.state_dict().items()}
+        params["log_alpha"] = state.log_alpha.detach()
+        return [x.detach() for x in fwd], metrics, params
+
+    cpu_fwd, cpu_m, cpu_p = run(torch.device("cpu"))
+    card_fwd, card_m, card_p = run(dev)
+    fwd_err = max((x.cpu() - y).abs().max().item() for x, y in zip(card_fwd, cpu_fwd))
+    if not fwd_err <= 1e-5:
+        raise AssertionError(f"SAC nets: max abs err {fwd_err} > 1e-5 against the CPU")
+    m_err = {k: abs(card_m[k].item() - cpu_m[k].item()) for k in cpu_m}
+    bad = [k for k, e in m_err.items() if not e <= 1e-6 + 1e-5 * abs(cpu_m[k].item())]
+    p_err = {k: (card_p[k].cpu() - v).abs().max().item() for k, v in cpu_p.items()}
+    bad += [k for k, v in cpu_p.items()
+            if not ((card_p[k].cpu() - v).abs() <= 1e-6 + 1e-4 * v.abs()).all()]
+    if bad:
+        raise AssertionError(f"SAC update on the card against the CPU: {bad} off; metrics "
+                             f"{m_err}, params {p_err}")
+    moved = (cpu_p["actor.mean.bias"].abs().max().item(), abs(cpu_p["log_alpha"].item()))
+    if not min(moved) > 1e-4:
+        raise AssertionError(f"SAC update: the step did not move the actor or alpha {moved}")
+    log(f"SAC nets (actor and twin critic, float32, N={SAC_ENVS}) on the card against the CPU: "
+        f"max abs err {fwd_err}; one step + one update (batch {SAC_BATCH}, replay "
+        f"{SAC_PREFILL + SAC_ENVS} of {SAC_BUFFER}, the same draws): metrics "
+        f"{json.dumps({k: cpu_m[k].item() for k in cpu_m})}, abs err {json.dumps(m_err)}; "
+        f"largest parameter err {max(p_err.values())} ({max(p_err, key=p_err.get)})")
+
+
+def sac_main_path(smi: str) -> None:
+    """``train_sac``'s defaults (1024 envs, buffer 500 000, batch 2048, 8
+    updates a step, 50 warm-up steps) for 300 iterations in chunks of 100,
+    the first left out, with its counters at 0 (no kernel: they must stay
+    0); the replay's fill through a spy on its insert; then the split of an
+    iteration with CUDA events on spies around the env step and the replay
+    insert (the rest is the action sample and the updates), and a trace."""
+    from fpyv_tpu_torch.apps.train import make_sac_trainer, train_sac
+    from fpyv_tpu_torch.rl import sac as rs
+
+    fills = []
+    real = rs.replay_add_batch
+
+    def spy(buf, *a):
+        out = real(buf, *a)
+        fills.append((out.size, out.ptr))
+        return out
+
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "sac_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with swapped(rs, "replay_add_batch", spy):
+        res = train_sac(num_envs=SAC_ENVS, num_iterations=SAC_ITERS, warmup_steps=SAC_WARMUP,
+                        buffer_capacity=SAC_BUFFER, batch_size=SAC_BATCH,
+                        scan_chunk=SAC_CHUNK, print_every=0, log_dir=str(log_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    if any(counts.values()):
+        raise AssertionError(f"SAC: the eager path launched {counts}")
+    rows = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    keys = ("critic_loss", "actor_loss", "alpha", "entropy", "mean_reward")
+    if len(rows) != SAC_ITERS or not all(math.isfinite(r[k]) for r in rows for k in keys):
+        raise AssertionError("SAC: missing or non-finite metrics")
+    want = min(SAC_BUFFER, SAC_ENVS * (SAC_WARMUP + SAC_ITERS))
+    if len(fills) != SAC_WARMUP + SAC_ITERS or fills[-1][0] != want:
+        raise AssertionError(f"SAC: {len(fills)} inserts, replay size {fills[-1]}, want {want}")
+    log(f"SAC main path: {res.steps_per_second:.6e} trained env-steps/s (transitions stored a "
+        f"second; N={SAC_ENVS}, batch {SAC_BATCH}, 8 updates a step, {SAC_WARMUP} warm-up steps, "
+        f"{SAC_ITERS} iterations in chunks of {SAC_CHUNK}, first chunk left out; {wall:.3f} s in "
+        f"all), reward {res.mean_reward_first:.6f} -> {res.mean_reward_last:.6f}, alpha "
+        f"{rows[0]['alpha']:.6f} -> {rows[-1]['alpha']:.6f}, entropy {rows[-1]['entropy']:.6f}, "
+        f"critic loss {rows[-1]['critic_loss']:.6f}; replay size {fills[-1][0]} of {SAC_BUFFER} "
+        f"(ptr {fills[-1][1]}); kernel launches {json.dumps(counts)}; on {smi}")
+
+    trainer = make_sac_trainer(num_envs=SAC_ENVS, buffer_capacity=SAC_BUFFER,
+                               batch_size=SAC_BATCH)
+    state, _ = trainer.train_iteration(trainer.state)  # warm-up
+    split = []
+    for _ in range(3):
+        spans = {"env step": [], "insert": []}
+        whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        with swapped(AcroEnv, "step", event_spy(spans, "env step", AcroEnv.step)), \
+                swapped(rs, "replay_add_batch", event_spy(spans, "insert", rs.replay_add_batch)):
+            whole[0].record()
+            state, _ = trainer.train_iteration(state)
+            whole[1].record()
+        torch.cuda.synchronize()
+        if len(spans["env step"]) != 1 or len(spans["insert"]) != 1:
+            raise AssertionError(f"SAC: an iteration ran {len(spans['env step'])} env steps and "
+                                 f"{len(spans['insert'])} inserts, want 1 and 1")
+        split.append((whole[0].elapsed_time(whole[1]),) + tuple(
+            a.elapsed_time(b) for a, b in (spans["env step"][0], spans["insert"][0])))
+    it_ms, env_ms, ins_ms = min(split)
+    log(f"SAC iteration split (CUDA events, best of 3 by the whole iteration): whole "
+        f"{it_ms:.6f} ms, the env step {env_ms:.6f} ms, the replay insert {ins_ms:.6f} ms, the "
+        f"rest (the action sample and the 8 updates) {it_ms - env_ms - ins_ms:.6f} ms; all "
+        f"{json.dumps([[round(x, 6) for x in r] for r in split])}")
+
+    def one_iteration():
+        nonlocal state
+        state, _ = trainer.train_iteration(state)
+        torch.cuda.synchronize()
+
+    busy, top = device_busy(one_iteration, top=8)
+    log(f"SAC trace: device busy {busy:.6f} of one iteration's wall time; top kernels by device "
+        f"time (ms): {json.dumps(top)}")
+
+
+def es_main_path(smi: str) -> None:
+    """``train_es(env_name="acro")``'s defaults (128 antithetic pairs, 256
+    envs a candidate, 60 steps: 65 536 envs a step) for 6 generations in
+    chunks of 2, the first left out, with its counters at 0 (no kernel);
+    then one generation split with CUDA events into the candidates'
+    batched forward, the eager env step and the rest, and a trace; then a
+    short ``env_name="rotate"`` run."""
+    from fpyv_tpu_torch.apps import train as tapp
+
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "es_log"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = tapp.train_es(env_name="acro", num_iterations=ES_ITERS, scan_chunk=ES_CHUNK,
+                        print_every=0, log_dir=str(log_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    if any(counts.values()):
+        raise AssertionError(f"ES: the eager path launched {counts}")
+    rows = [json.loads(ln) for ln in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != ES_ITERS or not all(math.isfinite(r["gen_best_fitness"]) for r in rows):
+        raise AssertionError("ES: missing or non-finite generation-best fitness")
+    log(f"ES main path (acro): {res.steps_per_second:.6e} fitness-rollout env-steps/s (256 "
+        f"candidates x 256 envs x 60 steps = 3932160 env-steps a generation, {ES_ITERS} "
+        f"generations in chunks of {ES_CHUNK}, first chunk left out; {wall:.3f} s in all), "
+        f"generation-best fitness {res.mean_reward_first:.6f} -> {res.mean_reward_last:.6f} "
+        f"({json.dumps([round(r['gen_best_fitness'], 6) for r in rows])}); kernel launches "
+        f"{json.dumps(counts)}; on {smi}")
+
+    trainer = tapp.make_es_trainer(env_name="acro")
+    state, _ = trainer.run_chunk(trainer.state, 1, trainer.generator)  # warm-up
+    spans = {"forward": [], "env step": []}
+    whole = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    with swapped(tapp, "actor_mean_batched",
+                 event_spy(spans, "forward", tapp.actor_mean_batched)), \
+            swapped(AcroEnv, "step", event_spy(spans, "env step", AcroEnv.step)):
+        whole[0].record()
+        state, _ = trainer.run_chunk(state, 1, trainer.generator)
+        whole[1].record()
+    torch.cuda.synchronize()
+    gen_ms = whole[0].elapsed_time(whole[1])
+    split = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    log(f"ES generation split (CUDA events, acro, 65536 envs a step): whole generation "
+        f"{gen_ms:.6f} ms; {len(spans['forward'])} batched forwards {split['forward']:.6f} ms, "
+        f"{len(spans['env step'])} eager env steps {split['env step']:.6f} ms "
+        f"({split['env step'] / max(1, len(spans['env step'])):.6f} ms a step), the rest "
+        f"(resets, the ranks, theta's step) {gen_ms - sum(split.values()):.6f} ms")
+
+    def one_generation():
+        nonlocal state
+        state, _ = trainer.run_chunk(state, 1, trainer.generator)
+        torch.cuda.synchronize()
+
+    busy, top = device_busy(one_generation, top=8)
+    log(f"ES trace: device busy {busy:.6f} of one generation's wall time; top kernels by device "
+        f"time (ms): {json.dumps(top)}")
+
+    rot = tapp.train_es(env_name="rotate", num_iterations=2, scan_chunk=1, print_every=0)
+    if not (math.isfinite(rot.mean_reward_first) and math.isfinite(rot.mean_reward_last)):
+        raise AssertionError(f"ES on rotate: non-finite fitness {rot}")
+    log(f"ES on rotate (defaults, 2 generations): generation-best fitness "
+        f"{rot.mean_reward_first:.6f} -> {rot.mean_reward_last:.6f}, {rot.steps_per_second:.6e} "
+        f"env-steps/s (the second generation)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -1933,6 +2208,21 @@ def main() -> int:
     t0 = time.perf_counter()
     gru_race_trainer(smi)
     log(f"phase 23 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 24. the SAC nets and one update on the card against the CPU -------------------
+    t0 = time.perf_counter()
+    sac_update_check(dev)
+    log(f"phase 24 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 25. SAC main path at full width, counters from 0 --------------------------------
+    t0 = time.perf_counter()
+    sac_main_path(smi)
+    log(f"phase 25 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 26. ES main path at full width, counters from 0 ---------------------------------
+    t0 = time.perf_counter()
+    es_main_path(smi)
+    log(f"phase 26 took {time.perf_counter() - t0:.3f} s")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

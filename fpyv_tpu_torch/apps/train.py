@@ -1,5 +1,6 @@
-"""PPO trainers (mirrors ``fpyv_tpu.apps.train``'s ``train_acro``,
-``train_race``, ``train_vision`` and ``train_vision_race``).
+"""Trainers (mirrors ``fpyv_tpu.apps.train``): the PPO trainers
+``train_acro``, ``train_race``, ``train_vision`` and ``train_vision_race``,
+off-policy ``train_sac`` and gradient-free ``train_es``.
 
 ``train_acro`` trains the state-observation ``ActorCritic`` on ``AcroEnv``
 (quaternion attitude, the default world), and ``train_race`` one shared
@@ -39,9 +40,19 @@ the env's flattened ``crashed``, race resets included), the conv torso and
 ``gru > 0`` through :func:`fpyv_tpu_torch.rl.ppo.make_recurrent_ppo`, whose
 hidden rides the carry as ``(env_state, hidden)``.
 
-Checkpoints hold the full state (params, Adam, the env carry with its worlds,
-frame history or hidden, last obs, generator), so a resumed run continues
-exactly as an unbroken one. ``adam_mu_dtype="bf16"`` stores Adam's first
+``train_sac`` runs SAC (:mod:`fpyv_tpu_torch.rl.sac`) on ``AcroEnv``: an
+iteration is one eager env step over the bank, its transitions into the
+device replay, then ``updates_per_step`` updates; its generators live on
+the training device. ``train_es`` runs NES (:mod:`fpyv_tpu_torch.rl.es`) on
+``ActorCritic``'s flattened parameters over ``AcroEnv`` or ``RotateEnv``:
+every generation evaluates all candidates at once on a (2P, num_envs)
+bank, one batched forward of the candidates' nets a step, the reset draws
+shared across candidates (common random numbers).
+
+The PPO trainers' checkpoints hold the full state (params, Adam, the env
+carry with its worlds, frame history or hidden, last obs, generator), so a
+resumed run continues exactly as an unbroken one (as in JAX, SAC and ES keep
+none). ``adam_mu_dtype="bf16"`` stores Adam's first
 moment in bfloat16 in every pixel trainer.
 
 Not ported yet, and refused with a ValueError: multi-device training in
@@ -50,6 +61,7 @@ every trainer (ROADMAP queue 1 item 8).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -58,13 +70,22 @@ import torch
 
 from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.envs.acro import AcroEnv
+from fpyv_tpu_torch.envs.rotate import RotateEnv
 from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv, make_shared_policy_env_step
 from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv
 from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv
-from fpyv_tpu_torch.models.policy import ActorCritic, PixelActorCritic
+from fpyv_tpu_torch.interop import policy_params_to_numpy
+from fpyv_tpu_torch.models.policy import (
+    ActorCritic,
+    PixelActorCritic,
+    SquashedGaussianActor,
+    TwinQNetwork,
+    actor_mean_batched,
+)
 from fpyv_tpu_torch.ops.policy_kernel import PP, acro_state_to_cols, make_kernel_vision_ppo_parts
 from fpyv_tpu_torch.ops.race_kernel import make_kernel_race_ppo_parts
 from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.rl.es import make_policy_es
 from fpyv_tpu_torch.rl.ppo import (
     PpoConfig,
     make_ppo,
@@ -73,6 +94,7 @@ from fpyv_tpu_torch.rl.ppo import (
     make_step_rollout,
     scan_train,
 )
+from fpyv_tpu_torch.rl.sac import SacConfig, make_sac
 from fpyv_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from fpyv_tpu_torch.utils.metrics import MetricsLogger
 from fpyv_tpu_torch.utils.profiling import Throughput
@@ -89,12 +111,13 @@ class TrainResult:
 
 def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, start_iter,
                 scan_chunk, log_dir, print_every, checkpoint_dir,
-                checkpoint_every, chunk_hook=None) -> TrainResult:
+                checkpoint_every, chunk_hook=None, reward_key="mean_reward") -> TrainResult:
     """The chunked host loop: ``scan_chunk`` iterations, then ONE
     device-to-host read of their infos, which also ends the chunk's device
     work before the meter counts it. The first chunk is left out of the
     rate (warm-up). ``chunk_hook(state, it) -> state`` (optional) runs
-    before each chunk: the curriculum's world resample."""
+    before each chunk: the curriculum's world resample. The result's first
+    and last rewards are the info ``reward_key``'s."""
     logger = MetricsLogger(log_dir, print_every=print_every)
     meter = Throughput()
     first_reward = last_reward = float("nan")
@@ -108,7 +131,7 @@ def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, 
         state, infos = scan_train(train_iteration, state, n)
         keys = list(infos)
         host = torch.stack([infos[k].to(torch.float32) for k in keys]).cpu().numpy()
-        rewards = host[keys.index("mean_reward")].astype(np.float64)
+        rewards = host[keys.index(reward_key)].astype(np.float64)
         if first_chunk:
             first_reward = float(rewards[0])
             meter.reset()
@@ -126,11 +149,12 @@ def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, 
                        mean_reward_last=last_reward, steps_per_second=meter.rate())
 
 
-def _generators(seed: int):
-    """Four independent CPU generators (worlds, env resets, net init,
-    training), as the JAX trainer splits its key four ways."""
+def _generators(seed: int, device="cpu"):
+    """Four independent generators on ``device`` (the PPO trainers': worlds,
+    env resets, net init, training, on the CPU), as the JAX trainer splits
+    its key four ways."""
     seeds = np.random.SeedSequence(seed).generate_state(4)
-    return [torch.Generator().manual_seed(int(s)) for s in seeds]
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds]
 
 
 def _chunk_generator(seed: int, it: int) -> torch.Generator:
@@ -147,8 +171,8 @@ class Trainer:
     """A trainer's pieces: the PPO state (the net, Adam, the env carry, the
     bootstrap obs, the generator), one iteration, the rollout alone (T
     eager env steps, or one K7 or K8 launch and the bootstrap frame), which
-    the iteration runs first, and the hook run before each chunk (or
-    None)."""
+    the iteration runs first (None for SAC, whose iteration is one env
+    step), and the hook run before each chunk (or None)."""
 
     state: object
     train_iteration: object
@@ -650,3 +674,200 @@ def train_vision_race(
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
                              log_dir=log_dir, print_every=print_every,
                              checkpoint_every=checkpoint_every)
+
+
+def make_sac_trainer(num_envs: int = 1024, seed: int = 0, randomize: bool = False,
+                     buffer_capacity: int = 500_000, batch_size: int = 2048,
+                     updates_per_step: int = 8, hidden=(128, 128), device=None) -> Trainer:
+    """train_sac's pieces, ready to run: the env bank on the default world,
+    the SAC actor and critic, the learner. ``train_iteration(state,
+    random_actions=False)`` is one ``train_step`` (one env step, its
+    transitions stored, ``updates_per_step`` updates); no ``rollout_fn``.
+    The generators (env reset, actor init, critic init, training, JAX's
+    split order) live on the training device, so the env's reset draws and
+    the learner's draws are made there, not copied from the host; the CPU
+    and the card give different streams for one seed."""
+    device = resolve_device(device)
+    env = AcroEnv(params=DroneParams(att_mode="quat"), randomize=randomize)
+    world = env.default_world(device)
+    g_env, g_actor, g_critic, g_train = _generators(seed, device)
+    actor = SquashedGaussianActor(action_dim=4, obs_dim=env.obs_dim, hidden=hidden,
+                                  device=device).init_params(g_actor)
+    critic = TwinQNetwork(obs_dim=env.obs_dim, action_dim=4, hidden=hidden,
+                          device=device).init_params(g_critic)
+    config = SacConfig(num_envs=num_envs, buffer_capacity=buffer_capacity,
+                       batch_size=batch_size, updates_per_step=updates_per_step)
+
+    def env_step(env_state, action, generator):
+        st, obs, reward, _, info = env.step(env_state, action, world, generator=generator)
+        # done = terminations only (bootstrap at time limits); the replay
+        # stores the pre-reset successor at truncations, so the Q target
+        # bootstraps from the true next state, not the respawn
+        store_obs = torch.where(info["truncated"][..., None], info["final_obs"], obs)
+        return st, obs, reward, info["crashed"], store_obs
+
+    env_state, obs = env.reset(g_env, world, (num_envs,))
+    init, train_step = make_sac(env_step, config, env.obs_dim, 4)
+    return Trainer(init(actor, critic, env_state, obs, g_train), train_step, None)
+
+
+def train_sac(
+    num_envs: int = 1024,
+    num_iterations: int = 4000,  # env steps (each = num_envs transitions)
+    warmup_steps: int = 50,  # uniform-random exploration steps
+    seed: int = 0,
+    randomize: bool = False,
+    buffer_capacity: int = 500_000,
+    batch_size: int = 2048,
+    updates_per_step: int = 8,  # synchronized collection over 1024 envs is
+    #   data-rich and update-poor: the JAX package's recipe takes 8
+    hidden=(128, 128),
+    log_dir: Optional[str] = None,
+    print_every: int = 100,
+    scan_chunk: int = 100,  # env steps between host reads of the metrics
+    device=None,  # CUDA unless "cpu"
+) -> TrainResult:
+    """Off-policy SAC on ``AcroEnv``: ``warmup_steps`` steps of uniform
+    actions, then ``num_iterations`` iterations, each one synchronized env
+    step over the bank (``num_envs`` transitions into the replay) and
+    ``updates_per_step`` updates. Returns the rewards of the first and last
+    iteration and the trained env-steps/s (transitions stored a second)
+    after the first chunk. The metrics log holds every iteration. Like the
+    JAX trainer it keeps no checkpoint."""
+    trainer = make_sac_trainer(num_envs=num_envs, seed=seed, randomize=randomize,
+                               buffer_capacity=buffer_capacity, batch_size=batch_size,
+                               updates_per_step=updates_per_step, hidden=hidden, device=device)
+    state = trainer.state
+    for _ in range(warmup_steps):
+        state, _ = trainer.train_iteration(state, random_actions=True)
+    return _train_loop(state, trainer.train_iteration, num_envs=num_envs, num_steps=1,
+                       num_iterations=num_iterations, start_iter=0, scan_chunk=scan_chunk,
+                       log_dir=log_dir, print_every=print_every, checkpoint_dir=None,
+                       checkpoint_every=1)
+
+
+def _tile(tree, n: int):
+    """Every leaf of a state tree repeated along a new leading (n,) axis."""
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(**{f.name: _tile(getattr(tree, f.name), n)
+                             for f in dataclasses.fields(tree)})
+    return tree.expand((n,) + tuple(tree.shape)).contiguous()
+
+
+@dataclass
+class EsTrainer:
+    """train_es's pieces: the ES state (theta, sigma, best), ``run_chunk(state,
+    n, generator)``, ``unravel(theta)``, the batched fitness, the training
+    generator and the env-steps a generation."""
+
+    state: object
+    run_chunk: object
+    unravel: object
+    fitness: object
+    generator: torch.Generator
+    steps_per_generation: int
+
+
+def make_es_trainer(env_name: str = "acro", num_envs: int = 256, num_steps: int = 60,
+                    n_perturbations: int = 128, fitness_tail: Optional[int] = None,
+                    seed: int = 0, randomize: bool = False, noise_std: float = 0.05,
+                    learning_rate: float = 0.02, sigma_decay: float = 1.0, hidden=(64, 64),
+                    device=None) -> EsTrainer:
+    """train_es's pieces (arguments as :func:`train_es`'s). The fitness runs
+    all 2P candidates at once: the env bank is (2P, num_envs), every step
+    one batched forward of the candidates' nets (``actor_mean_batched``)
+    and one eager env step over the whole bank. With common random numbers
+    (the default) the reset draws are (num_envs,) and shared across the
+    candidates, at the start and at every auto-reset, as in JAX every
+    candidate's env i holds the same key."""
+    device = resolve_device(device)
+    if env_name == "acro":
+        env = AcroEnv(params=DroneParams(att_mode="quat"), randomize=randomize)
+        world = env.default_world(device)
+        action_dim, obs_dim = 4, env.obs_dim
+
+        def reset_fn(gen, shape):
+            return env.reset(gen, world, shape)
+
+        def step_fn(st, action, gen, reset_shape):
+            return env.step(st, action, world, generator=gen, reset_shape=reset_shape)
+    elif env_name == "rotate":
+        env = RotateEnv()
+        action_dim, obs_dim = 3, 18
+
+        def reset_fn(gen, shape):
+            return env.reset(gen, shape, device)
+
+        def step_fn(st, action, gen, reset_shape):
+            return env.step(st, action, gen, reset_shape=reset_shape)
+    else:
+        raise ValueError(f"unknown env for ES: {env_name!r}")
+
+    g_net, g_train = _generators(seed, device)[:2]
+    net = ActorCritic(action_dim=action_dim, obs_dim=obs_dim, hidden=hidden,
+                      device=device).init_params(g_net)
+    tail = num_steps if fitness_tail is None else min(fitness_tail, num_steps)
+    cands = 2 * n_perturbations
+
+    def fitness(p, generator, common):
+        st, obs = reset_fn(generator, (num_envs,) if common else (cands, num_envs))
+        if common:
+            st, obs = _tile(st, cands), _tile(obs, cands)
+        rewards = []
+        for _ in range(num_steps):
+            mean = actor_mean_batched(p, obs.reshape(cands, num_envs, -1))
+            st, obs, r, _, _ = step_fn(st, torch.tanh(mean), generator,
+                                       (num_envs,) if common else None)
+            rewards.append(r.mean(-1))
+        return torch.stack(rewards)[-tail:].mean(0)
+
+    init_state, run_chunk, unravel = make_policy_es(
+        policy_params_to_numpy(net), fitness, n_perturbations=n_perturbations, noise_std=noise_std,
+        learning_rate=learning_rate, sigma_decay=sigma_decay, device=device)
+    return EsTrainer(init_state(), run_chunk, unravel, fitness, g_train,
+                     2 * n_perturbations * num_envs * num_steps)
+
+
+def train_es(
+    env_name: str = "acro",
+    num_envs: int = 256,  # eval envs per candidate (fitness batch)
+    num_iterations: int = 400,  # generations
+    num_steps: int = 60,  # rollout horizon per fitness evaluation
+    n_perturbations: int = 128,  # population = 2x this (antithetic pairs)
+    fitness_tail: Optional[int] = None,  # mean reward over the last N steps
+    #   (None = the whole rollout)
+    seed: int = 0,
+    distributed: bool = False,
+    randomize: bool = False,
+    noise_std: float = 0.05,
+    learning_rate: float = 0.02,
+    sigma_decay: float = 1.0,
+    hidden=(64, 64),
+    log_dir: Optional[str] = None,
+    print_every: int = 10,
+    scan_chunk: int = 50,  # generations between host reads of the history
+    device=None,  # CUDA unless "cpu"
+) -> TrainResult:
+    """Evolution strategies: gradient-free NES on the ``ActorCritic`` policy.
+    Every generation evaluates 2 * n_perturbations candidate policies, each
+    on its own ``num_envs`` envs, all at once; the policy is tanh of the
+    actor's mean, as in PPO's nets, and the fitness the mean reward over the
+    last ``fitness_tail`` steps. Returns the first and last generation's
+    best fitness and the fitness rollouts' env-steps/s after the first
+    chunk."""
+    if distributed:
+        raise _one_device_only()
+    trainer = make_es_trainer(env_name=env_name, num_envs=num_envs, num_steps=num_steps,
+                              n_perturbations=n_perturbations, fitness_tail=fitness_tail,
+                              seed=seed, randomize=randomize, noise_std=noise_std,
+                              learning_rate=learning_rate, sigma_decay=sigma_decay,
+                              hidden=hidden, device=device)
+
+    def train_iteration(es_state):
+        es_state, hist = trainer.run_chunk(es_state, 1, trainer.generator)
+        return es_state, {"gen_best_fitness": hist[0]}
+
+    return _train_loop(trainer.state, train_iteration, num_envs=trainer.steps_per_generation,
+                       num_steps=1, num_iterations=num_iterations, start_iter=0,
+                       scan_chunk=scan_chunk, log_dir=log_dir, print_every=print_every,
+                       checkpoint_dir=None, checkpoint_every=1, reward_key="gen_best_fitness")

@@ -162,10 +162,13 @@ class AcroEnv:
 
     def step(self, state: AcroState, action, world: Optional[World] = None,
              wind: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, reset_shape=None):
         """Returns (state, obs, reward, done, info). Envs that crash or reach
         ``max_episode_steps`` restart from draws of ``generator`` (the
-        default generator of the state's device when None)."""
+        default generator of the state's device when None) of batch shape
+        ``reset_shape`` (the bank's when None): a trailing part of the
+        bank's shape shares each draw across the leading axes (the ES
+        fitness's common random numbers)."""
         world = self.default_world(state.drone.pos.device) if world is None else world
         action = torch.as_tensor(action, dtype=self.dtype, device=state.drone.pos.device)
         drone, imu = drone_step(self.params, state.drone, action, world,
@@ -191,7 +194,8 @@ class AcroEnv:
         if generator is None:
             generator = (torch.cuda.default_generators[drone.pos.device.index or 0]
                          if drone.pos.is_cuda else torch.default_generator)
-        reset_state = self._fresh(generator, world, tuple(done.shape))
+        reset_state = self._fresh(generator, world,
+                                  tuple(done.shape) if reset_shape is None else reset_shape)
         next_state = tree_where(done, reset_state, live_state)
 
         info = {

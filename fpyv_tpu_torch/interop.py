@@ -30,7 +30,14 @@ checkpoint nests the tree once more (``{"params": {"params": ...}}``, the
 state's field around Flax's collection); every level is peeled. A Flax
 ``kernel`` is ``(in, out)`` and an ``nn.Linear`` weight ``(out, in)``, so
 dense kernels are transposed; a conv kernel is HWIO in Flax and OIHW in an
-``nn.Conv2d``.
+``nn.Conv2d``. A leaf that is an array is a bare parameter, a dict a layer,
+so one converter also serves SAC's nets, whose actor's ``log_std`` is a
+layer: :func:`sac_params_from_numpy` and :func:`sac_params_to_numpy` carry
+the actor and critic trees as a pair.
+
+:func:`ravel_params` and :func:`unravel_params` flatten a tree into ES's
+theta and back in ``jax.flatten_util.ravel_pytree``'s order (keys sorted at
+every level), so the port's theta has JAX's length and layout.
 """
 
 from __future__ import annotations
@@ -144,9 +151,12 @@ def _kernel_from_weight(weight: np.ndarray) -> np.ndarray:
 
 
 def policy_params_from_numpy(tree: dict, device=None) -> dict:
-    """A Flax ``PixelActorCritic`` or ``ActorCritic`` parameter tree of
-    numpy arrays, bare, under ``"params"`` or under ``"params"`` twice, -> a
-    ``state_dict`` on ``device`` (CUDA unless told)."""
+    """A Flax ``PixelActorCritic``, ``ActorCritic``, ``SquashedGaussianActor``
+    or ``TwinQNetwork`` parameter tree of numpy arrays, bare, under
+    ``"params"`` or under ``"params"`` twice, -> a ``state_dict`` on
+    ``device`` (CUDA unless told). A leaf that is an array is a bare
+    parameter (``ActorCritic``'s ``log_std``); a dict is a layer (the SAC
+    actor's ``log_std`` is one) or a cell of layers."""
     device = resolve_device(device)
     p = tree
     while "params" in p:
@@ -159,8 +169,8 @@ def policy_params_from_numpy(tree: dict, device=None) -> dict:
             out[f"{prefix}.bias"] = _tensor(leaf["bias"], device)
 
     for name, leaf in p.items():
-        if name == "log_std":
-            out["log_std"] = _tensor(leaf, device)
+        if not isinstance(leaf, dict):  # a bare parameter (ActorCritic's log_std)
+            out[name] = _tensor(leaf, device)
         elif "kernel" in leaf:
             layer(_MODULE_NAMES.get(name, name), leaf)
         else:  # a cell of layers (the GRU)
@@ -170,13 +180,13 @@ def policy_params_from_numpy(tree: dict, device=None) -> dict:
 
 
 def policy_params_to_numpy(net) -> dict:
-    """A ``PixelActorCritic`` or ``ActorCritic`` (or its ``state_dict``)
-    -> the Flax tree ``{"params": {...}}`` of numpy arrays."""
+    """Any of those nets (or its ``state_dict``) -> the Flax tree
+    ``{"params": {...}}`` of numpy arrays."""
     sd = net.state_dict() if hasattr(net, "state_dict") else net
     params = {}
     for key, value in sd.items():
-        if key == "log_std":
-            params["log_std"] = _numpy(value)
+        if "." not in key:  # a bare parameter (ActorCritic's log_std)
+            params[key] = _numpy(value)
             continue
         *path, kind = key.split(".")
         node = params
@@ -194,3 +204,59 @@ def chase_from_numpy(d: dict, device=None):
     device = resolve_device(device)
     return (acro_state_from_numpy(d["state"], device), world_from_numpy(d["world"], device),
             *(_tensor(d[k], device) for k in CHASE_FIELDS[2:]))
+
+
+def sac_params_from_numpy(trees: dict, device=None):
+    """``{"actor": ..., "critic": ...}``, the Flax trees of a
+    ``SquashedGaussianActor`` and a ``TwinQNetwork`` -> their two
+    ``state_dict``s on ``device`` (CUDA unless told)."""
+    return (policy_params_from_numpy(trees["actor"], device),
+            policy_params_from_numpy(trees["critic"], device))
+
+
+def sac_params_to_numpy(actor, critic) -> dict:
+    """The SAC actor and critic (or their ``state_dict``s) -> ``{"actor":
+    {"params": ...}, "critic": {"params": ...}}`` of numpy arrays."""
+    return {"actor": policy_params_to_numpy(actor), "critic": policy_params_to_numpy(critic)}
+
+
+def _leaves(tree: dict):
+    """(path, leaf) pairs in JAX's flattening order: dict keys sorted."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            for path, leaf in _leaves(value):
+                yield (key,) + path, leaf
+        else:
+            yield (key,), value
+
+
+def ravel_params(tree: dict, device=None) -> torch.Tensor:
+    """A nested dict of arrays or tensors -> one flat float32 vector, the
+    leaves concatenated in ``jax.flatten_util.ravel_pytree``'s order (keys
+    sorted as strings at every level, each leaf in C order). On a Flax tree
+    from :func:`policy_params_to_numpy` that is JAX's own theta: kernels in
+    the (in, out) layout, ``bias`` before ``kernel``."""
+    flat = torch.cat([(leaf if isinstance(leaf, torch.Tensor) else
+                       torch.from_numpy(np.array(leaf, np.float32))).to(torch.float32).reshape(-1)
+                      for _, leaf in _leaves(tree)])
+    return flat if device is None else flat.to(device)
+
+
+def unravel_params(theta: torch.Tensor, like: dict) -> dict:
+    """:func:`ravel_params` undone: theta (..., dim) -> a tree shaped as
+    ``like``, each leaf a contiguous (..., *leaf.shape) tensor; leading dims
+    batch several parameter sets (a batched product over strided slices of
+    theta takes a slow path on the CPU)."""
+    leaves = [(path, tuple(np.shape(leaf))) for path, leaf in _leaves(like)]
+    sizes = [int(np.prod(shape, dtype=np.int64)) for _, shape in leaves]
+    if sum(sizes) != theta.shape[-1]:
+        raise ValueError(f"theta has {theta.shape[-1]} entries, the tree {sum(sizes)}")
+    lead, out, start = tuple(theta.shape[:-1]), {}, 0
+    for (path, shape), size in zip(leaves, sizes):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = theta[..., start:start + size].reshape(lead + shape).contiguous()
+        start += size
+    return out

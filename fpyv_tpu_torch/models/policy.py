@@ -1,4 +1,5 @@
-"""Actor-critics for the PPO learner (mirrors ``fpyv_tpu.models.policy``).
+"""Actor-critics for the PPO learner, and SAC's actor and critic (mirrors
+``fpyv_tpu.models.policy``).
 
 :class:`ActorCritic` is the state-observation net of ``train_acro`` and
 ``train_race``: a tanh (or relu) MLP torso for the Gaussian mean and a
@@ -36,6 +37,13 @@ b_iz + W_hz h)``, ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))``, ``h' =
 (1 - z) n + z h``. It is six ``nn.Linear``s named as Flax's (``hr`` and
 ``hz`` without a bias), not ``torch.nn.GRUCell``, which adds biases to the
 recurrent gates.
+
+:class:`SquashedGaussianActor` and :class:`TwinQNetwork` are SAC's nets:
+ReLU MLPs with Flax's default init (lecun_normal kernels, zero biases), the
+actor's ``log_std`` a Dense layer clipped to [-10, 2], the critic two
+independent Q heads over ``[obs, action]``. :func:`actor_mean_batched` runs
+``ActorCritic``'s mean for a batch of parameter sets at once (the ES
+trainer's candidates).
 
 Layers are ``nn.Linear`` (weight ``(out, in)``; Flax's kernel is ``(in,
 out)``, :mod:`fpyv_tpu_torch.interop` transposes) and ``nn.Conv2d`` (OIHW;
@@ -398,3 +406,91 @@ class PixelActorCritic(nn.Module):
         if self.gru:
             return mean, log_std, value, hidden
         return mean, log_std, value
+
+
+def _lecun_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default Dense init on every layer: lecun_normal kernels, zero
+    biases."""
+    for layer in module.children():
+        lecun_normal_(layer.weight, generator)
+        with torch.no_grad():
+            layer.bias.zero_()
+
+
+class SquashedGaussianActor(nn.Module):
+    """SAC's tanh-squashed Gaussian policy: a ReLU MLP (``dense{i}``), then
+    a ``mean`` layer and a ``log_std`` layer (a Dense layer here, not a free
+    parameter), clipped to [``log_std_min``, ``log_std_max``].
+    ``forward(obs)`` takes obs (..., O) and returns (mean, log_std), each
+    (..., A)."""
+
+    def __init__(self, action_dim: int, obs_dim: int, hidden: Sequence[int] = (128, 128),
+                 log_std_min: float = -10.0, log_std_max: float = 2.0, device=None):
+        super().__init__()
+        self.action_dim, self.obs_dim, self.hidden = action_dim, obs_dim, tuple(hidden)
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        kw = dict(dtype=torch.float32, device=device)
+        width = obs_dim
+        for i, h in enumerate(self.hidden):
+            self.add_module(f"dense{i}", nn.Linear(width, h, **kw))
+            width = h
+        self.mean = nn.Linear(width, action_dim, **kw)
+        self.log_std = nn.Linear(width, action_dim, **kw)
+
+    def init_params(self, generator: torch.Generator) -> "SquashedGaussianActor":
+        _lecun_init(self, generator)
+        return self
+
+    def forward(self, obs: torch.Tensor):
+        x = obs
+        for i in range(len(self.hidden)):
+            x = torch.relu(dense(getattr(self, f"dense{i}"), x, None))
+        log_std = torch.clamp(dense(self.log_std, x, None), self.log_std_min, self.log_std_max)
+        return dense(self.mean, x, None), log_std
+
+
+class TwinQNetwork(nn.Module):
+    """SAC's critic: two independent ReLU MLPs over ``[obs, action]``
+    (``q1_dense{i}``, ``q1_out``; ``q2_dense{i}``, ``q2_out``).
+    ``forward(obs, action)`` returns (q1, q2), each (...,)."""
+
+    def __init__(self, obs_dim: int, action_dim: int, hidden: Sequence[int] = (128, 128),
+                 device=None):
+        super().__init__()
+        self.obs_dim, self.action_dim, self.hidden = obs_dim, action_dim, tuple(hidden)
+        kw = dict(dtype=torch.float32, device=device)
+        for q in ("q1", "q2"):
+            width = obs_dim + action_dim
+            for i, h in enumerate(self.hidden):
+                self.add_module(f"{q}_dense{i}", nn.Linear(width, h, **kw))
+                width = h
+            self.add_module(f"{q}_out", nn.Linear(width, 1, **kw))
+
+    def init_params(self, generator: torch.Generator) -> "TwinQNetwork":
+        _lecun_init(self, generator)
+        return self
+
+    def _q(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        for i in range(len(self.hidden)):
+            x = torch.relu(dense(getattr(self, f"{name}_dense{i}"), x, None))
+        return dense(getattr(self, f"{name}_out"), x, None)[..., 0]
+
+    def forward(self, obs: torch.Tensor, action: torch.Tensor):
+        x = torch.cat([obs, action], dim=-1)
+        return self._q(x, "q1"), self._q(x, "q2")
+
+
+def actor_mean_batched(params: dict, obs: torch.Tensor, activation: str = "tanh") -> torch.Tensor:
+    """``ActorCritic``'s Gaussian mean for B parameter sets at once: the
+    Flax tree ``params`` (``pi_dense{i}`` and ``pi_mean``, each ``kernel``
+    (B, in, out) and ``bias`` (B, out), as ``interop.unravel_params`` gives
+    them) over obs (B, N, O) -> (B, N, A). One batched product a layer, the
+    bias added after it, as Flax's Dense."""
+    act = torch.tanh if activation == "tanh" else torch.relu
+    p = params.get("params", params)
+    x, i = obs, 0
+    while f"pi_dense{i}" in p:
+        layer = p[f"pi_dense{i}"]
+        x = act(torch.bmm(x, layer["kernel"]) + layer["bias"][:, None, :])
+        i += 1
+    return torch.bmm(x, p["pi_mean"]["kernel"]) + p["pi_mean"]["bias"][:, None, :]

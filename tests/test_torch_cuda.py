@@ -36,7 +36,10 @@ rounded, so a few of a layer's outputs land off: the bf16 nets are
 teacher-forced layer by layer (within one bf16 step at the layer's largest
 output, at most 1 % of its outputs off; the float32 GRU and heads on the
 CPU's features within 1e-5). K5 renders the 4-agent race, the opponents and
-obstacles as per-camera spheres, with levels equal.
+obstacles as per-camera spheres, with levels equal. SAC's nets hold their
+CPU outputs within 1e-5 and one SAC update (the same replay and draws)
+its losses within 1e-6 + 1e-5 relative and every parameter within 1e-6 +
+1e-4 relative; the SAC and ES trainers launch no kernel.
 """
 
 import numpy as np
@@ -733,3 +736,81 @@ def test_cuda_scan_trainers_launch_k5_a_step(cuda_device):
         assert _build.launch_counts["policy_vision_rollout"] == 0
         assert _build.launch_counts["race_vision_rollout"] == 0
         assert np.isfinite(res.mean_reward_last)
+
+
+@pytest.mark.cuda
+def test_sac_nets_and_update_on_the_card_match_the_cpu(cuda_device, monkeypatch):
+    """The SAC actor and twin critic, and one train step with one update, on
+    the card against the same weights, replay and draws on the CPU (the
+    draws fed through ``rl.replay.replay_indices`` and ``rl.sac.squash_noise``,
+    a fixed env transition; float32, TF32 off): forward within 1e-5, the
+    losses, alpha and entropy within 1e-6 + 1e-5 relative, every parameter
+    and log_alpha within 1e-6 + 1e-4 relative."""
+    from fpyv_tpu_torch.models.policy import SquashedGaussianActor, TwinQNetwork
+    from fpyv_tpu_torch.rl import replay as rp
+    from fpyv_tpu_torch.rl import sac as rs
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n, batch, pre_n, O = 256, 512, 4096, 17
+    g = torch.Generator().manual_seed(5)
+    actor = SquashedGaussianActor(4, O, device="cpu").init_params(g)
+    critic = TwinQNetwork(O, 4, device="cpu").init_params(g)
+    obs = torch.randn(n, O, generator=g)
+    pre = (torch.randn(pre_n, O, generator=g), 2.0 * torch.rand(pre_n, 4, generator=g) - 1.0,
+           torch.randn(pre_n, generator=g), torch.randn(pre_n, O, generator=g),
+           torch.rand(pre_n, generator=g) < 0.05)
+    step_out = (obs + 0.01 * torch.randn(obs.shape, generator=g), torch.randn(n, generator=g),
+                torch.rand(n, generator=g) < 0.05)
+    idx = torch.randint(0, pre_n + n, (batch,), generator=g)
+    noises = (torch.randn(n, 4, generator=g), torch.randn(batch, 4, generator=g),
+              torch.randn(batch, 4, generator=g))
+
+    def run(device):
+        a, c = SquashedGaussianActor(4, O, device=device), TwinQNetwork(O, 4, device=device)
+        a.load_state_dict(actor.state_dict())
+        c.load_state_dict(critic.state_dict())
+        nxt, rew, done = (x.to(device) for x in step_out)
+        cfg = rs.SacConfig(num_envs=n, buffer_capacity=8192, batch_size=batch)
+        init, step = rs.make_sac(lambda st, act, gen: (st, nxt, rew, done), cfg, O, 4)
+        state = init(a, c, None, obs.to(device), torch.Generator(device=device))
+        state = state.replace(buffer=rp.replay_add_batch(state.buffer,
+                                                         *(x.to(device) for x in pre)))
+        queue = list(noises)
+        monkeypatch.setattr(rs, "squash_noise", lambda s, gen, dt, d: queue.pop(0).to(d))
+        monkeypatch.setattr(rp, "replay_indices", lambda b, h, gen, d: idx.to(d))
+        with torch.no_grad():
+            fwd = (*a(obs.to(device)), *c(obs.to(device), pre[1][:n].to(device)))
+        state, metrics = step(state)
+        assert not queue
+        params = [v.detach().cpu() for m in (state.actor, state.critic, state.target_critic)
+                  for v in m.state_dict().values()] + [state.log_alpha.detach().cpu()]
+        return [x.cpu() for x in fwd], {k: v.item() for k, v in metrics.items()}, params
+
+    cpu_fwd, cpu_m, cpu_p = run(torch.device("cpu"))
+    card_fwd, card_m, card_p = run(cuda_device)
+    for x, y in zip(card_fwd, cpu_fwd):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+    for k, v in cpu_m.items():
+        assert abs(card_m[k] - v) <= 1e-6 + 1e-5 * abs(v), k
+    for x, y in zip(card_p, cpu_p):
+        torch.testing.assert_close(x, y, atol=1e-6, rtol=1e-4)
+    assert cpu_p[-1].abs().item() > 1e-4  # premise: the update moved the temperature
+
+
+@pytest.mark.cuda
+def test_cuda_sac_and_es_trainers_launch_no_kernel(cuda_device):
+    """A short train_sac and train_es (acro and rotate) on the card: finite
+    results, the tensors on the card, and no kernel launched (their JAX
+    counterparts reach no pallas_call)."""
+    from fpyv_tpu_torch.apps.train import make_sac_trainer, train_es, train_sac
+
+    _build.reset_launch_counts()
+    res = [train_sac(num_envs=64, num_iterations=4, warmup_steps=2, buffer_capacity=4096,
+                     batch_size=128, scan_chunk=2, print_every=0)]
+    for env_name in ("acro", "rotate"):
+        res.append(train_es(env_name=env_name, num_envs=16, num_iterations=2, num_steps=8,
+                            n_perturbations=4, scan_chunk=1, print_every=0))
+    assert not any(_build.launch_counts.values())
+    assert all(np.isfinite(r.mean_reward_last) for r in res)
+    state = make_sac_trainer(num_envs=8, buffer_capacity=64, batch_size=16).state
+    assert state.buffer.obs.is_cuda and state.last_obs.is_cuda and state.generator.device.type == "cuda"
