@@ -169,7 +169,25 @@ each:
    chunks of 2, the first left out: fitness-rollout env-steps/s and the
    generation-best fitness; one generation split with CUDA events into
    the candidates' batched forward, the eager env step and the rest, and
-   a trace; then 2 generations on ``env_name="rotate"``, finite fitness.
+   a trace; then 2 generations on ``env_name="rotate"``, finite fitness;
+27. multi-process training (``distributed=True``): (a) ``train_acro`` at
+   world size 1 (no process group; 4096 envs, 3 iterations) equal to
+   ``distributed=False`` bit for bit (parameters, Adam, infos); then one
+   ``parallel.launch`` of two gloo ranks sharing the card (the machine has
+   one GPU, and NCCL takes one rank a GPU), each running: (b) fixed-action
+   rollouts of the 4096-env acro bank (64 steps, episodes of 16) and of
+   1024 races x 4 agents (20 steps), equal to one process bit for bit;
+   (c) one averaged update of ``ActorCritic(128, 128)`` on fixed
+   trajectories (1 epoch, 1 minibatch) within 1e-6 of a one-process
+   reference (both halves' gradients averaged, clipped, one Adam step),
+   the replicas equal; (d) ``train_acro(distributed=True)`` at its defaults
+   (4096 envs in all), 6 iterations, the first chunk left out: the
+   aggregate rate beside phase 16's one process, the all-reduce's share
+   of an iteration, the replicas equal; (e) ``train_vision(distributed=
+   True)`` on the scan rollout (1024 envs in all, per-env random worlds, 3
+   iterations): K5 launches a rank, finite losses, equal replicas; (f)
+   ``train_es(distributed=True)`` at its defaults, 2 generations: the rate,
+   and theta and the generation-best fitness within 1e-6 of world size 1.
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -198,6 +216,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from fpyv_tpu_torch.apps.train import (
@@ -943,9 +962,10 @@ def train_rows(label: str, log_dir: Path, iters: int):
     return rows
 
 
-def state_learner(label: str, train, make, smi: str, **kw) -> None:
+def state_learner(label: str, train, make, smi: str, **kw) -> float:
     """A state trainer's main path with its counters at 0 (it launches no
-    kernel: the counters must stay 0), its rate, the split and a trace."""
+    kernel: the counters must stay 0), its rate, the split and a trace.
+    Returns the rate (trained env-steps/s)."""
     log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / f"{label}_log"
     shutil.rmtree(log_dir, ignore_errors=True)
     _build.reset_launch_counts()
@@ -966,6 +986,7 @@ def state_learner(label: str, train, make, smi: str, **kw) -> None:
         f"{res.mean_reward_last:.6f}{gates}, last loss {rows[-1]['loss']:.6f}; kernel "
         f"launches {json.dumps(counts)}; on {smi}")
     trainer_split(label, make(**kw), rollout=f"{K7_STEPS} eager env steps")
+    return res.steps_per_second
 
 
 def state_net_check(dev) -> float:
@@ -1582,6 +1603,319 @@ def es_main_path(smi: str) -> None:
         f"env-steps/s (the second generation)")
 
 
+DIST_RANKS = 2  # gloo ranks sharing the one card
+DIST_ITERS, DIST_CHUNK = 6, 2  # (d): train_acro's defaults, the first chunk of 2 left out
+DIST_VISION_ITERS = 3  # (e): train_vision on the scan rollout, 1024 envs in all
+
+
+def dist_layout_acro(mesh, dev, steps: int = 64):
+    """(b) ``steps`` fixed-action steps of this rank's rows of the 4096-env
+    acro bank, episodes of 16 steps (every env resets 4 times): rewards,
+    positions and done flags (one process with ``mesh=None``)."""
+    from fpyv_tpu_torch.envs.base import take_part
+
+    part = None if mesh is None else mesh.part(STATE_ENVS)
+    env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=16)
+    world = env.default_world(dev)
+    gen = torch.Generator().manual_seed(27)
+    state, _ = env.reset(gen, world, (STATE_ENVS,))
+    state = take_part(state, part)
+    action = torch.zeros((state.t.shape[0], 4), device=dev)
+    action[:, 3] = THROTTLE
+    out = []
+    for _ in range(steps):
+        state, _, r, d, _ = env.step(state, action, world, generator=gen, part=part)
+        out.append(torch.cat([r[:, None], state.drone.pos, d[:, None].to(r.dtype)], dim=-1))
+    return torch.stack(out).cpu().numpy()
+
+
+def dist_layout_race(mesh, dev, steps: int = 20):
+    """(b) ``steps`` fixed-action steps of this rank's whole races of the
+    shared-policy race bank (1024 races x 4 agents, episodes of 8 steps):
+    rewards, positions and gate counters."""
+    from fpyv_tpu_torch.envs.base import take_part
+    from fpyv_tpu_torch.envs.multi_race import make_shared_policy_env_step
+
+    env = MultiRaceEnv(n_agents=RACE_AGENTS, max_episode_steps=8)
+    world = env.default_world(dev)
+    part = None if mesh is None else mesh.part(RACE_RACES)
+    env_step, reset_fn = make_shared_policy_env_step(env, world, n_envs=RACE_RACES, part=part)
+    gen = torch.Generator().manual_seed(28)
+    state, _ = reset_fn(gen)
+    state = take_part(state, part)
+    action = torch.tensor([[0.0, 0.2, 0.0, -0.3]], device=dev).expand(
+        state.t.shape[0] * RACE_AGENTS, 4)
+    out = []
+    for _ in range(steps):
+        state, _, r, _ = env_step(state, action, gen)
+        out.append(torch.cat([r.reshape(-1, RACE_AGENTS, 1), state.drones.pos,
+                              state.gates_passed[..., None].to(r.dtype)], dim=-1))
+    return torch.stack(out).cpu().numpy()
+
+
+def dist_fixed_batch(dev):
+    """(c) ActorCritic(128, 128) from a seed and a fixed 4096-env, T = 32
+    trajectory around its actions (log-probs and values moved off the
+    net's), made on the CPU and moved to ``dev``."""
+    from fpyv_tpu_torch.models.policy import ActorCritic
+    from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
+
+    g = torch.Generator().manual_seed(29)
+    net = ActorCritic(action_dim=4, obs_dim=17, hidden=(128, 128), device="cpu").init_params(g)
+    obs = torch.randn((K7_STEPS + 1, STATE_ENVS, 17), generator=g)
+    with torch.no_grad():
+        mean, log_std, value = net(obs[:K7_STEPS])
+        action = mean + torch.exp(log_std) * torch.randn(mean.shape, generator=g)
+        log_prob = gaussian_log_prob(mean, log_std, action) + 0.05 * torch.randn(
+            value.shape, generator=g)
+    traj = Transition(obs=obs[:K7_STEPS], action=action, log_prob=log_prob,
+                      value=value + 0.3 * torch.randn(value.shape, generator=g),
+                      reward=torch.randn(value.shape, generator=g),
+                      done=torch.rand(value.shape, generator=g) < 0.05)
+    traj = Transition(**{f: getattr(traj, f).to(dev) for f in traj.__dataclass_fields__})
+    return net.to(dev), traj, obs[K7_STEPS].to(dev)
+
+
+DIST_PPO = dict(num_envs=STATE_ENVS, num_steps=K7_STEPS, update_epochs=1, num_minibatches=1)
+
+
+def _half(traj, last, lo: int, hi: int):
+    from fpyv_tpu_torch.rl.ppo import Transition
+
+    return (Transition(**{f: getattr(traj, f)[:, lo:hi] for f in traj.__dataclass_fields__}),
+            last[lo:hi])
+
+
+def dist_update(mesh, dev):
+    """(c) One ``make_distributed_ppo`` update on this rank's half of the
+    fixed batch: the parameters after it."""
+    from fpyv_tpu_torch.parallel.train import make_distributed_ppo
+    from fpyv_tpu_torch.rl.ppo import PpoConfig
+
+    net, traj, last = dist_fixed_batch(dev)
+    lo, hi, _ = mesh.part(STATE_ENVS)
+    traj, last = _half(traj, last, lo, hi)
+    init, iteration = make_distributed_ppo(lambda m, o: m(o), None, PpoConfig(**DIST_PPO), mesh,
+                                           rollout_fn=lambda s: (s.env_state, last, traj))
+    state, _ = iteration(init(net, torch.zeros(1, device=dev), last,
+                              torch.Generator().manual_seed(0)))
+    return {k: v.cpu().numpy() for k, v in state.params.state_dict().items()}
+
+
+def dist_update_reference(dev):
+    """(c) In one process: each half's gradients through ``make_ppo`` (its
+    update step caught before the clip), their mean, the clip, one Adam
+    step."""
+    from fpyv_tpu_torch.device import divisor
+    from fpyv_tpu_torch.rl import ppo as tppo
+
+    net, traj, last = dist_fixed_batch(dev)
+    cfg = tppo.PpoConfig(**dict(DIST_PPO, num_envs=STATE_ENVS // DIST_RANKS))
+    grads = []
+
+    def caught(net_, opt, loss, config):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        grads.append([p.grad.clone() for p in net_.parameters()])
+
+    with swapped(tppo, "_update", caught):
+        for r in range(DIST_RANKS):
+            k = STATE_ENVS // DIST_RANKS
+            tr, la = _half(traj, last, r * k, (r + 1) * k)
+            init, iteration = tppo.make_ppo(lambda m, o: m(o), None, cfg,
+                                            rollout_fn=lambda s, tr=tr, la=la: (s.env_state, la,
+                                                                                tr))
+            iteration(init(net, torch.zeros(1, device=dev), la, torch.Generator().manual_seed(0)))
+    opt = tppo.make_optimizer(net, cfg)
+    for p, *gs in zip(net.parameters(), *grads):
+        p.grad = sum(gs[1:], gs[0]) / divisor(DIST_RANKS, gs[0])
+    tppo.clip_by_global_norm_(net.parameters(), cfg.max_grad_norm)
+    opt.step()
+    return {k: v.cpu().numpy() for k, v in net.state_dict().items()}
+
+
+def _shard_params(ck_dir: str, mesh, step: int):
+    from fpyv_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    tree = restore_checkpoint(ck_dir, step, shard=(mesh.rank, mesh.size))
+    return {k: v.numpy() for k, v in tree["params"].items()}
+
+
+def dist_state_learner(mesh, root: str):
+    """(d) ``train_acro(distributed=True)`` at its defaults over the ranks
+    (4096 envs in all), 6 iterations, the first chunk left out; then the
+    all-reduce's share of 2 more iterations (host clock around each
+    collective, the card synchronised before it)."""
+    from fpyv_tpu_torch.apps.train import make_acro_trainer, train_acro
+    from fpyv_tpu_torch.parallel import mesh as pmesh
+    from fpyv_tpu_torch.rl.ppo import scan_train
+
+    res = train_acro(num_iterations=DIST_ITERS, scan_chunk=DIST_CHUNK, print_every=0,
+                     checkpoint_dir=f"{root}/acro", checkpoint_every=DIST_ITERS,
+                     distributed=True)
+    trainer = make_acro_trainer(mesh=mesh)
+    state, _ = scan_train(trainer.train_iteration, trainer.state, 1)  # warm-up
+    spans = []
+
+    def timed(tensors, mesh_):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(tensors, mesh_)
+        spans.append(time.perf_counter() - t)
+
+    with swapped(pmesh, "pmean_", timed) as real:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, infos = scan_train(trainer.train_iteration, state, 2)
+        infos["loss"].cpu()
+        wall = time.perf_counter() - t0
+    return dict(rate=res.steps_per_second, reward=(res.mean_reward_first, res.mean_reward_last),
+                params=_shard_params(f"{root}/acro", mesh, DIST_ITERS),
+                allreduce_s=sum(spans), allreduces=len(spans), wall_s=wall)
+
+
+def dist_vision(mesh, root: str):
+    """(e) ``train_vision(distributed=True)`` (auto -> the scan rollout) at
+    1024 envs in all, per-env random worlds, 3 iterations: K5's launches in
+    this rank, the rewards, the parameters."""
+    from fpyv_tpu_torch.apps.train import train_vision
+
+    _build.reset_launch_counts()
+    res = train_vision(num_envs=N_VISION, num_iterations=DIST_VISION_ITERS,
+                       scan_chunk=DIST_VISION_ITERS, print_every=0, log_dir=f"{root}/vision_log",
+                       checkpoint_dir=f"{root}/vision", checkpoint_every=DIST_VISION_ITERS,
+                       distributed=True)
+    torch.cuda.synchronize()
+    return dict(counts=dict(_build.launch_counts), rate=res.steps_per_second,
+                params=_shard_params(f"{root}/vision", mesh, DIST_VISION_ITERS))
+
+
+def dist_es(mesh):
+    """(f) ``train_es(distributed=True)`` at its defaults for 2 generations
+    (the rate of the second), then the trainer's own 2 generations: theta
+    and the generation-best fitness (one process with ``mesh=None``)."""
+    from fpyv_tpu_torch.apps.train import make_es_trainer, train_es
+
+    rate = None
+    if mesh is not None:
+        rate = train_es(num_iterations=2, scan_chunk=1, print_every=0,
+                        distributed=True).steps_per_second
+    trainer = make_es_trainer(mesh=mesh)
+    (theta, _, _), hist = trainer.run_chunk(trainer.state, 2, trainer.generator)
+    return dict(rate=rate, theta=theta.cpu().numpy(), hist=hist.cpu().numpy())
+
+
+def dist_rank(mesh, root: str):
+    """Phase 27's rank: (b) to (f) in order, numpy back to the parent."""
+    dev = mesh.device
+    out = dict(acro=dist_layout_acro(mesh, dev), race=dist_layout_race(mesh, dev),
+               update=dist_update(mesh, dev))
+    out["learner"] = dist_state_learner(mesh, root)
+    out["vision"] = dist_vision(mesh, root)
+    out["es"] = dist_es(mesh)
+    return out
+
+
+def _bit_equal(label: str, a: dict, b: dict) -> None:
+    for k in a:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+def distributed_checks(dev, smi: str, single_rate: float) -> None:
+    """Phase 27: (a) ``train_acro(distributed=True)`` at world size 1 (no
+    process group) equals ``distributed=False`` bit for bit; (b)-(f) over
+    two gloo ranks sharing the card (``parallel.launch``): fixed-action
+    rollouts bit-equal to one process, the averaged update against a
+    one-process reference, the state learner (its rate beside phase 16's),
+    the vision path (K5 on every rank) and ES against world size 1."""
+    from fpyv_tpu_torch.apps.train import train_acro
+    from fpyv_tpu_torch.parallel.launch import launch
+    from fpyv_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dist"
+    shutil.rmtree(root, ignore_errors=True)
+    # (a)
+    trees, rows = [], []
+    for distributed in (False, True):
+        d = root / f"one_{distributed}"
+        train_acro(num_iterations=3, scan_chunk=3, print_every=0, log_dir=str(d),
+                   checkpoint_dir=str(d / "ck"), checkpoint_every=3, distributed=distributed)
+        trees.append(restore_checkpoint(str(d / "ck"), 3, shard=(0, 1) if distributed else None))
+        rows.append([{k: v for k, v in json.loads(ln).items() if k != "time"}
+                     for ln in (d / "metrics.jsonl").read_text().splitlines()])
+    _bit_equal("(a) parameters", *[{k: v.numpy() for k, v in t["params"].items()}
+                                   for t in trees])
+    _bit_equal("(a) Adam", *[{str(i): v["exp_avg"].numpy()
+                              for i, v in t["opt_state"]["state"].items()} for t in trees])
+    if rows[0] != rows[1] or len(rows[0]) != 3:
+        raise AssertionError(f"(a) infos differ: {rows}")
+    log(f"phase 27 (a) world size 1: train_acro(distributed=True) (4096 envs, T={K7_STEPS}, 3 "
+        f"iterations, no process group) equals distributed=False bit for bit (parameters, "
+        f"Adam, infos); on {smi}")
+    # (b)-(f): two ranks; the one-process references first
+    ref_acro, ref_race = dist_layout_acro(None, dev), dist_layout_race(None, dev)
+    ref_update = dist_update_reference(dev)
+    ref_es = dist_es(None)
+    t0 = time.perf_counter()
+    outs = launch(dist_rank, DIST_RANKS, (str(root),), device="cuda:0", backend="gloo",
+                  deadline=300.0)
+    ranks_s = time.perf_counter() - t0
+    acro = np.concatenate([o["acro"] for o in outs], axis=1)
+    race = np.concatenate([o["race"] for o in outs], axis=1)
+    if not (np.array_equal(acro, ref_acro) and np.array_equal(race, ref_race)):
+        raise AssertionError("(b) two ranks do not replay one rank's rollout")
+    log(f"phase 27 (b) two gloo ranks replay one process bit for bit: acro 4096 envs x 64 "
+        f"steps (episodes of 16: {int(ref_acro[..., 4].sum())} resets), shared-policy race "
+        f"1024 races x 4 agents x 20 steps (episodes of 8), rewards, positions and "
+        f"{'gate counters' if ref_race[..., 4].max() > 0 else 'gate counters (all 0)'} equal")
+    _bit_equal("(c) replicas", outs[0]["update"], outs[1]["update"])
+    err = max(float(np.abs(outs[0]["update"][k] - ref_update[k]).max()) for k in ref_update)
+    if not err <= 1e-6:
+        raise AssertionError(f"(c) averaged update off the reference by {err}")
+    log(f"phase 27 (c) averaged update (ActorCritic(128, 128), 2048 envs a rank, T={K7_STEPS}, "
+        f"1 epoch, 1 minibatch) against the one-process mean of both halves' gradients, "
+        f"clipped, one Adam step: max abs err {err:.3e} (<= 1e-6), replicas equal")
+    ls = [o["learner"] for o in outs]
+    _bit_equal("(d) replicas", ls[0]["params"], ls[1]["params"])
+    share = [x["allreduce_s"] / x["wall_s"] for x in ls]
+    log(f"phase 27 (d) state learner over {DIST_RANKS} gloo ranks on one card: train_acro "
+        f"defaults, {STATE_ENVS} envs in all ({STATE_ENVS // DIST_RANKS} a rank), "
+        f"{DIST_ITERS} iterations in chunks of {DIST_CHUNK}, first chunk left out: aggregate "
+        f"{ls[0]['rate']:.6e} trained env-steps/s (rank 0's meter, global steps; rank 1's "
+        f"{ls[1]['rate']:.6e}), {ls[0]['rate'] / DIST_RANKS:.6e} a rank, against phase 16's "
+        f"one process {single_rate:.6e} ({ls[0]['rate'] / single_rate:.6f}x); all-reduce "
+        f"share of an iteration {share[0]:.6f} / {share[1]:.6f} ({ls[0]['allreduces']} "
+        f"all-reduces in 2 iterations, {ls[0]['allreduce_s'] * 1e3 / ls[0]['allreduces']:.6f} "
+        f"ms each, host clock, the card synchronised first); reward {ls[0]['reward'][0]:.6f} "
+        f"-> {ls[0]['reward'][1]:.6f}; replicas equal; on {smi}")
+    vs = [o["vision"] for o in outs]
+    _bit_equal("(e) replicas", vs[0]["params"], vs[1]["params"])
+    want = DIST_VISION_ITERS * K7_STEPS + 1  # a render a step, and the reset's
+    for v in vs:
+        if v["counts"].get("render_depth") != want or v["counts"].get("policy_vision_rollout"):
+            raise AssertionError(f"(e) expected {want} K5 launches a rank, saw {v['counts']}")
+    vrows = train_rows("(e) vision over two ranks", root / "vision_log", DIST_VISION_ITERS)
+    log(f"phase 27 (e) train_vision(distributed=True) (scan rollout, {N_VISION} envs in all, "
+        f"per-env random worlds, {DIST_VISION_ITERS} iterations): K5 launches a rank "
+        f"{json.dumps([v['counts'].get('render_depth') for v in vs])} ({K7_STEPS} an iteration "
+        f"+ the reset's), losses {json.dumps([round(r['loss'], 6) for r in vrows])} finite, "
+        f"replicas equal; on {smi}")
+    es = [o["es"] for o in outs]
+    _bit_equal("(f) ranks", {"theta": es[0]["theta"]}, {"theta": es[1]["theta"]})
+    e_theta = float(np.abs(es[0]["theta"] - ref_es["theta"]).max())
+    e_hist = float(np.abs(es[0]["hist"] - ref_es["hist"]).max())
+    if not (e_theta <= 1e-6 and e_hist <= 1e-6):
+        raise AssertionError(f"(f) ES off world size 1: theta {e_theta}, fitness {e_hist}")
+    log(f"phase 27 (f) ES over two ranks (train_es defaults, 256 candidates x 256 envs x 60 "
+        f"steps, 128 candidates a rank): {es[0]['rate']:.6e} fitness-rollout env-steps/s (the "
+        f"second generation, all candidates); theta and generation-best fitness against world "
+        f"size 1: max abs err {e_theta:.3e} and {e_hist:.3e} (<= 1e-6; "
+        f"{'bit-equal' if e_theta == 0.0 and e_hist == 0.0 else 'not bit-equal'}), ranks equal; "
+        f"on {smi}")
+    log(f"phase 27 ranks took {ranks_s:.3f} s (spawn, CUDA start and (b)-(f) in each rank)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2167,7 +2501,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     state_net_check(dev)
-    state_learner("state learner", train_acro, make_acro_trainer, smi, num_envs=STATE_ENVS)
+    acro_rate = state_learner("state learner", train_acro, make_acro_trainer, smi,
+                              num_envs=STATE_ENVS)
     log(f"phase 16 took {time.perf_counter() - t0:.3f} s")
 
     # ---- 17. state race learner main path, counters from 0 ------------------------------
@@ -2223,6 +2558,11 @@ def main() -> int:
     t0 = time.perf_counter()
     es_main_path(smi)
     log(f"phase 26 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 27. multi-process training: world size 1, then 2 gloo ranks on the card ----------
+    t0 = time.perf_counter()
+    distributed_checks(dev, smi, acro_rate)
+    log(f"phase 27 took {time.perf_counter() - t0:.3f} s")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

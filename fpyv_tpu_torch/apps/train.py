@@ -55,8 +55,20 @@ resumed run continues exactly as an unbroken one (as in JAX, SAC and ES keep
 none). ``adam_mu_dtype="bf16"`` stores Adam's first
 moment in bfloat16 in every pixel trainer.
 
-Not ported yet, and refused with a ValueError: multi-device training in
-every trainer (ROADMAP queue 1 item 8).
+``distributed=True`` trains over every rank of the job, one process per
+GPU under ``torch.distributed`` (start them with ``torchrun
+--nproc-per-node=N``; :func:`fpyv_tpu_torch.parallel.mesh.make_mesh` joins
+the group, the one-rank mesh without one). The PPO trainers build the whole
+bank on every rank and keep their rows of it
+(:mod:`fpyv_tpu_torch.parallel.train`); the draws are made at the whole
+bank's shape and sliced, so W ranks replay one rank's rollout, and world
+size 1 is the single-process trainer bit for bit. Each minibatch's
+gradients are averaged over the ranks before the clip, the infos after the
+iteration. As in JAX, ``distributed`` runs on the scan rollouts only (K7
+and K8 are refused with it, the GRU too), and a race stays whole on one
+rank. ``train_es`` splits its population over the ranks. Rank 0 alone
+writes the metrics log; every rank's meter counts the global env-steps, and
+each rank checkpoints its own shard (``utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -84,6 +96,8 @@ from fpyv_tpu_torch.models.policy import (
 )
 from fpyv_tpu_torch.ops.policy_kernel import PP, acro_state_to_cols, make_kernel_vision_ppo_parts
 from fpyv_tpu_torch.ops.race_kernel import make_kernel_race_ppo_parts
+from fpyv_tpu_torch.parallel.mesh import make_mesh, shard_leading_axis
+from fpyv_tpu_torch.parallel.train import local_config, make_distributed_ppo, shard_ppo_state
 from fpyv_tpu_torch.physics.drone import DroneParams
 from fpyv_tpu_torch.rl.es import make_policy_es
 from fpyv_tpu_torch.rl.ppo import (
@@ -111,14 +125,20 @@ class TrainResult:
 
 def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, start_iter,
                 scan_chunk, log_dir, print_every, checkpoint_dir,
-                checkpoint_every, chunk_hook=None, reward_key="mean_reward") -> TrainResult:
+                checkpoint_every, chunk_hook=None, reward_key="mean_reward", mesh=None,
+                log_row=None) -> TrainResult:
     """The chunked host loop: ``scan_chunk`` iterations, then ONE
     device-to-host read of their infos, which also ends the chunk's device
     work before the meter counts it. The first chunk is left out of the
     rate (warm-up). ``chunk_hook(state, it) -> state`` (optional) runs
     before each chunk: the curriculum's world resample. The result's first
-    and last rewards are the info ``reward_key``'s."""
-    logger = MetricsLogger(log_dir, print_every=print_every)
+    and last rewards are the info ``reward_key``'s. ``log_row(it)``
+    (optional) picks the iterations the metrics log keeps (every one by
+    default). Over a ``mesh`` (``num_envs`` the global count) rank 0 alone
+    logs, and each rank checkpoints its shard."""
+    lead = mesh is None or mesh.rank == 0
+    logger = MetricsLogger(log_dir if lead else None, print_every=print_every if lead else 0)
+    shard = None if mesh is None else (mesh.rank, mesh.size)
     meter = Throughput()
     first_reward = last_reward = float("nan")
     it = start_iter
@@ -140,10 +160,11 @@ def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, 
             meter.add(num_envs * num_steps * n)
         last_reward = float(rewards[-1])
         for i in range(n):
-            logger.log(it + i, {k: host[j, i] for j, k in enumerate(keys)})
+            if log_row is None or log_row(it + i):
+                logger.log(it + i, {k: host[j, i] for j, k in enumerate(keys)})
         it += n
         if checkpoint_dir and (it % checkpoint_every == 0 or it == end):
-            save_checkpoint(checkpoint_dir, it, state)
+            save_checkpoint(checkpoint_dir, it, state, shard=shard)
     logger.close()
     return TrainResult(iterations=num_iterations, mean_reward_first=first_reward,
                        mean_reward_last=last_reward, steps_per_second=meter.rate())
@@ -172,12 +193,14 @@ class Trainer:
     bootstrap obs, the generator), one iteration, the rollout alone (T
     eager env steps, or one K7 or K8 launch and the bootstrap frame), which
     the iteration runs first (None for SAC, whose iteration is one env
-    step), and the hook run before each chunk (or None)."""
+    step), the hook run before each chunk (or None), and the mesh the state
+    is laid out over (None on one process)."""
 
     state: object
     train_iteration: object
     rollout_fn: object
     chunk_hook: object = None
+    mesh: object = None
 
 
 def _cdt(compute_dtype: str):
@@ -187,50 +210,57 @@ def _cdt(compute_dtype: str):
 
 
 def vision_rollout(rollout: str, *, torso: str = "patch", renderer: str = "raycast",
-                   target_only: bool = False, curriculum_iters: Optional[int] = None) -> str:
+                   target_only: bool = False, curriculum_iters: Optional[int] = None,
+                   distributed: bool = False) -> str:
     """``train_vision``'s rollout, by the JAX trainer's rule: ``"auto"``
     takes the kernel (K7) exactly for the patch torso on the ``"raycast"``
-    view, without ``target_only`` and without a curriculum, and the scan
-    rollout for anything else, and prints its choice; ``"kernel"`` raises
-    for a recipe K7 does not take."""
+    view, without ``target_only``, a curriculum or ``distributed``, and the
+    scan rollout for anything else, and prints its choice; ``"kernel"``
+    raises for a recipe K7 does not take."""
     if rollout not in ("auto", "kernel", "scan"):
         raise ValueError(f"rollout must be 'auto', 'kernel' or 'scan', got {rollout!r}")
     if rollout == "auto":
         supported = (torso == "patch" and renderer == "raycast" and not target_only
-                     and not curriculum_iters)
+                     and not curriculum_iters and not distributed)
         rollout = "kernel" if supported else "scan"
         print(f"train_vision: rollout='auto' takes the {rollout} rollout")
     if rollout == "kernel":
         if torso != "patch" or renderer != "raycast":
             raise ValueError("rollout='kernel' requires torso='patch' and renderer='raycast'")
-        if curriculum_iters:
-            raise ValueError("rollout='kernel' does not compose with curriculum_iters (the "
-                             "worlds bake into the kernel's world columns)")
+        if curriculum_iters or distributed:
+            raise ValueError("rollout='kernel' does not compose with distributed or "
+                             "curriculum_iters (the worlds bake into the kernel's world "
+                             "columns)")
         if target_only:
             raise ValueError("rollout='kernel' renders the whole world; target_only runs on "
                              "the scan rollout")
     return rollout
 
 
-def race_rollout(rollout: str, *, n_agents: int = 1, torso: str = "patch", gru: int = 0) -> str:
+def race_rollout(rollout: str, *, n_agents: int = 1, torso: str = "patch", gru: int = 0,
+                 distributed: bool = False) -> str:
     """``train_vision_race``'s rollout, by the JAX trainer's rule:
-    ``"auto"`` takes the kernel (K8) exactly for one agent, the patch torso
-    and no GRU, and the scan rollout for anything else, and prints its
-    choice; ``"kernel"`` raises for a recipe K8 does not take."""
+    ``"auto"`` takes the kernel (K8) exactly for one agent, the patch torso,
+    no GRU and no ``distributed``, and the scan rollout for anything else,
+    and prints its choice; ``"kernel"`` raises for a recipe K8 does not
+    take, and the GRU raises with ``distributed``."""
     if rollout not in ("auto", "kernel", "scan"):
         raise ValueError(f"rollout must be 'auto', 'kernel' or 'scan', got {rollout!r}")
     if rollout == "auto":
-        rollout = "kernel" if (n_agents == 1 and torso == "patch" and not gru) else "scan"
+        rollout = ("kernel" if (n_agents == 1 and torso == "patch" and not gru
+                                and not distributed) else "scan")
         print(f"train_vision_race: rollout='auto' takes the {rollout} rollout")
+    if gru and rollout == "kernel":
+        raise ValueError("gru runs on the scan rollout (the kernel's temporal mechanism is "
+                         "the K-frame stack)")
+    if gru and distributed:
+        raise ValueError("gru + distributed is not wired yet (as in the JAX trainer)")
     if rollout == "kernel":
-        if gru:
-            raise ValueError("gru runs on the scan rollout (the kernel's temporal mechanism is "
-                             "the K-frame stack)")
         if n_agents != 1:
             raise ValueError("rollout='kernel' is single-agent (multi-agent FPV views read "
                              "cross-env opponent positions)")
-        if torso != "patch":
-            raise ValueError("rollout='kernel' requires torso='patch'")
+        if torso != "patch" or distributed:
+            raise ValueError("rollout='kernel' requires torso='patch' and no distributed")
     return rollout
 
 
@@ -242,13 +272,16 @@ def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0
                         target_only: bool = False, torso: str = "patch",
                         pixel_store: str = "u8", curriculum_iters: Optional[int] = None,
                         adam_mu_dtype: Optional[str] = None, rollout: str = "kernel",
-                        device=None) -> Trainer:
+                        device=None, mesh=None) -> Trainer:
     """train_vision's pieces, ready to run on ``rollout`` ("kernel" or
     "scan", as :func:`vision_rollout` resolves it): the env bank in its
     worlds, the net, the PPO learner around the K7 or the per-step rollout
-    (arguments as :func:`train_vision`'s)."""
+    (arguments as :func:`train_vision`'s). Over a ``mesh`` (the scan
+    rollout) the state holds this rank's envs and their worlds."""
     cdt = _cdt(compute_dtype)
-    device = resolve_device(device)
+    device = _device(device, mesh)
+    if mesh is not None and rollout == "kernel":
+        raise ValueError("the kernel rollout (K7) trains on one process")
     config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
                        num_minibatches=num_minibatches, update_epochs=update_epochs,
                        adam_mu_dtype=adam_mu_dtype)
@@ -267,6 +300,8 @@ def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0
             worlds = curriculum_worlds(g_world, num_envs, 0.0, device=device)
     else:
         worlds, bank = venv.make_world(device=device)
+        if mesh is not None:  # per-env worlds, so each rank keeps its rows
+            worlds = _tile(worlds, num_envs)
     W, H = venv.rig.resolution
     net = PixelActorCritic(action_dim=4, n_patches=(W * H) // PP, torso=torso,
                            prepatched=rollout == "kernel", compute_dtype=cdt,
@@ -287,39 +322,89 @@ def make_vision_trainer(num_envs: int = 1024, num_steps: int = 32, seed: int = 0
         return net(obs["pixels"], torch.cat([obs["rates"], obs["accel_z"], obs["thrust"]],
                                             dim=-1))
 
+    part = _part(mesh, num_envs)
+
     # the worlds ride the carry, so the curriculum hook swaps them as data
     def env_step(carry, action, generator):
         st, w = carry
-        st, obs, reward, _, info = venv.step_batched(st, action, w, bank, generator=generator)
+        st, obs, reward, _, info = venv.step_batched(st, action, w, bank, generator=generator,
+                                                     part=part)
         return (st, w), obs, reward, info["crashed"]
 
-    rollout_fn = make_step_rollout(apply_fn, env_step, config)
-    init, train_iteration = make_ppo(apply_fn, None, config, rollout_fn=rollout_fn)
+    init, train_iteration, rollout_fn = _ppo(apply_fn, env_step, config, mesh)
     chunk_hook = None
     if curriculum_iters:
         def chunk_hook(state, it):
+            # the whole bank's new worlds, from the same generator on every
+            # rank; each rank keeps its rows
             difficulty = min(1.0, it / curriculum_iters)
             new_worlds = curriculum_worlds(_chunk_generator(seed, it), num_envs, difficulty,
                                            device=device)
+            if mesh is not None:
+                new_worlds = shard_leading_axis(new_worlds, mesh)
             return state.replace(env_state=(state.env_state[0], new_worlds))
 
-    return Trainer(init(net, (env_state, worlds), obs, g_train), train_iteration, rollout_fn,
-                   chunk_hook)
+    return Trainer(_place(init(net, (env_state, worlds), obs, g_train), mesh), train_iteration,
+                   rollout_fn, chunk_hook, mesh)
 
 
-def _one_device_only() -> ValueError:
-    return ValueError("distributed=True is not ported yet (ROADMAP queue 1 item 8: "
-                      "multi-GPU); the port trains on one device")
+def _device(device, mesh) -> torch.device:
+    """The trainer's device: the rank's over a mesh, else ``device``
+    (CUDA unless told)."""
+    return resolve_device(device) if mesh is None else mesh.device
+
+
+def _part(mesh, n: int):
+    """This rank's rows of an ``n``-row bank (None on one process)."""
+    return None if mesh is None else mesh.part(n)
+
+
+def _ppo(apply_fn, env_step, config: PpoConfig, mesh, metrics_fn=None):
+    """``(init, train_iteration, rollout_fn)`` around the per-step rollout:
+    ``make_ppo``'s on one process, ``make_distributed_ppo``'s over a mesh
+    (``config.num_envs`` global, the action noise drawn for the whole bank
+    and sliced)."""
+    rollout_fn = make_step_rollout(apply_fn, env_step,
+                                   config if mesh is None else local_config(config, mesh),
+                                   part=_part(mesh, config.num_envs))
+    if mesh is None:
+        init, train_iteration = make_ppo(apply_fn, None, config, metrics_fn=metrics_fn,
+                                         rollout_fn=rollout_fn)
+    else:
+        init, train_iteration = make_distributed_ppo(apply_fn, None, config, mesh,
+                                                     metrics_fn=metrics_fn,
+                                                     rollout_fn=rollout_fn)
+    return init, train_iteration, rollout_fn
+
+
+def _place(state, mesh):
+    return state if mesh is None else shard_ppo_state(state, mesh)
+
+
+def _mesh(distributed: bool, device):
+    """The job's mesh for ``distributed=True`` (on ``device``), else None."""
+    return make_mesh(device=device) if distributed else None
+
+
+def _whole_races(num_envs: int, mesh) -> None:
+    if mesh is not None and num_envs % mesh.size:
+        raise ValueError(f"num_envs={num_envs} must divide the mesh size {mesh.size} "
+                         "(whole races per shard)")
 
 
 def _resume_and_train(trainer: Trainer, *, resume, checkpoint_dir, **loop) -> TrainResult:
-    state, start_iter = trainer.state, 0
-    if resume and checkpoint_dir and latest_step(checkpoint_dir) is not None:
-        start_iter = latest_step(checkpoint_dir)
-        state = restore_checkpoint(checkpoint_dir, start_iter, template=state)
-        print(f"resumed from checkpoint at iteration {start_iter}")
+    state, start_iter, mesh = trainer.state, 0, trainer.mesh
+    world_size = None if mesh is None else mesh.size
+    shard = None if mesh is None else (mesh.rank, mesh.size)
+    if resume and checkpoint_dir:
+        step = latest_step(checkpoint_dir, world_size=world_size)
+        if step is not None:
+            start_iter = step
+            state = restore_checkpoint(checkpoint_dir, step, template=state, shard=shard)
+            print(f"resumed from checkpoint at iteration {start_iter}")
     return _train_loop(state, trainer.train_iteration, start_iter=start_iter,
-                       checkpoint_dir=checkpoint_dir, chunk_hook=trainer.chunk_hook, **loop)
+                       checkpoint_dir=checkpoint_dir, chunk_hook=trainer.chunk_hook, mesh=mesh,
+                       **loop)
 
 
 def _apply(net, obs):
@@ -328,11 +413,12 @@ def _apply(net, obs):
 
 def make_acro_trainer(num_envs: int = 4096, num_steps: int = 32, seed: int = 0,
                       randomize: bool = False, hidden=(128, 128), learning_rate: float = 3e-4,
-                      shuffle_block: int = 64, device=None) -> Trainer:
+                      shuffle_block: int = 64, device=None, mesh=None) -> Trainer:
     """train_acro's pieces, ready to run: the env bank on the default
     world, ``ActorCritic``, the PPO learner around the per-step rollout
-    (arguments as :func:`train_acro`'s)."""
-    device = resolve_device(device)
+    (arguments as :func:`train_acro`'s; over a ``mesh`` the state holds
+    this rank's envs)."""
+    device = _device(device, mesh)
     env = AcroEnv(params=DroneParams(att_mode="quat"), randomize=randomize)
     world = env.default_world(device)
     _, g_env, g_net, g_train = _generators(seed)
@@ -340,17 +426,19 @@ def make_acro_trainer(num_envs: int = 4096, num_steps: int = 32, seed: int = 0,
                       device=device).init_params(g_net)
     config = PpoConfig(num_envs=num_envs, num_steps=num_steps, learning_rate=learning_rate,
                        shuffle_block=shuffle_block)
+    part = _part(mesh, num_envs)
 
     def env_step(env_state, action, generator):
-        st, obs, reward, _, info = env.step(env_state, action, world, generator=generator)
+        st, obs, reward, _, info = env.step(env_state, action, world, generator=generator,
+                                            part=part)
         # hand the learner terminations only: a time-limit truncation
         # bootstraps V(s') (the env still auto-resets on either)
         return st, obs, reward, info["crashed"]
 
     env_state, obs = env.reset(g_env, world, (num_envs,))
-    rollout_fn = make_step_rollout(_apply, env_step, config)
-    init, train_iteration = make_ppo(_apply, None, config, rollout_fn=rollout_fn)
-    return Trainer(init(net, env_state, obs, g_train), train_iteration, rollout_fn)
+    init, train_iteration, rollout_fn = _ppo(_apply, env_step, config, mesh)
+    return Trainer(_place(init(net, env_state, obs, g_train), mesh), train_iteration,
+                   rollout_fn, mesh=mesh)
 
 
 def train_acro(
@@ -373,13 +461,12 @@ def train_acro(
 ) -> TrainResult:
     """State-observation PPO on ``AcroEnv``: returns the rewards of the
     first and last iteration and the trained env-steps/s after the first
-    chunk."""
-    if distributed:
-        raise _one_device_only()
+    chunk. ``distributed`` splits the ``num_envs`` envs over the job's
+    ranks (see the module's docstring)."""
     trainer = make_acro_trainer(num_envs=num_envs, num_steps=num_steps, seed=seed,
                                 randomize=randomize, hidden=hidden,
                                 learning_rate=learning_rate, shuffle_block=shuffle_block,
-                                device=device)
+                                device=device, mesh=_mesh(distributed, device))
     return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
                              num_envs=num_envs, num_steps=num_steps,
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
@@ -392,17 +479,20 @@ def make_race_trainer(num_envs: int = 1024, n_agents: int = 4, num_steps: int = 
                       gate_size: float = 5.0, max_episode_steps: int = 2000,
                       agent_collision_radius: float = 0.35, w_overtake: float = 0.0,
                       others_in_obs: bool = True, permute_spawns: bool = False,
-                      device=None) -> Trainer:
+                      device=None, mesh=None) -> Trainer:
     """train_race's pieces, ready to run: the race bank on the default
     track, one shared ``ActorCritic``, the PPO learner over the flat
-    ``num_envs * n_agents`` agent batch (arguments as :func:`train_race`'s)."""
-    device = resolve_device(device)
+    ``num_envs * n_agents`` agent batch (arguments as :func:`train_race`'s;
+    over a ``mesh`` the state holds this rank's whole races)."""
+    device = _device(device, mesh)
+    _whole_races(num_envs, mesh)
     env = MultiRaceEnv(n_agents=n_agents, gate_size=gate_size,
                        max_episode_steps=max_episode_steps,
                        agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
                        others_in_obs=others_in_obs, permute_spawns=permute_spawns)
     world = env.default_world(device)
-    env_step, reset_fn = make_shared_policy_env_step(env, world, n_envs=num_envs)
+    env_step, reset_fn = make_shared_policy_env_step(env, world, n_envs=num_envs,
+                                                     part=_part(mesh, num_envs))
     _, g_env, g_net, g_train = _generators(seed)
     net = ActorCritic(action_dim=4, obs_dim=env.obs_dim, hidden=hidden,
                       device=device).init_params(g_net)
@@ -418,10 +508,9 @@ def make_race_trainer(num_envs: int = 1024, n_agents: int = 4, num_steps: int = 
                 "gates_per_100_steps": (gates / t).mean() * 100.0}
 
     env_state, obs = reset_fn(g_env)
-    rollout_fn = make_step_rollout(_apply, env_step, config)
-    init, train_iteration = make_ppo(_apply, None, config, metrics_fn=race_metrics,
-                                     rollout_fn=rollout_fn)
-    return Trainer(init(net, env_state, obs, g_train), train_iteration, rollout_fn)
+    init, train_iteration, rollout_fn = _ppo(_apply, env_step, config, mesh, race_metrics)
+    return Trainer(_place(init(net, env_state, obs, g_train), mesh), train_iteration,
+                   rollout_fn, mesh=mesh)
 
 
 def train_race(
@@ -449,14 +538,14 @@ def train_race(
 ) -> TrainResult:
     """Shared-policy PPO on the multi-agent race env: every agent of every
     race acts through one ``ActorCritic``; the metrics log the mean gates
-    passed and the gates per 100 steps."""
-    if distributed:
-        raise _one_device_only()
+    passed and the gates per 100 steps. ``distributed`` splits the races
+    over the job's ranks, whole races a rank."""
     trainer = make_race_trainer(
         num_envs=num_envs, n_agents=n_agents, num_steps=num_steps, seed=seed, hidden=hidden,
         learning_rate=learning_rate, gate_size=gate_size, max_episode_steps=max_episode_steps,
         agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
-        others_in_obs=others_in_obs, permute_spawns=permute_spawns, device=device)
+        others_in_obs=others_in_obs, permute_spawns=permute_spawns, device=device,
+        mesh=_mesh(distributed, device))
     return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
                              num_envs=num_envs * n_agents, num_steps=num_steps,
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
@@ -502,20 +591,21 @@ def train_vision(
     world (``randomize_worlds``), or all in params.yaml's world. Returns the
     rewards of the first and last iteration and the trained env-steps/s
     after the first chunk. ``torso="conv", pixel_store="f32",
-    update_epochs=4`` is the JAX package's round-2 recipe."""
-    if distributed:
-        raise _one_device_only()
+    update_epochs=4`` is the JAX package's round-2 recipe. ``distributed``
+    splits the envs and their worlds over the job's ranks, on the scan
+    rollout."""
     if curriculum_iters and not randomize_worlds:
         raise ValueError("curriculum_iters requires randomize_worlds=True")
     rollout = vision_rollout(rollout, torso=torso, renderer=renderer, target_only=target_only,
-                             curriculum_iters=curriculum_iters)
+                             curriculum_iters=curriculum_iters, distributed=distributed)
     trainer = make_vision_trainer(
         num_envs=num_envs, num_steps=num_steps, seed=seed, randomize_worlds=randomize_worlds,
         rig=rig, learning_rate=learning_rate, num_minibatches=num_minibatches,
         update_epochs=update_epochs, compute_dtype=compute_dtype, patch_pool=patch_pool,
         kernel_exact_logprob=kernel_exact_logprob, renderer=renderer, target_only=target_only,
         torso=torso, pixel_store=pixel_store, curriculum_iters=curriculum_iters,
-        adam_mu_dtype=adam_mu_dtype, rollout=rollout, device=device)
+        adam_mu_dtype=adam_mu_dtype, rollout=rollout, device=device,
+        mesh=_mesh(distributed, device))
     return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
                              num_envs=num_envs, num_steps=num_steps,
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
@@ -535,14 +625,18 @@ def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: in
                              w_overtake: float = 0.0, permute_spawns: bool = False,
                              show_opponents: bool = True, torso: str = "patch", gru: int = 0,
                              adam_mu_dtype: Optional[str] = None, rollout: str = "kernel",
-                             device=None) -> Trainer:
+                             device=None, mesh=None) -> Trainer:
     """train_vision_race's pieces, ready to run on ``rollout`` ("kernel" or
     "scan", as :func:`race_rollout` resolves it): the race bank on the
     default track, the net, the PPO learner (recurrent with ``gru > 0``)
     around the K8 or the per-step rollout (arguments as
-    :func:`train_vision_race`'s)."""
+    :func:`train_vision_race`'s; over a ``mesh``, the feedforward scan
+    rollout, the state holds this rank's whole races)."""
     cdt = _cdt(compute_dtype)
-    device = resolve_device(device)
+    device = _device(device, mesh)
+    _whole_races(num_envs, mesh)
+    if mesh is not None and (rollout == "kernel" or gru):
+        raise ValueError("the kernel rollout (K8) and the GRU train on one process")
     venv = VisionRaceEnv(
         race=MultiRaceEnv(n_agents=n_agents, gate_size=gate_size,
                           max_episode_steps=max_episode_steps,
@@ -577,9 +671,11 @@ def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: in
         return torch.cat([obs["rates"], obs["accel_z"], obs["thrust"], obs["gate_onehot"]],
                          dim=-1)
 
+    part = _part(mesh, num_envs)
+
     def env_step(env_state, action, generator):
         st, obs, reward, _, info = venv.step_batched(env_state, action, world,
-                                                     generator=generator)
+                                                     generator=generator, part=part)
         return st, obs, reward, info["crashed"]
 
     def race_metrics(env_state):
@@ -605,10 +701,9 @@ def make_vision_race_trainer(num_envs: int = 1024, num_steps: int = 32, seed: in
     def apply_fn(net, obs):
         return net(obs["pixels"], proprio(obs))
 
-    rollout_fn = make_step_rollout(apply_fn, env_step, config)
-    init, train_iteration = make_ppo(apply_fn, None, config, metrics_fn=race_metrics,
-                                     rollout_fn=rollout_fn)
-    return Trainer(init(net, env_state, obs, g_train), train_iteration, rollout_fn)
+    init, train_iteration, rollout_fn = _ppo(apply_fn, env_step, config, mesh, race_metrics)
+    return Trainer(_place(init(net, env_state, obs, g_train), mesh), train_iteration,
+                   rollout_fn, mesh=mesh)
 
 
 def train_vision_race(
@@ -654,10 +749,11 @@ def train_vision_race(
     """Gate racing from pixels: ``MultiRaceEnv`` whose observation is each
     agent's FPV depth view of the gate track (``VisionRaceEnv``), trained
     with the PPO recipe of ``train_vision``; every agent of every race acts
-    through one shared net, and the metrics log gates passed."""
-    if distributed:
-        raise _one_device_only()
-    rollout = race_rollout(rollout, n_agents=n_agents, torso=torso, gru=gru)
+    through one shared net, and the metrics log gates passed.
+    ``distributed`` splits the races over the job's ranks, whole races a
+    rank, on the scan rollout without the GRU (as in JAX)."""
+    rollout = race_rollout(rollout, n_agents=n_agents, torso=torso, gru=gru,
+                           distributed=distributed)
     trainer = make_vision_race_trainer(
         num_envs=num_envs, num_steps=num_steps, seed=seed, rig=rig,
         learning_rate=learning_rate, num_minibatches=num_minibatches,
@@ -668,7 +764,8 @@ def train_vision_race(
         kernel_exact_logprob=kernel_exact_logprob, n_agents=n_agents,
         agent_collision_radius=agent_collision_radius, w_overtake=w_overtake,
         permute_spawns=permute_spawns, show_opponents=show_opponents, torso=torso, gru=gru,
-        adam_mu_dtype=adam_mu_dtype, rollout=rollout, device=device)
+        adam_mu_dtype=adam_mu_dtype, rollout=rollout, device=device,
+        mesh=_mesh(distributed, device))
     return _resume_and_train(trainer, resume=resume, checkpoint_dir=checkpoint_dir,
                              num_envs=num_envs * n_agents, num_steps=num_steps,
                              num_iterations=num_iterations, scan_chunk=scan_chunk,
@@ -732,8 +829,10 @@ def train_sac(
     step over the bank (``num_envs`` transitions into the replay) and
     ``updates_per_step`` updates. Returns the rewards of the first and last
     iteration and the trained env-steps/s (transitions stored a second)
-    after the first chunk. The metrics log holds every iteration. Like the
-    JAX trainer it keeps no checkpoint."""
+    after the first chunk. The metrics log holds the iterations JAX logs,
+    every ``print_every``-th, and every iteration at ``print_every=0``
+    (where JAX divides by zero). Like the JAX trainer it keeps no
+    checkpoint."""
     trainer = make_sac_trainer(num_envs=num_envs, seed=seed, randomize=randomize,
                                buffer_capacity=buffer_capacity, batch_size=batch_size,
                                updates_per_step=updates_per_step, hidden=hidden, device=device)
@@ -743,7 +842,15 @@ def train_sac(
     return _train_loop(state, trainer.train_iteration, num_envs=num_envs, num_steps=1,
                        num_iterations=num_iterations, start_iter=0, scan_chunk=scan_chunk,
                        log_dir=log_dir, print_every=print_every, checkpoint_dir=None,
-                       checkpoint_every=1)
+                       checkpoint_every=1,
+                       log_row=lambda it: print_every <= 0 or it % print_every == 0)
+
+
+def _leading_leaf(tree) -> torch.Tensor:
+    """The first tensor of a nested dict."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
 
 
 def _tile(tree, n: int):
@@ -772,34 +879,36 @@ def make_es_trainer(env_name: str = "acro", num_envs: int = 256, num_steps: int 
                     n_perturbations: int = 128, fitness_tail: Optional[int] = None,
                     seed: int = 0, randomize: bool = False, noise_std: float = 0.05,
                     learning_rate: float = 0.02, sigma_decay: float = 1.0, hidden=(64, 64),
-                    device=None) -> EsTrainer:
+                    device=None, mesh=None) -> EsTrainer:
     """train_es's pieces (arguments as :func:`train_es`'s). The fitness runs
     all 2P candidates at once: the env bank is (2P, num_envs), every step
     one batched forward of the candidates' nets (``actor_mean_batched``)
     and one eager env step over the whole bank. With common random numbers
     (the default) the reset draws are (num_envs,) and shared across the
     candidates, at the start and at every auto-reset, as in JAX every
-    candidate's env i holds the same key."""
-    device = resolve_device(device)
+    candidate's env i holds the same key. Over a ``mesh`` each rank runs
+    its slice of the candidates (the bank's leading axis), and the draws
+    shaped by the candidates are made for all 2P and sliced."""
+    device = _device(device, mesh)
     if env_name == "acro":
         env = AcroEnv(params=DroneParams(att_mode="quat"), randomize=randomize)
         world = env.default_world(device)
         action_dim, obs_dim = 4, env.obs_dim
 
-        def reset_fn(gen, shape):
-            return env.reset(gen, world, shape)
+        def reset_fn(gen, shape, part):
+            return env.reset(gen, world, shape, part=part)
 
-        def step_fn(st, action, gen, reset_shape):
-            return env.step(st, action, world, generator=gen, reset_shape=reset_shape)
+        def step_fn(st, action, gen, reset_shape, part):
+            return env.step(st, action, world, generator=gen, reset_shape=reset_shape, part=part)
     elif env_name == "rotate":
         env = RotateEnv()
         action_dim, obs_dim = 3, 18
 
-        def reset_fn(gen, shape):
-            return env.reset(gen, shape, device)
+        def reset_fn(gen, shape, part):
+            return env.reset(gen, shape, device, part=part)
 
-        def step_fn(st, action, gen, reset_shape):
-            return env.step(st, action, gen, reset_shape=reset_shape)
+        def step_fn(st, action, gen, reset_shape, part):
+            return env.step(st, action, gen, reset_shape=reset_shape, part=part)
     else:
         raise ValueError(f"unknown env for ES: {env_name!r}")
 
@@ -807,23 +916,25 @@ def make_es_trainer(env_name: str = "acro", num_envs: int = 256, num_steps: int 
     net = ActorCritic(action_dim=action_dim, obs_dim=obs_dim, hidden=hidden,
                       device=device).init_params(g_net)
     tail = num_steps if fitness_tail is None else min(fitness_tail, num_steps)
-    cands = 2 * n_perturbations
+    part = _part(mesh, 2 * n_perturbations)
 
     def fitness(p, generator, common):
-        st, obs = reset_fn(generator, (num_envs,) if common else (cands, num_envs))
+        cands = _leading_leaf(p).shape[0]  # this rank's candidates
+        st, obs = (reset_fn(generator, (num_envs,), None) if common
+                   else reset_fn(generator, (cands, num_envs), part))
         if common:
             st, obs = _tile(st, cands), _tile(obs, cands)
         rewards = []
         for _ in range(num_steps):
             mean = actor_mean_batched(p, obs.reshape(cands, num_envs, -1))
             st, obs, r, _, _ = step_fn(st, torch.tanh(mean), generator,
-                                       (num_envs,) if common else None)
+                                       (num_envs,) if common else None, part)
             rewards.append(r.mean(-1))
         return torch.stack(rewards)[-tail:].mean(0)
 
     init_state, run_chunk, unravel = make_policy_es(
         policy_params_to_numpy(net), fitness, n_perturbations=n_perturbations, noise_std=noise_std,
-        learning_rate=learning_rate, sigma_decay=sigma_decay, device=device)
+        learning_rate=learning_rate, sigma_decay=sigma_decay, mesh=mesh, device=device)
     return EsTrainer(init_state(), run_chunk, unravel, fitness, g_train,
                      2 * n_perturbations * num_envs * num_steps)
 
@@ -854,14 +965,14 @@ def train_es(
     actor's mean, as in PPO's nets, and the fitness the mean reward over the
     last ``fitness_tail`` steps. Returns the first and last generation's
     best fitness and the fitness rollouts' env-steps/s after the first
-    chunk."""
-    if distributed:
-        raise _one_device_only()
+    chunk (of all candidates, on every rank). ``distributed`` splits the
+    population over the job's ranks."""
+    mesh = _mesh(distributed, device)
     trainer = make_es_trainer(env_name=env_name, num_envs=num_envs, num_steps=num_steps,
                               n_perturbations=n_perturbations, fitness_tail=fitness_tail,
                               seed=seed, randomize=randomize, noise_std=noise_std,
                               learning_rate=learning_rate, sigma_decay=sigma_decay,
-                              hidden=hidden, device=device)
+                              hidden=hidden, device=device, mesh=mesh)
 
     def train_iteration(es_state):
         es_state, hist = trainer.run_chunk(es_state, 1, trainer.generator)
@@ -870,4 +981,5 @@ def train_es(
     return _train_loop(trainer.state, train_iteration, num_envs=trainer.steps_per_generation,
                        num_steps=1, num_iterations=num_iterations, start_iter=0,
                        scan_chunk=scan_chunk, log_dir=log_dir, print_every=print_every,
-                       checkpoint_dir=None, checkpoint_every=1, reward_key="gen_best_fitness")
+                       checkpoint_dir=None, checkpoint_every=1, reward_key="gen_best_fitness",
+                       mesh=mesh)

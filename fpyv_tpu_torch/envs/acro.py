@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
-from fpyv_tpu_torch.envs.base import tree_where
+from fpyv_tpu_torch.envs.base import Part, draw_shape, take_part, tree_where
 from fpyv_tpu_torch.physics.drone import (
     DomainRand,
     DroneParams,
@@ -137,38 +137,48 @@ class AcroEnv:
             return base.clone()
         return base + self.wind_scale * _normal(generator, shape, self.dtype, device)
 
-    def _fresh(self, generator, world: World, batch_shape) -> AcroState:
+    def _fresh(self, generator, world: World, batch_shape,
+               part: Optional[Part] = None) -> AcroState:
         device = world.sphere_center.device
-        drone = self._sample_drone(generator, batch_shape, device)
+        shape = draw_shape(batch_shape, part)
+        drone = self._sample_drone(generator, shape, device)
+        dr = self._sample_dr(generator, shape, device)
+        wind = self._sample_wind(generator, shape, device)
+        drone, dr, wind = take_part((drone, dr, wind), part)
         target = world.sphere_center[..., 0, :]
         return AcroState(
             drone=drone,
-            domain_rand=self._sample_dr(generator, batch_shape, device),
+            domain_rand=dr,
             t=torch.zeros(tuple(batch_shape), dtype=torch.int32, device=device),
             prev_dist=torch.linalg.vector_norm(target - drone.pos, dim=-1),
             episode_return=torch.zeros(tuple(batch_shape), dtype=self.dtype, device=device),
-            wind=self._sample_wind(generator, batch_shape, device),
+            wind=wind,
         )
 
     def reset(self, generator: torch.Generator, world: Optional[World] = None,
-              batch_shape=(), device=None):
+              batch_shape=(), device=None, part: Optional[Part] = None):
         """A fresh state of ``batch_shape`` envs and its observation. Without a
-        world, the default world is built on ``device`` (CUDA unless told)."""
+        world, the default world is built on ``device`` (CUDA unless told).
+        Under ``part`` the bank is one rank's slice of a larger bank: the
+        draws are made at the whole bank's shape and sliced."""
         world = self.default_world(device) if world is None else world
-        state = self._fresh(generator, world, batch_shape)
+        state = self._fresh(generator, world, batch_shape, part)
         return state, self._obs(state, world)
 
     # ---- step -------------------------------------------------------------
 
     def step(self, state: AcroState, action, world: Optional[World] = None,
              wind: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None, reset_shape=None):
+             generator: Optional[torch.Generator] = None, reset_shape=None,
+             part: Optional[Part] = None):
         """Returns (state, obs, reward, done, info). Envs that crash or reach
         ``max_episode_steps`` restart from draws of ``generator`` (the
         default generator of the state's device when None) of batch shape
         ``reset_shape`` (the bank's when None): a trailing part of the
         bank's shape shares each draw across the leading axes (the ES
-        fitness's common random numbers)."""
+        fitness's common random numbers). Under ``part`` the bank is one
+        rank's slice of a larger bank, and the bank-shaped reset draws are
+        made at the whole bank's shape and sliced."""
         world = self.default_world(state.drone.pos.device) if world is None else world
         action = torch.as_tensor(action, dtype=self.dtype, device=state.drone.pos.device)
         drone, imu = drone_step(self.params, state.drone, action, world,
@@ -194,8 +204,8 @@ class AcroEnv:
         if generator is None:
             generator = (torch.cuda.default_generators[drone.pos.device.index or 0]
                          if drone.pos.is_cuda else torch.default_generator)
-        reset_state = self._fresh(generator, world,
-                                  tuple(done.shape) if reset_shape is None else reset_shape)
+        reset_state = (self._fresh(generator, world, tuple(done.shape), part)
+                       if reset_shape is None else self._fresh(generator, world, reset_shape))
         next_state = tree_where(done, reset_state, live_state)
 
         info = {

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
-from fpyv_tpu_torch.envs.base import tree_where
+from fpyv_tpu_torch.envs.base import Part, draw_shape, take_part, tree_where
 from fpyv_tpu_torch.physics.drone import DroneParams, DroneState, drone_reset, drone_step
 from fpyv_tpu_torch.physics.world import World, empty_world
 
@@ -205,10 +205,11 @@ class MultiRaceEnv:
         ypr[..., 2] = 90.0  # face +y
         return drone_reset(self.params, base + jitter, torch.zeros_like(ypr), ypr)
 
-    def _fresh(self, generator: torch.Generator, world: World, batch_shape) -> MultiRaceState:
+    def _fresh(self, generator: torch.Generator, world: World, batch_shape,
+               part: Optional[Part] = None) -> MultiRaceState:
         device = world.gate_pos.device
         batch, A = tuple(batch_shape), self.n_agents
-        drones = self._sample_drones(generator, batch, device)
+        drones = take_part(self._sample_drones(generator, draw_shape(batch, part), device), part)
         next_gate = torch.zeros(batch + (A,), dtype=torch.int32, device=device)
         plane_d, _, to_gate = self._gate_info(world, next_gate, drones.pos)
         gates0 = torch.zeros_like(next_gate)
@@ -231,11 +232,13 @@ class MultiRaceEnv:
     # ---- step -------------------------------------------------------------
 
     def step(self, state: MultiRaceState, actions, world: Optional[World] = None, wind=None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, part: Optional[Part] = None):
         """actions (..., A, 4). Returns (state, obs, reward (..., A), done
         (...,) per race, info). Races whose agents all crashed, or that
         reached ``max_episode_steps``, restart from draws of ``generator``
-        (the default generator of the state's device when None)."""
+        (the default generator of the state's device when None). Under
+        ``part`` the (races,) bank is one rank's slice of a larger bank: the
+        reset draws are made at the whole bank's shape and sliced."""
         device = state.drones.pos.device
         world = self.default_world(device) if world is None else world
         actions = torch.as_tensor(actions, dtype=self.dtype, device=device)
@@ -287,7 +290,7 @@ class MultiRaceEnv:
         if generator is None:
             generator = (torch.cuda.default_generators[device.index or 0]
                          if device.type == "cuda" else torch.default_generator)
-        reset_state = self._fresh(generator, world, tuple(env_done.shape))
+        reset_state = self._fresh(generator, world, tuple(env_done.shape), part)
         next_state = tree_where(env_done, reset_state, next_state)
 
         info = {
@@ -303,12 +306,14 @@ class MultiRaceEnv:
 
 
 def make_shared_policy_env_step(env: MultiRaceEnv, world: Optional[World] = None,
-                                n_envs: int = 64, device=None):
+                                n_envs: int = 64, device=None, part: Optional[Part] = None):
     """The race env for one shared-policy learner: the learner sees a flat
     (n_envs * n_agents) batch, and a race's reset ends every agent's episode.
     Returns (env_step, reset_fn) in ``rl.ppo.make_ppo``'s env_step contract:
     ``reset_fn(generator) -> (state, obs)``, ``env_step(state, action,
-    generator) -> (state, obs, reward, done)``, all flat over agents."""
+    generator) -> (state, obs, reward, done)``, all flat over agents.
+    ``reset_fn`` builds all ``n_envs`` races; ``env_step`` steps the races
+    ``part`` names (all of them when None), whole races a rank."""
     world = env.default_world(device) if world is None else world
     A = env.n_agents
 
@@ -319,7 +324,8 @@ def make_shared_policy_env_step(env: MultiRaceEnv, world: Optional[World] = None
     def env_step(env_state, action, generator: torch.Generator):
         # race-major flat batch: any contiguous slice of it holds whole races
         actions = action.reshape(-1, A, action.shape[-1])
-        st, obs, reward, done, info = env.step(env_state, actions, world, generator=generator)
+        st, obs, reward, done, info = env.step(env_state, actions, world, generator=generator,
+                                               part=part)
         # an agent's own crash (absorbing) or the race's reset ends its episode
         done_flat = (info["crashed"] | done[:, None]).reshape(-1)
         return st, obs.reshape(obs.shape[0] * A, -1), reward.reshape(-1), done_flat

@@ -31,7 +31,7 @@ from typing import Optional
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
-from fpyv_tpu_torch.envs.base import tree_where
+from fpyv_tpu_torch.envs.base import Part, draw_shape, take_part, tree_where
 from fpyv_tpu_torch.ops import rotations as rot
 
 
@@ -78,16 +78,20 @@ class RotateEnv:
     auto_reset: bool = True
     dtype: torch.dtype = torch.float32
 
-    def _sample(self, generator, batch_shape, device):
-        euler_goal, n = reset_draws(generator, batch_shape, self.dtype, device)
+    def _sample(self, generator, batch_shape, device, part: Optional[Part] = None):
+        euler_goal, n = take_part(
+            reset_draws(generator, draw_shape(batch_shape, part), self.dtype, device), part)
         euler_current = _mod_two_pi(euler_goal + self.difficulty * n)
         return rot.euler_to_rotmat(euler_goal), rot.euler_to_rotmat(euler_current)
 
-    def reset(self, generator: torch.Generator, batch_shape=(), device=None):
+    def reset(self, generator: torch.Generator, batch_shape=(), device=None,
+              part: Optional[Part] = None):
         """A fresh state of ``batch_shape`` envs on ``device`` (CUDA unless
-        told) and its observation."""
+        told) and its observation; under ``part`` the bank is one rank's
+        slice of a larger bank, its draws made at the whole bank's shape and
+        sliced."""
         device = resolve_device(device)
-        goal, current = self._sample(generator, batch_shape, device)
+        goal, current = self._sample(generator, batch_shape, device, part)
         state = RotateState(goal=goal, current=current,
                             done=torch.zeros(tuple(batch_shape), dtype=torch.bool, device=device))
         return state, self._obs(state)
@@ -101,12 +105,15 @@ class RotateEnv:
         return torch.sum((rel - eye) ** 2, dim=(-2, -1))
 
     def step(self, state: RotateState, action, generator: Optional[torch.Generator] = None,
-             reset_shape=None):
+             reset_shape=None, part: Optional[Part] = None):
         """Returns (state, obs, reward, done, info). With ``auto_reset`` the
         envs that reach the goal restart from draws of ``generator`` (the
         default generator of the state's device when None) of batch shape
         ``reset_shape`` (the bank's when None): a trailing part of the
-        bank's shape shares each draw across the leading axes."""
+        bank's shape shares each draw across the leading axes. Under
+        ``part`` the bank is one rank's slice of a larger bank: the
+        bank-shaped draws (the gyro noise, the resets without
+        ``reset_shape``) are made at the whole bank's shape and sliced."""
         device = state.current.device
         if generator is None:
             generator = (torch.cuda.default_generators[device.index or 0]
@@ -115,7 +122,8 @@ class RotateEnv:
         current = state.current
         batch = tuple(current.shape[:-2])
         if self.noise_lvl_deg > 0.0:
-            noise_deg = self.noise_lvl_deg * gyro_noise(generator, batch, self.dtype, device)
+            noise_deg = self.noise_lvl_deg * take_part(
+                gyro_noise(generator, draw_shape(batch, part), self.dtype, device), part)
             # the reference's quirk: mod 2π taken of degrees
             noise = torch.deg2rad(_mod_two_pi(noise_deg))
             current = rot.mat3_mul(rot.euler_to_rotmat(noise), current)
@@ -127,8 +135,9 @@ class RotateEnv:
 
         next_state = state.replace(current=current, done=done)
         if self.auto_reset:
-            goal_r, current_r = self._sample(
-                generator, batch if reset_shape is None else reset_shape, device)
+            goal_r, current_r = (self._sample(generator, batch, device, part)
+                                 if reset_shape is None
+                                 else self._sample(generator, reset_shape, device))
             reset_state = RotateState(goal=goal_r, current=current_r,
                                       done=torch.zeros_like(done))
             next_state = tree_where(done, reset_state, next_state)

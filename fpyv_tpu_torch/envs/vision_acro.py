@@ -31,6 +31,7 @@ import torch
 
 from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.envs.acro import AcroEnv, AcroState
+from fpyv_tpu_torch.envs.base import Part
 from fpyv_tpu_torch.physics.drone import DroneParams, _att_to_rotmat
 from fpyv_tpu_torch.ops.vision_kernel import fused_render_depth
 from fpyv_tpu_torch.physics.world import World
@@ -170,8 +171,10 @@ class VisionAcroEnv:
         return state, self._obs(state, world, bank)
 
     def step(self, state: AcroState, action, world: World, bank: RenderBank, wind=None,
-             generator: Optional[torch.Generator] = None):
-        state, _, reward, done, info = self.acro.step(state, action, world, wind, generator)
+             generator: Optional[torch.Generator] = None, part: Optional[Part] = None):
+        """``AcroEnv.step`` and the render; ``part`` as there."""
+        state, _, reward, done, info = self.acro.step(state, action, world, wind, generator,
+                                                      part=part)
         obs = self._obs(state, world, bank)
         return state, obs, reward, done, self._target_info(state, world, obs, info)
 
@@ -184,5 +187,6 @@ class VisionAcroEnv:
         return self.reset(generator, world, bank, (n_envs,))
 
     def step_batched(self, state: AcroState, action, world: World, bank: RenderBank,
-                     wind=None, generator: Optional[torch.Generator] = None):
-        return self.step(state, action, world, bank, wind, generator)
+                     wind=None, generator: Optional[torch.Generator] = None,
+                     part: Optional[Part] = None):
+        return self.step(state, action, world, bank, wind, generator, part)

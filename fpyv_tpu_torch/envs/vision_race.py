@@ -22,6 +22,7 @@ from typing import Optional, Union
 
 import torch
 
+from fpyv_tpu_torch.envs.base import Part
 from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv, MultiRaceState
 from fpyv_tpu_torch.physics.drone import DroneParams, _att_to_rotmat
 from fpyv_tpu_torch.physics.world import World
@@ -160,13 +161,16 @@ class VisionRaceEnv:
         return state, self._flat(obs)
 
     def step_batched(self, state: Union[MultiRaceState, VisionRaceState], action,
-                     world: World, generator: Optional[torch.Generator] = None):
-        """action (n_races * A, 4), flat over agents."""
+                     world: World, generator: Optional[torch.Generator] = None,
+                     part: Optional[Part] = None):
+        """action (n_races * A, 4), flat over agents; ``part`` as in
+        ``MultiRaceEnv.step``."""
         A = self.race.n_agents
         stacked = isinstance(state, VisionRaceState)
         race_state = state.race if stacked else state
         st, _, reward, done, info = self.race.step(
-            race_state, action.reshape(-1, A, action.shape[-1]), world, generator=generator)
+            race_state, action.reshape(-1, A, action.shape[-1]), world, generator=generator,
+            part=part)
         obs = self._obs(st, world)
         if stacked:
             # a race's reset flushes its history to the respawn frame

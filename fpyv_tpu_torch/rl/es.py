@@ -9,8 +9,12 @@ loops over generations on the host. Every draw goes through a module-level
 function (:func:`offspring_noise`, :func:`es_noise`) that the tests replace
 with JAX's draws.
 
-Not ported yet: the population sharded over a device mesh (``mesh``;
-ROADMAP queue 1 item 8, multi-GPU); the port evaluates on one device.
+With a ``mesh`` (:func:`fpyv_tpu_torch.parallel.mesh.make_mesh`) the
+population is split over the ranks: every rank draws theta's perturbations
+from the same generator, evaluates its slice of the 2P candidates, and one
+all-reduce of the zero-padded (2P,) fitness gathers them; the ranks, the
+gradient and the sigma step then run alike on every rank. As in JAX, the
+result does not depend on the layout.
 """
 
 from __future__ import annotations
@@ -123,13 +127,32 @@ def make_policy_es(
     - ``unravel(theta) -> tree``.
 
     Theta and the generation's arithmetic live on ``device``, CUDA unless
-    ``device="cpu"``, wherever the tree's leaves were.
+    ``device="cpu"``, wherever the tree's leaves were (the mesh's device
+    with a ``mesh``).
+
+    With a ``mesh`` each rank hands ``fitness_fn`` its contiguous slice
+    ``mesh.part(2P)`` of the candidates (the leaves' leading axis), and the
+    fitness of all 2P is gathered by one all-reduce (a sum of zero-padded
+    vectors). A fitness whose draws are shaped by the candidates draws them
+    at the whole population's shape and slices them, so that every rank
+    consumes the generator alike.
     """
-    if mesh is not None:
-        raise ValueError("a mesh is not ported yet (ROADMAP queue 1 item 8: multi-GPU); "
-                         "the port evaluates the population on one device")
-    theta0 = ravel_params(params, resolve_device(device))
+    theta0 = ravel_params(params, mesh.device if mesh is not None else resolve_device(device))
     P = n_perturbations
+    if mesh is not None:
+        # imported here: parallel imports rl.ppo, whose package imports this
+        from fpyv_tpu_torch.parallel.mesh import psum_, replicate
+
+        replicate([theta0], mesh)
+        lo, hi, _ = mesh.part(2 * P)
+
+    def evaluate(cand, generator):
+        if mesh is None:
+            return fitness_fn(unravel(cand), generator, common_randomness)
+        local = fitness_fn(unravel(cand[lo:hi]), generator, common_randomness)
+        fits = torch.zeros(2 * P, dtype=local.dtype, device=local.device)
+        fits[lo:hi] = local
+        return psum_(fits, mesh)
 
     def unravel(theta: torch.Tensor) -> dict:
         return unravel_params(theta, params)
@@ -138,7 +161,7 @@ def make_policy_es(
         theta, sigma, best = es_state
         eps = es_noise((P, theta.shape[0]), generator, theta.dtype, theta.device)
         cand = torch.cat([theta[None] + sigma * eps, theta[None] - sigma * eps])
-        fits = fitness_fn(unravel(cand), generator, common_randomness)
+        fits = evaluate(cand, generator)
         w = centered_ranks(fits)
         grad = (w[:P] - w[P:]) @ eps / (P * sigma)
         theta = theta + learning_rate * grad

@@ -23,6 +23,12 @@ takes :class:`AdamBf16Mu`, the port's own Adam step, since
 :func:`make_recurrent_ppo` is the GRU policy's learner (JAX's
 ``make_recurrent_ppo``): the hidden state rides the env carry, and the
 learner replays whole env sequences from the iteration's first hidden.
+
+``PpoConfig.axis_name`` (JAX's) names the mesh axis
+(:func:`fpyv_tpu_torch.parallel.mesh.make_mesh`) whose ranks average each
+minibatch's gradients, with one all-reduce, before the clip; the
+rollouts take a ``part`` (this rank's rows of the bank) and draw the
+action noise for the whole bank (:mod:`fpyv_tpu_torch.parallel.train`).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from fpyv_tpu_torch.device import divisor
+from fpyv_tpu_torch.envs.base import Part
 from fpyv_tpu_torch.rl.gae import compute_gae
 
 
@@ -59,6 +66,9 @@ class PpoConfig:
     # consecutive rows (the same timestep across `shuffle_block` envs) move
     # together; in envs for the recurrent learner
     shuffle_block: int = 64
+    # the mesh axis whose ranks average each minibatch's gradients before the
+    # clip (parallel.mesh.make_mesh binds it); None trains on one process
+    axis_name: Optional[str] = None
 
     def __post_init__(self):
         if self.adam_mu_dtype not in (None, "bf16"):
@@ -183,6 +193,16 @@ def action_noise(mean: torch.Tensor, generator: torch.Generator) -> torch.Tensor
                        device=generator.device).to(mean.device)
 
 
+def _bank_noise(mean: torch.Tensor, generator: torch.Generator,
+                part: Optional[Part]) -> torch.Tensor:
+    """:func:`action_noise` for this rank's rows ``part`` of the bank: drawn
+    at the whole bank's shape and sliced (all of it when None)."""
+    if part is None:
+        return action_noise(mean, generator)
+    whole = mean.new_empty((part.n,) + tuple(mean.shape[1:]))
+    return action_noise(whole, generator)[part.lo:part.hi]
+
+
 def permutation(n: int, generator: torch.Generator, device) -> torch.Tensor:
     """An epoch's shuffle of ``n`` blocks."""
     return torch.randperm(n, generator=generator, device=generator.device).to(device)
@@ -195,11 +215,18 @@ def _numerics(net):
     return scope() if scope is not None else contextlib.nullcontext()
 
 
-def _update(net, opt, loss, max_grad_norm: float) -> None:
+def _update(net, opt, loss, config: PpoConfig) -> None:
     opt.zero_grad(set_to_none=True)
     with _numerics(net):
         loss.backward()
-    clip_by_global_norm_(net.parameters(), max_grad_norm)
+    if config.axis_name is not None:
+        # JAX pmeans the gradients before optax's clip; the import waits
+        # for the first call, since parallel.train imports this module
+        from fpyv_tpu_torch.parallel.mesh import axis_mesh, pmean_
+
+        pmean_([p.grad for p in net.parameters() if p.grad is not None],
+               axis_mesh(config.axis_name))
+    clip_by_global_norm_(net.parameters(), config.max_grad_norm)
     opt.step()
 
 
@@ -240,18 +267,21 @@ def _info(losses, metrics, traj, metrics_fn, env_state):
     return info
 
 
-def make_step_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig):
+def make_step_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig,
+                      part: Optional[Part] = None):
     """``make_ppo``'s default rollout: T steps of the policy and
     ``env_step``, one at a time, the action noise drawn from
     ``state.generator``. ``rollout(state) -> (env_state, last_obs, traj)``,
-    traj a (T, N, ...) Transition."""
+    traj a (T, N, ...) Transition. Under ``part`` the N envs are one rank's
+    rows of a larger bank, and the noise is drawn at the whole bank's shape
+    and sliced."""
 
     @torch.no_grad()
     def rollout(state: PpoState):
         env_state, obs, steps = state.env_state, state.last_obs, []
         for _ in range(config.num_steps):
             mean, log_std, value = apply_fn(state.params, obs)
-            action = mean + torch.exp(log_std) * action_noise(mean, state.generator)
+            action = mean + torch.exp(log_std) * _bank_noise(mean, state.generator, part)
             log_prob = gaussian_log_prob(mean, log_std, action)
             env_state, next_obs, reward, done = env_step(env_state, action, state.generator)
             steps.append(Transition(obs=obs, action=action, log_prob=log_prob, value=value,
@@ -330,7 +360,7 @@ def make_ppo(
                 mb = Transition(**{f.name: _tree_map(lambda x: x[sl], getattr(shuffled, f.name))
                                    for f in dataclasses.fields(Transition)})
                 loss, m = _loss(net, mb, adv_sh[sl], tgt_sh[sl])
-                _update(net, opt, loss, config.max_grad_norm)
+                _update(net, opt, loss, config)
                 losses.append(loss.detach())
                 for k, v in m.items():
                     metrics.setdefault(k, []).append(v.detach())
@@ -346,18 +376,19 @@ def _zero_done(hidden: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
     return torch.where(done[..., None], torch.zeros_like(hidden), hidden)
 
 
-def make_recurrent_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig):
+def make_recurrent_rollout(apply_fn: Callable, env_step: Callable, config: PpoConfig,
+                           part: Optional[Part] = None):
     """:func:`make_recurrent_ppo`'s rollout: T steps of the GRU policy and
     ``env_step``; the hidden (the second half of ``state.env_state``) is
     zeroed where ``done`` fires. ``rollout(state) -> ((env_state, hidden),
-    last_obs, traj)``."""
+    last_obs, traj)``; ``part`` as in :func:`make_step_rollout`."""
 
     @torch.no_grad()
     def rollout(state: PpoState):
         (env_state, hidden), obs, steps = state.env_state, state.last_obs, []
         for _ in range(config.num_steps):
             mean, log_std, value, h2 = apply_fn(state.params, obs, hidden)
-            action = mean + torch.exp(log_std) * action_noise(mean, state.generator)
+            action = mean + torch.exp(log_std) * _bank_noise(mean, state.generator, part)
             log_prob = gaussian_log_prob(mean, log_std, action)
             env_state, next_obs, reward, done = env_step(env_state, action, state.generator)
             hidden = _zero_done(h2, done)
@@ -449,7 +480,7 @@ def make_recurrent_ppo(
                     (mb_envs,) + tuple(h0.shape[1:]))
                 loss, m = _seq_loss(net, mb, h0_mb, take(advantages, bidx),
                                     take(targets, bidx))
-                _update(net, opt, loss, config.max_grad_norm)
+                _update(net, opt, loss, config)
                 losses.append(loss.detach())
                 for k, v in m.items():
                     metrics.setdefault(k, []).append(v.detach())

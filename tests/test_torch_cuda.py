@@ -39,7 +39,8 @@ CPU's features within 1e-5). K5 renders the 4-agent race, the opponents and
 obstacles as per-camera spheres, with levels equal. SAC's nets hold their
 CPU outputs within 1e-5 and one SAC update (the same replay and draws)
 its losses within 1e-6 + 1e-5 relative and every parameter within 1e-6 +
-1e-4 relative; the SAC and ES trainers launch no kernel.
+1e-4 relative; the SAC and ES trainers launch no kernel. Two gloo ranks
+sharing the card replay one process's fixed-action rollouts bit for bit.
 """
 
 import numpy as np
@@ -814,3 +815,23 @@ def test_cuda_sac_and_es_trainers_launch_no_kernel(cuda_device):
     assert all(np.isfinite(r.mean_reward_last) for r in res)
     state = make_sac_trainer(num_envs=8, buffer_capacity=64, batch_size=16).state
     assert state.buffer.obs.is_cuda and state.last_obs.is_cuda and state.generator.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_replay_one_process(cuda_device):
+    """Two gloo ranks sharing the card (``parallel.launch``) step their
+    halves of a 256-env acro bank (episodes of 10 steps) and of 16
+    two-agent races with fixed actions: rewards, positions, done flags and
+    gate counters equal one process's bit for bit."""
+    import torch_dist_ranks as ranks
+    from fpyv_tpu_torch.parallel.launch import launch
+
+    def joined(outs):
+        return [np.concatenate([o[i] for o in outs], axis=1) for i in range(len(outs[0]))]
+
+    for fn, args in ((ranks.acro_layout, (256, 32, 10)), (ranks.race_layout, (16, 2, 20))):
+        one = fn(None, *args, device="cuda")
+        two = joined(launch(fn, 2, args + ("cuda",), device="cuda:0", backend="gloo",
+                            deadline=240.0))
+        for a, b in zip(one, two):
+            np.testing.assert_array_equal(a, b)

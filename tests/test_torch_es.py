@@ -236,9 +236,23 @@ def test_policy_es_five_generations_match_jax(kind, monkeypatch):
     assert np.abs(tunravel(tstate[0])["w"].numpy()).max() > 0.1  # premise: theta moved
 
 
-def test_policy_es_refuses_a_mesh():
-    with pytest.raises(ValueError, match="queue 1 item 8"):
-        make_policy_es({"w": np.zeros(2, np.float32)}, None, mesh=object(), device="cpu")
+def test_policy_es_takes_a_mesh():
+    """A one-rank mesh (no process group) gives the generations of no mesh
+    bit for bit; the two-rank split is held in tests/test_torch_dist_trainers.py."""
+    from fpyv_tpu_torch.parallel.mesh import make_mesh
+
+    def fitness(p, generator, common):
+        w = p["w"]
+        return -((w - 0.5) ** 2).sum(-1) + 0.01 * torch.rand(w.shape[0], generator=generator)
+
+    out = []
+    for mesh in (None, make_mesh(device="cpu")):
+        init, run, _ = make_policy_es({"w": np.zeros(3, np.float32)}, fitness,
+                                      n_perturbations=4, mesh=mesh, device="cpu")
+        out.append(run(init(), 3, torch.Generator().manual_seed(0)))
+    (sa, ha), (sb, hb) = out
+    assert all(torch.equal(a, b) for a, b in zip(sa, sb)) and torch.equal(ha, hb)
+    assert sa[0].abs().max() > 0  # premise: theta moved
 
 
 @pytest.mark.parametrize("entry", ["make_policy_es", "policy_es"])
@@ -382,8 +396,14 @@ def test_train_es_on_the_cpu(env_name, tmp_path):
     assert all(np.isfinite(r["gen_best_fitness"]) for r in rows)
 
 
+def test_train_es_distributed_runs_at_world_size_1(tmp_path):
+    """``distributed=True`` with no process group: the one-rank mesh."""
+    res = train_es(env_name="rotate", num_envs=8, num_iterations=2, num_steps=4,
+                   n_perturbations=2, hidden=(8,), scan_chunk=1, print_every=0,
+                   distributed=True, device="cpu")
+    assert res.iterations == 2 and np.isfinite(res.mean_reward_last)
+
+
 def test_train_es_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="queue 1 item 8"):
-        train_es(distributed=True, device="cpu")
     with pytest.raises(ValueError, match="unknown env"):
         train_es(env_name="ball", device="cpu")

@@ -429,7 +429,8 @@ for name in ("ops.vision_kernel", "envs.vision_acro", "vision.raycast", "vision.
              "control.guidance", "sensors.uwb", "world.randomize", "world.render_bank",
              "models.policy", "rl.ppo", "rl.gae", "ops.policy_kernel", "apps.train",
              "utils.checkpoint", "envs.multi_race", "envs.vision_race", "ops.race_kernel",
-             "apps.play", "rl.sac", "rl.replay", "rl.es", "envs.rotate"):
+             "apps.play", "rl.sac", "rl.replay", "rl.es", "envs.rotate", "parallel.mesh",
+             "parallel.train", "parallel.launch"):
     assert "fpyv_tpu_torch." + name in walked, name
 print("ok", len([m for m in new if m.startswith("fpyv_tpu_torch")]))
 """

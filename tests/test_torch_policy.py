@@ -457,6 +457,10 @@ def test_state_trainer_resume_matches_unbroken_run(kind, tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["acro", "race"])
-def test_state_trainer_refuses_distributed(kind):
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
-        TRAINERS[kind](num_envs=8, num_iterations=1, distributed=True, device="cpu")
+def test_state_trainer_distributed_at_world_size_1(kind):
+    """``distributed=True`` with no process group trains on the one-rank
+    mesh (bit-equal to one process: tests/test_torch_dist_trainers.py)."""
+    kw = dict(n_agents=2) if kind == "race" else {}
+    res = TRAINERS[kind](num_envs=8, num_iterations=1, num_steps=4, hidden=(16, 16),
+                         print_every=0, distributed=True, device="cpu", **kw)
+    assert res.iterations == 1 and np.isfinite(res.mean_reward_last)

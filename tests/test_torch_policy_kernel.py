@@ -221,7 +221,10 @@ def test_checkpoint_resume_matches_unbroken_run(tmp_path):
 
 
 # the scan rollout's options run in tests/test_torch_scan_trainers.py
-@pytest.mark.parametrize("kw", [dict(distributed=True)])
-def test_train_vision_refuses_unported_paths(kw):
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
+@pytest.mark.parametrize("kw", [dict(distributed=True, rollout="kernel")])
+def test_train_vision_kernel_refuses_distributed(kw):
+    """JAX's own refusal: K7 bakes the worlds into its columns and runs on
+    one device (fpyv_tpu/apps/train.py:909-911); ``auto`` routes
+    ``distributed`` to the scan rollout."""
+    with pytest.raises(ValueError, match="does not compose with distributed"):
         train_vision(num_envs=8, num_iterations=1, device="cpu", **kw)

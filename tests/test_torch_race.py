@@ -312,7 +312,11 @@ def test_race_checkpoint_resume_matches_unbroken_run(tmp_path):
 
 
 # the scan rollout's options run in tests/test_torch_scan_trainers.py
-@pytest.mark.parametrize("kw", [dict(distributed=True)])
-def test_train_vision_race_refuses_unported_paths(kw):
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 8"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(distributed=True, rollout="kernel"), "no distributed"),
+    (dict(distributed=True, gru=8), "gru \\+ distributed")])
+def test_train_vision_race_refuses_what_jax_refuses(kw, match):
+    """JAX's own refusals with ``distributed`` (fpyv_tpu/apps/train.py:618-626):
+    the kernel rollout (K8), and the GRU."""
+    with pytest.raises(ValueError, match=match):
         train_vision_race(num_envs=8, num_iterations=1, device="cpu", **kw)

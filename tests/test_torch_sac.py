@@ -459,3 +459,16 @@ def test_train_sac_on_the_cpu(tmp_path):
     for row in rows:
         assert {"critic_loss", "actor_loss", "alpha", "entropy", "mean_reward"} <= set(row)
         assert all(np.isfinite(row[k]) for k in ("critic_loss", "actor_loss", "alpha"))
+
+
+def test_train_sac_logs_the_rows_jax_logs(tmp_path):
+    """With ``print_every > 0`` the metrics log keeps the iterations the JAX
+    trainer logs, ``it % print_every == 0`` (fpyv_tpu/apps/train.py:458-459):
+    steps 0 and 2 of 4 at ``print_every=2``."""
+    import json
+
+    train_sac(num_envs=8, num_iterations=4, warmup_steps=2, buffer_capacity=64,
+              batch_size=16, updates_per_step=2, hidden=(16, 16), scan_chunk=3,
+              log_dir=str(tmp_path), print_every=2, device="cpu")
+    rows = [json.loads(x) for x in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [0, 2]
