@@ -187,7 +187,25 @@ each:
    True)`` on the scan rollout (1024 envs in all, per-env random worlds, 3
    iterations): K5 launches a rank, finite losses, equal replicas; (f)
    ``train_es(distributed=True)`` at its defaults, 2 generations: the rate,
-   and theta and the generation-best fitness within 1e-6 of world size 1.
+   and theta and the generation-best fitness within 1e-6 of world size 1;
+28. the front door, with the launch counters at 0 before each path: (a)
+   ``run_simulator(steps=600)`` headless on the card and on the CPU (same
+   steps and crash, the final state within tests/test_torch_simulator.py's
+   ``TOL_CRASH``; no kernel launched) and its sim steps/s; (b)
+   ``render="2d"`` on seed 4's world (600 steps flown): a frame every other
+   step, (480, 640) uint8, the first against the CPU's, frames/s; (c) the
+   per-step path (a virtual target held by a scripted drag, 300 steps), its
+   steps/s beside the reference's 60/s; (d) play's video on the flagship
+   (``vision_race``, 16 envs, 120 steps): K5 renders each frame at 640x480
+   (one camera; two K5 launches a step with the env's), frame 0 equal to
+   K5's plain version on the same camera, K5's time and bound at that shape,
+   video frames/s beside the same eval without it; the frames go to a list
+   through play's frame path, and where cv2 imports ``save_video`` also
+   writes ``build/chip_smoke/play_video.mp4`` (its frame count printed); (e)
+   ``python -m fpyv_tpu_torch.cli`` as subprocesses: ``train --num-envs
+   4096 --iterations 3``, ``train --vision --iterations 2`` (K7) and
+   ``parity --steps 300`` (float64 on the card, ``"pass": true``), each
+   exiting 0 with its JSON line.
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -267,6 +285,21 @@ SAC_ENVS, SAC_BATCH, SAC_BUFFER = 1024, 2048, 500_000  # train_sac's defaults (8
 SAC_WARMUP, SAC_ITERS, SAC_CHUNK = 50, 300, 100  # the first chunk of 100 left out
 SAC_PREFILL = 65536  # phase 24's replay before its one step
 ES_ITERS, ES_CHUNK = 6, 2  # train_es's defaults: 256 candidates x 256 envs x 60 steps
+SIM_STEPS = 600  # phase 28: the simulator's scripted flight (params.yaml, the default seed
+#   0 crashes at step 84 inside the first 512-step chunk; seed 4's world flies all 600)
+SIM_2D_SEED = 4
+VT_STEPS, VT_PIXEL = 300, (320.0, 80.0)  # the per-step path: a drag held at this pixel
+REFERENCE_FPS = 60.0  # config/params.yaml:7: the reference flies a human at 60 steps/s
+VIDEO_STEPS, VIDEO_ENVS = 120, 16  # play's video: one chunk of 120 at the CLI's 16 envs
+# the simulator on the card against the CPU: tests/test_torch_simulator.py::TOL_CRASH (a run
+# that crashes at step 84); a frame after a step may differ on at most 0.5 % of its pixels
+# (tests/test_torch_vision.py: an ulp of pose can move a point across a pixel's edge)
+TOL_SIM = {"final_position": 1e-4, "final_velocity": 1e-3}
+FRAME_SHARE = 0.005
+CLI_CALLS = (("train", "--num-envs", "4096", "--iterations", "3"),  # README's width
+             ("train", "--vision", "--iterations", "2"),  # K7
+             ("parity", "--steps", "300"))
+TRAIN_KEYS = {"iterations", "mean_reward_first", "mean_reward_last", "env_steps_per_second"}
 
 # H100 SXM published peaks (NVIDIA data sheet), dense, at the 700 W limit
 PEAK_F32_OPS = 67e12  # float32 outside the tensor cores
@@ -1916,6 +1949,190 @@ def distributed_checks(dev, smi: str, single_rate: float) -> None:
     log(f"phase 27 ranks took {ranks_s:.3f} s (spawn, CUDA start and (b)-(f) in each rank)")
 
 
+def sim_checks(smi: str) -> None:
+    """Phase 28 (a)-(c): the simulator on the card. It reaches no kernel (the
+    splat renderer is eager PyTorch, as JAX's is plain XLA), so every launch
+    counter stays 0."""
+    from fpyv_tpu_torch.apps.simulator import run_simulator
+
+    run_simulator(steps=16)  # warm-up: the libraries' first calls
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    # (a) headless: the card against the CPU in this process
+    t0 = time.perf_counter()
+    card = run_simulator(steps=SIM_STEPS)
+    wall = time.perf_counter() - t0
+    host = run_simulator(steps=SIM_STEPS, device="cpu")
+    if (card["steps"], card["crashed"]) != (host["steps"], host["crashed"]):
+        raise AssertionError(f"phase 28 (a): the card flew {card['steps']} steps (crashed "
+                             f"{card['crashed']}), the CPU {host['steps']} ({host['crashed']})")
+    errs = {k: float(np.abs(card[k] - host[k]).max()) for k in TOL_SIM}
+    if any(errs[k] > tol for k, tol in TOL_SIM.items()):
+        raise AssertionError(f"phase 28 (a): card against CPU {errs}, tolerance {TOL_SIM}")
+    executed = min(SIM_STEPS, -(-card["steps"] // 512) * 512)  # whole chunks of 512 run
+    log(f"phase 28 (a) sim headless (params.yaml, seed 0, guided, {SIM_STEPS} steps): "
+        f"{card['steps']} steps flown, crashed {card['crashed']} (the CPU alike), final state "
+        f"against the CPU {json.dumps(errs)} (tolerance {json.dumps(TOL_SIM)}); "
+        f"{executed / wall:.6e} sim steps/s on the card ({executed} steps executed in "
+        f"{wall:.3f} s: the chunk runs whole, one host read a chunk) on {smi}")
+    # (b) the 2d FPV frames
+    frames, first = [], []
+    t0 = time.perf_counter()
+    out = run_simulator(steps=SIM_STEPS, render="2d", frame_sink=frames.append, seed=SIM_2D_SEED)
+    wall = time.perf_counter() - t0
+    run_simulator(steps=1, render="2d", frame_sink=first.append, seed=SIM_2D_SEED, device="cpu")
+    want = (out["steps"] + 1) // 2  # t % 2 == 0 up to the last step flown
+    if len(frames) != want or any(f.shape != (480, 640) or f.dtype != np.uint8 for f in frames):
+        raise AssertionError(f"phase 28 (b): {len(frames)} frames for {out['steps']} steps, "
+                             f"expected {want} of (480, 640) uint8")
+    off = int((frames[0] != first[0]).sum())
+    if off > FRAME_SHARE * frames[0].size:
+        raise AssertionError(f"phase 28 (b): the first frame differs from the CPU's on {off} "
+                             f"pixels")
+    log(f"phase 28 (b) sim --render 2d (seed {SIM_2D_SEED}, {SIM_STEPS} steps): {out['steps']} "
+        f"steps flown, {len(frames)} frames of (480, 640) uint8, the first against the CPU's: "
+        f"{off} pixels differ ({'bit-equal' if off == 0 else 'within 0.5 %'}); "
+        f"{len(frames) / wall:.6e} frames/s, {SIM_STEPS / wall:.6e} sim steps/s with the "
+        f"frames ({wall:.3f} s) on {smi}")
+    # (c) the per-step path: the virtual target, a scripted drag
+
+    def drag(t):
+        return [("down", *VT_PIXEL)] if t == 0 else [("move", *VT_PIXEL)]
+
+    run_simulator(steps=8, seed=SIM_2D_SEED, virtual_target=True, target_events=drag)
+    t0 = time.perf_counter()
+    vt = run_simulator(steps=VT_STEPS, seed=SIM_2D_SEED, virtual_target=True, target_events=drag)
+    wall = time.perf_counter() - t0
+    if not np.isfinite(vt["final_position"]).all():
+        raise AssertionError(f"phase 28 (c): non-finite state {vt}")
+    log(f"phase 28 (c) the per-step path (virtual target held at {VT_PIXEL}, seed "
+        f"{SIM_2D_SEED}): {vt['steps']} steps flown, crashed {vt['crashed']}, "
+        f"{vt['steps'] / wall:.6e} steps/s beside the {REFERENCE_FPS:.0f}/s the reference flies "
+        f"a human at (config/params.yaml:7; a measurement, not a gate) on {smi}")
+    counts = dict(_build.launch_counts)
+    if any(counts.values()):
+        raise AssertionError(f"phase 28 (a)-(c): the simulator launched {counts}")
+    log(f"phase 28 (a)-(c) the simulator's kernel launches: {json.dumps(counts)}")
+
+
+def video_checks(dev, smi: str) -> dict:
+    """Phase 28 (d): play's FPV video from the shipped flagship on the card:
+    K5 renders every frame at 640x480, one camera; frame 0 against K5's plain
+    version on the same camera; K5's time, bound and launches at that shape."""
+    from fpyv_tpu_torch.apps import play as play_mod
+    from fpyv_tpu_torch.physics.drone import _att_to_rotmat
+    from fpyv_tpu_torch.vision.camera import camera_pose
+    from fpyv_tpu_torch.vision.raycast import ALL
+
+    net, play_kw = play_mod.load_flagship()
+    play_kw.pop("seed", None)
+    params = net.state_dict()
+    kw = dict(env_name="vision_race", steps=VIDEO_STEPS, num_envs=VIDEO_ENVS, chunk=VIDEO_STEPS,
+              params=params, **play_kw)
+    play_mod.play_policy(**dict(kw, steps=8, chunk=8), frame_sink=lambda f: None)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_out = play_mod.play_policy(**kw)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    first, frames = [], []
+    real = play_mod.video_frame
+
+    def spy(rig, p, drone, world):
+        out = real(rig, p, drone, world)
+        if not first:
+            first.append((rig, p, drone, world, out))
+        return out
+
+    _build.reset_launch_counts()
+    with swapped(play_mod, "video_frame", spy):
+        t0 = time.perf_counter()
+        out = play_mod.play_policy(frame_sink=frames.append, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(_build.launch_counts)
+    want = {k: 0 for k in counts}
+    want["render_depth"] = 2 * VIDEO_STEPS + 1  # the env's frames (+ the reset's) and the video's
+    if counts != want or len(frames) != VIDEO_STEPS or out["steps"] != VIDEO_STEPS:
+        raise AssertionError(f"phase 28 (d): {len(frames)} frames for {out['steps']} steps, "
+                             f"launches {counts}, expected {want}")
+    if set(out) != set(plain_out):
+        raise AssertionError(f"phase 28 (d): keys {sorted(out)} against {sorted(plain_out)}")
+    if any(f.shape != (480, 640) or f.dtype != np.uint8 for f in frames):
+        raise AssertionError("phase 28 (d): the video frames are not (480, 640) uint8")
+    rig, p, drone, world, f0 = first[0]
+    cam_pos, cam_R = camera_pose(rig, drone.pos, _att_to_rotmat(p, drone.att))
+    cfg, dcam, cam, wcol = vk.render_inputs(rig, cam_pos, cam_R, world, 25.0, ALL, None, 0.08)
+    ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+    got = vk.launch_render_depth(cfg, dcam, cam, wcol)
+    err = float((got - ref).abs().max().item())
+    if err != 0.0 or not torch.equal(f0, torch.round(ref * 255.0).to(torch.uint8).reshape(480, 640)):
+        raise AssertionError(f"phase 28 (d): K5 at 640x480 differs from its plain version "
+                             f"({err}) or from the video's frame 0")
+    hw = dcam.shape[1]
+    ms = cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 200)
+    pms = cuda_ms(lambda: vk.render_depth_reference(cfg, dcam, cam, wcol), 5)
+    nbytes = ((hw + 16) + 3 * hw + cfg.n_cols) * 4
+    ops = render_data_ops(cfg, dcam, cam, wcol)
+    bms, by = bound(ops, nbytes)
+    lit = float((ref > 0).float().mean().item())
+    try:
+        import cv2  # noqa: F401
+        encoder = True
+    except ImportError:
+        encoder = False
+    try:
+        import matplotlib  # noqa: F401
+        views = True
+    except ImportError:
+        views = False
+    log(f"phase 28 (d) on this machine: cv2 {'imports' if encoder else 'is missing'} (the "
+        f"video's encoder, the HUD), matplotlib {'imports' if views else 'is missing'} "
+        f"(--render 3d, the calibration views)")
+    if encoder:
+        path = Path(__file__).resolve().parent / "build" / "chip_smoke" / "play_video.mp4"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        vid = play_mod.play_policy(save_video=str(path), **kw)
+        sink_note = f"save_video wrote {path.name} with {vid['video_frames']} frames"
+    else:
+        sink_note = ("no cv2 on this machine: the frames went through play's frame path "
+                     "(HUD included) into a list, not the encoder")
+    log(f"phase 28 (d) play's video (flagship, vision_race, {VIDEO_ENVS} envs, {VIDEO_STEPS} "
+        f"steps): {len(frames)} frames of (480, 640) uint8, {sink_note}; "
+        f"{VIDEO_STEPS / wall:.6e} video frames/s ({wall:.3f} s; the same eval without the video "
+        f"{wall_plain:.3f} s, so {(wall - wall_plain) / VIDEO_STEPS * 1e3:.3f} ms a frame); "
+        f"launches {json.dumps({k: v for k, v in counts.items() if v})}; the eval's statistics "
+        f"equal to the run without the video: {out == plain_out}; frame 0 equals K5's plain "
+        f"version (max abs err {err}) on {smi}")
+    log(f"K5 at 1 x 640x480 (play's video camera, frame 0, {lit:.6f} of its pixels lit): "
+        f"{ms:.6f} ms (plain {pms:.6f} ms), bound {bms:.6f} ms by {by} (the operations this "
+        f"frame's pixels need, misses ending at the discriminant), {VIDEO_STEPS} launches a "
+        f"{VIDEO_STEPS}-step play call, on {smi}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms}
+
+
+def cli_checks(smi: str) -> None:
+    """Phase 28 (e): ``python -m fpyv_tpu_torch.cli`` as subprocesses on the
+    card: exit code 0 and the JSON line of each."""
+    root = Path(__file__).resolve().parent
+    for argv in CLI_CALLS:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "fpyv_tpu_torch.cli", *argv], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"phase 28 (e): cli {' '.join(argv)} exited {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+        if argv[0] == "train" and (set(out) != TRAIN_KEYS
+                                   or not math.isfinite(out["mean_reward_last"])):
+            raise AssertionError(f"phase 28 (e): cli {' '.join(argv)} printed {out}")
+        if argv[0] == "parity" and out.get("pass") is not True:
+            raise AssertionError(f"phase 28 (e): cli parity on the card failed: {out}")
+        log(f"phase 28 (e) python -m fpyv_tpu_torch.cli {' '.join(argv)}: rc 0 in {wall:.3f} s "
+            f"(process start included), {json.dumps(out)} on {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2563,6 +2780,16 @@ def main() -> int:
     t0 = time.perf_counter()
     distributed_checks(dev, smi, acro_rate)
     log(f"phase 27 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 28. the front door: simulator, play's video (K5 at 640x480), the CLI ------------
+    t0 = time.perf_counter()
+    sim_checks(smi)
+    k5_video = video_checks(dev, smi)
+    for kr in kernels:
+        if kr["name"] == "render_depth":
+            kr["max_abs_err"] = max(kr["max_abs_err"], k5_video["max_abs_err"])
+    cli_checks(smi)
+    log(f"phase 28 took {time.perf_counter() - t0:.3f} s")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

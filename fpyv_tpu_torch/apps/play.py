@@ -21,15 +21,22 @@ Each step runs the net and the eager env step (whose render is K5 on a CUDA
 state), as the JAX function steps its envs' ``step`` under ``jax.vmap``.
 Resets draw from a ``torch.Generator`` seeded with ``seed``.
 
+``save_video`` records env 0's FPV view (agent 0 of race 0 for the races):
+each step renders it at ``video_resolution`` through the analytic raycast
+(:func:`video_frame`: ``render_depth_raycast``, K5 on the card, one camera)
+from ``_video_rig`` (pitch 35°, offset (0.1, 0, 0), fov 120°, built once a
+call, so K5's ray grid is made once); a chunk's frames, positions and
+velocities stack on the device and reach the host in one copy, then each
+frame gets the HUD (speed, height) and goes to
+:class:`~fpyv_tpu_torch.viz.video.VideoWriterSink` (cv2), or to
+``frame_sink`` when one is given instead.
+
 Weights come from the port's own checkpoints (``checkpoint_dir``,
 :mod:`fpyv_tpu_torch.utils.checkpoint`), or ``params``: a port
 ``state_dict`` or a Flax tree of numpy arrays. :func:`load_flagship` reads
 the shipped flagship racer, converted once from its orbax checkpoint into
 ``runs/flagship_torch/policy.npz`` (``tools/convert_flagship.py``), with
 numpy alone.
-
-Not ported yet, and refused with a ValueError: the video (ROADMAP queue 1
-item 9).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +52,16 @@ import torch
 from fpyv_tpu_torch import interop
 from fpyv_tpu_torch.device import resolve_device
 from fpyv_tpu_torch.envs.acro import AcroEnv
+from fpyv_tpu_torch.envs.base import tree_map_tensors
 from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv
 from fpyv_tpu_torch.envs.vision_acro import VisionAcroEnv
 from fpyv_tpu_torch.envs.vision_race import VisionRaceEnv, default_race_rig
 from fpyv_tpu_torch.models.policy import ActorCritic, PixelActorCritic
-from fpyv_tpu_torch.physics.drone import DroneParams
+from fpyv_tpu_torch.ops.vision_kernel import world_batched
+from fpyv_tpu_torch.physics.drone import DroneParams, DroneState, _att_to_rotmat
+from fpyv_tpu_torch.physics.world import World
+from fpyv_tpu_torch.vision.camera import CameraRig, camera_pose
+from fpyv_tpu_torch.vision.raycast import render_depth_raycast
 from fpyv_tpu_torch.utils.checkpoint import restore_checkpoint
 
 FLAGSHIP_DIR = Path(__file__).resolve().parents[2] / "runs" / "flagship_torch"
@@ -105,8 +117,23 @@ def _flax_tree(params) -> dict:
     return {"params": inner}
 
 
-def _not_ported(what: str, item: int) -> ValueError:
-    return ValueError(f"{what} is not ported yet (ROADMAP queue 1 item {item})")
+def _video_rig(resolution: Tuple[int, int]) -> CameraRig:
+    return CameraRig(pitch_deg=35.0, rel_position=(0.1, 0.0, 0.0), fov_deg=120.0,
+                     resolution=tuple(resolution))
+
+
+def video_frame(rig: CameraRig, params: DroneParams, drone: DroneState,
+                world: World) -> torch.Tensor:
+    """One drone's FPV view: (H, W) uint8 levels from the analytic raycast
+    at max_depth 25 (K5, one camera, on a CUDA drone)."""
+    R = _att_to_rotmat(params, drone.att)
+    cam_pos, cam_R = camera_pose(rig, drone.pos, R)
+    return render_depth_raycast(rig, cam_pos, cam_R, world, max_depth=25.0)
+
+
+def _first(tree, n: int = 1):
+    """Row 0 of the ``n`` leading axes of every tensor of ``tree``."""
+    return tree_map_tensors(lambda x: x[(0,) * n], tree)
 
 
 def load_flagship(device=None, compute_dtype=torch.bfloat16):
@@ -147,13 +174,21 @@ class Player:
     (state, obs, reward, crashed, extra)``; a play step is
     ``env_step(state, act(obs), generator)``. A GRU net (``gru > 0``)
     carries ``(env state, hidden)`` as its state, and ``act(obs, hidden) ->
-    (mean action, hidden')``; the step zeroes the hidden where ``crashed``."""
+    (mean action, hidden')``; the step zeroes the hidden where ``crashed``.
+    ``view(env state) -> (drone, world)`` is what the video films: env 0's
+    drone (agent 0 of race 0) and its world; ``params`` the env's drone."""
 
     net: torch.nn.Module
     reset: Callable
     act: Callable
     env_step: Callable
+    view: Callable
+    params: DroneParams
     gru: int = 0
+
+    def frame_state(self, state):
+        """(drone, world) of the video's env from a play state."""
+        return self.view(state[0] if self.gru else state)
 
     def step(self, state, obs, generator):
         if not self.gru:
@@ -217,6 +252,9 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
             st, obs, r, _, info = env.step(st, action, world, generator=generator)
             return st, obs, r, info["crashed"], {}
 
+        def view(st):
+            return _first(st.drone), world
+
     elif env_name == "vision":
         env = VisionAcroEnv(renderer="raycast", target_only=False)
         if randomize_worlds:
@@ -237,6 +275,11 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
         def env_step(st, action, generator):
             st, obs, r, _, info = env.step_batched(st, action, world, bank, generator=generator)
             return st, obs, r, info["crashed"], {}
+
+        world0 = _first(world) if world_batched(world) else world
+
+        def view(st):
+            return _first(st.drone), world0
 
     elif env_name == "vision_race":
         A = n_agents or 1
@@ -267,6 +310,9 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
                 extra["sum_overtakes"] = info["overtakes"]
             return st, obs, r, info["crashed"], extra
 
+        def view(st):
+            return _first(st.race.drones, 2), world
+
     elif env_name == "race":
         A = n_agents or 4
         env = MultiRaceEnv(n_agents=A, gate_size=gate_size, permute_spawns=permute_spawns)
@@ -288,12 +334,15 @@ def make_player(env_name: str, tree: dict, num_envs: int = 16, hidden=(128, 128)
                      "sum_contact_events": info["contact"],
                      "sum_overtakes": info["overtakes"]})
 
+        def view(st):  # agent 0 of race 0
+            return _first(st.drones, 2), world
+
     else:
         raise ValueError(f"unknown env {env_name!r}")
 
     net.load_state_dict(weights)
     return Player(net=net, reset=_with_hidden(reset, rows, gru, device), act=act,
-                  env_step=env_step, gru=gru)
+                  env_step=env_step, view=view, params=env.params, gru=gru)
 
 
 def play_policy(
@@ -312,17 +361,19 @@ def play_policy(
     gate_size: float = 5.0,  # (race/vision_race) the trained track's
     n_obstacles: int = 0,  # (vision_race) moving track obstacles
     permute_spawns: bool = False,  # (race/vision_race) random spawn slots
-    save_video: Optional[str] = None,  # not ported: raises
+    save_video: Optional[str] = None,  # video file of env 0's FPV view (cv2)
+    video_resolution: Tuple[int, int] = (640, 480),
     chunk: int = 120,  # steps between host reads
     step_checkpoint: Optional[int] = None,  # None = latest
     params=None,  # bypass the checkpoint: a port state_dict or a Flax tree
     device=None,  # CUDA unless "cpu"
+    frame_sink: Optional[Callable] = None,  # callable(uint8 frame): the HUD'd
+    #   video frames go here instead of a file (save_video takes precedence)
 ) -> dict:
     """Fly the deterministic policy (the actor's mean) for ``steps``,
     rounded up to a multiple of ``chunk``, over ``num_envs`` envs; returns
-    the episode statistics (keys as the JAX function's)."""
-    if save_video:
-        raise _not_ported(f"save_video={save_video!r} (the video)", 9)
+    the episode statistics (keys as the JAX function's, with ``video`` and
+    ``video_frames`` when ``save_video`` is given)."""
     if params is None:
         if checkpoint_dir is None:
             raise ValueError("pass checkpoint_dir or params")
@@ -337,25 +388,42 @@ def play_policy(
                          n_obstacles=n_obstacles, permute_spawns=permute_spawns,
                          world_generator=g_world, device=device)
 
+    sink = frame_sink
+    if save_video:
+        from fpyv_tpu_torch.viz.video import VideoWriterSink
+
+        sink = VideoWriterSink(save_video, fps=60.0)
+    rig = _video_rig(video_resolution) if sink is not None else None
+
     total_r, crash_events, extra_sums, done_steps = 0.0, 0, {}, 0
-    with torch.no_grad():
-        st, obs = player.reset(g_env)
-        while done_steps < steps:
-            outs = []
-            for _ in range(chunk):
-                st, obs, r, crashed, extra = player.step(st, obs, g_env)
-                outs.append((r, crashed, extra))
-            host = _to_host(outs)
-            total_r += float(np.sum(host["r"])) / num_envs
-            crash_events += int(np.sum(host["crashed"]))
-            for k in outs[0][2]:
-                v = host[k]
-                if k.startswith("sum_"):  # per-step event counters
-                    extra_sums[k] = extra_sums.get(k, 0) + np.sum(
-                        v.astype(np.int64), axis=tuple(range(v.ndim - 1)))
-                else:
-                    extra_sums[k] = v[-1]  # running counters: the last step's
-            done_steps += chunk
+    try:
+        with torch.no_grad():
+            st, obs = player.reset(g_env)
+            while done_steps < steps:
+                outs, frames, motion = [], [], []
+                for _ in range(chunk):
+                    st, obs, r, crashed, extra = player.step(st, obs, g_env)
+                    outs.append((r, crashed, extra))
+                    if rig is not None:
+                        drone0, world0 = player.frame_state(st)
+                        frames.append(video_frame(rig, player.params, drone0, world0))
+                        motion.append(torch.cat([drone0.pos, drone0.vel]))
+                host = _to_host(outs)
+                total_r += float(np.sum(host["r"])) / num_envs
+                crash_events += int(np.sum(host["crashed"]))
+                for k in outs[0][2]:
+                    v = host[k]
+                    if k.startswith("sum_"):  # per-step event counters
+                        extra_sums[k] = extra_sums.get(k, 0) + np.sum(
+                            v.astype(np.int64), axis=tuple(range(v.ndim - 1)))
+                    else:
+                        extra_sums[k] = v[-1]  # running counters: the last step's
+                if rig is not None:
+                    _sink_frames(sink, torch.stack(frames), torch.stack(motion))
+                done_steps += chunk
+    finally:
+        if save_video:
+            sink.close()
 
     out = {
         "env": env_name,
@@ -372,7 +440,21 @@ def play_policy(
             out[k[4:]] = np.asarray(v, np.int64).tolist()
         else:
             out[f"final_{k}_mean"] = float(np.mean(v))
+    if save_video:
+        out["video"] = sink.path
+        out["video_frames"] = sink.frames_written
     return out
+
+
+def _sink_frames(sink: Callable, frames: torch.Tensor, motion: torch.Tensor) -> None:
+    """A chunk's (T, H, W) uint8 frames and (T, 6) positions and
+    velocities to the host in one copy each, the HUD on every frame (speed,
+    height), each to ``sink``."""
+    from fpyv_tpu_torch.viz.hud import hud_overlay
+
+    frames, motion = frames.cpu().numpy(), motion.cpu().numpy()
+    for frame, pv in zip(frames, motion):
+        sink(hud_overlay(frame, speed_ms=float(np.linalg.norm(pv[3:])), height_m=float(pv[2])))
 
 
 def _to_host(outs) -> dict:

@@ -41,6 +41,9 @@ CPU outputs within 1e-5 and one SAC update (the same replay and draws)
 its losses within 1e-6 + 1e-5 relative and every parameter within 1e-6 +
 1e-4 relative; the SAC and ES trainers launch no kernel. Two gloo ranks
 sharing the card replay one process's fixed-action rollouts bit for bit.
+K5 renders play's video frames (one camera at 640x480) with levels equal to
+its plain version; the simulator (no kernel) on the card holds the CPU's
+run within tests/test_torch_simulator.py's crash tolerance.
 """
 
 import numpy as np
@@ -835,3 +838,53 @@ def test_two_gloo_ranks_on_the_card_replay_one_process(cuda_device):
                             deadline=240.0))
         for a, b in zip(one, two):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_k5_renders_play_video_frames(cuda_device):
+    """K5 at play's video shape, one camera at 640x480 (``_video_rig``), on
+    the params.yaml world from an acro bank's drones: levels equal to its
+    plain version, one launch a frame."""
+    from fpyv_tpu_torch.apps.play import _video_rig, video_frame
+    from fpyv_tpu_torch.envs.base import tree_map_tensors
+    from fpyv_tpu_torch.physics.drone import _att_to_rotmat
+    from fpyv_tpu_torch.vision.camera import camera_pose
+    from fpyv_tpu_torch.vision.raycast import ALL
+
+    rig = _video_rig((640, 480))
+    env = AcroEnv(params=DroneParams(att_mode="quat"))
+    st, _ = env.reset(torch.Generator().manual_seed(0), env.default_world(cuda_device), (4,))
+    world = build_world(WorldSpec.from_config(SimulatorConfig(), seed=0), device=cuda_device)
+    for i in range(4):
+        drone = tree_map_tensors(lambda x, i=i: x[i], st.drone)
+        _build.reset_launch_counts()
+        frame = video_frame(rig, env.params, drone, world)
+        assert _build.launch_counts["render_depth"] == 1
+        cam_pos, cam_R = camera_pose(rig, drone.pos, _att_to_rotmat(env.params, drone.att))
+        cfg, dcam, cam, wcol = vk.render_inputs(rig, cam_pos, cam_R, world, 25.0, ALL, None, 0.08)
+        ref = vk.render_depth_reference(cfg, dcam, cam, wcol)
+        assert frame.shape == (480, 640) and frame.dtype == torch.uint8
+        torch.testing.assert_close(frame, torch.round(ref * 255.0).to(torch.uint8).reshape(480, 640),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_run_simulator_on_the_card_matches_the_cpu(cuda_device):
+    """The simulator (eager PyTorch, the splat renderer: no kernel) on the
+    card against the CPU: params.yaml's world, 600 scripted steps (the crash
+    at step 84 inside the first chunk), same steps and crash, the final state
+    within tests/test_torch_simulator.py's TOL_CRASH; the 2d frames a frame
+    every other step, the first within tests/test_torch_vision.py's 0.5 %."""
+    from fpyv_tpu_torch.apps.simulator import run_simulator
+
+    _build.reset_launch_counts()
+    card, host = run_simulator(steps=600), run_simulator(steps=600, device="cpu")
+    assert (card["steps"], card["crashed"]) == (host["steps"], host["crashed"]) == (84, True)
+    for k, tol in {"final_position": 1e-4, "final_velocity": 1e-3}.items():
+        np.testing.assert_allclose(card[k], host[k], rtol=0, atol=tol, err_msg=k)
+    frames, first = [], []
+    out = run_simulator(steps=40, render="2d", frame_sink=frames.append, seed=4)
+    run_simulator(steps=1, render="2d", frame_sink=first.append, seed=4, device="cpu")
+    assert out["steps"] == 40 and len(frames) == 20
+    assert (frames[0] != first[0]).mean() <= 0.005
+    assert not any(_build.launch_counts.values())

@@ -422,7 +422,7 @@ for m in pkgutil.walk_packages(fpyv_tpu_torch.__path__, "fpyv_tpu_torch."):
 import chip_smoke
 new = set(sys.modules) - before
 bad = sorted(m for m in new
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fpyv_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fpyv_tpu", "tools"))
 assert not bad, bad
 walked = {m.name for m in pkgutil.walk_packages(fpyv_tpu_torch.__path__, "fpyv_tpu_torch.")}
 for name in ("ops.vision_kernel", "envs.vision_acro", "vision.raycast", "vision.renderer",
@@ -430,7 +430,10 @@ for name in ("ops.vision_kernel", "envs.vision_acro", "vision.raycast", "vision.
              "models.policy", "rl.ppo", "rl.gae", "ops.policy_kernel", "apps.train",
              "utils.checkpoint", "envs.multi_race", "envs.vision_race", "ops.race_kernel",
              "apps.play", "rl.sac", "rl.replay", "rl.es", "envs.rotate", "parallel.mesh",
-             "parallel.train", "parallel.launch"):
+             "parallel.train", "parallel.launch", "cli", "apps.simulator", "viz.video",
+             "viz.hud", "viz.render3d", "viz.pid_plot", "viz.trail", "inputs.rc",
+             "inputs.mouse", "inputs.ports", "inputs.serial_readers", "inputs.build_native",
+             "inputs.joystick_native", "io.logs", "io.blackbox_native", "oracle.sim"):
     assert "fpyv_tpu_torch." + name in walked, name
 print("ok", len([m for m in new if m.startswith("fpyv_tpu_torch")]))
 """

@@ -35,6 +35,7 @@ from fpyv_tpu.models.policy import PixelActorCritic as JNet
 from fpyv_tpu.physics.drone import DroneParams as JP
 from fpyv_tpu_torch import interop
 from fpyv_tpu_torch.apps.play import FLAGSHIP_DIR, load_flagship, make_player, play_policy
+from fpyv_tpu_torch.physics.drone import DroneParams as TP
 
 ROOT = Path(__file__).resolve().parents[1]
 ORBAX_STEP = ROOT / "runs" / "flagship" / "ck" / "step_0000005600"
@@ -299,9 +300,105 @@ def test_play_policy_reads_a_port_checkpoint(tmp_path):
 
 
 # conv and GRU weights play in tests/test_torch_scan_trainers.py
-@pytest.mark.parametrize("case,item", [("video", 9)])
-def test_play_policy_refuses_unported_paths(case, item):
-    kw = dict(env_name="vision_race", frame_stack=4, steps=4, chunk=4, device="cpu",
-              save_video="flight.mp4")
-    with pytest.raises(ValueError, match=f"ROADMAP queue 1 item {item}"):
-        play_policy(params=_flagship_tree(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# play_policy's video: env 0's FPV view through the raycast (K5 on the card)
+# ---------------------------------------------------------------------------
+
+
+def _video_drones(env_name):
+    """JAX env-0 drones (several reset and stepped banks) and a JAX world to
+    film them in: the acro bank in params.yaml's world (ground, cylinders,
+    target), the race bank on its track (gates)."""
+    if env_name == "acro":
+        from fpyv_tpu.config import SimulatorConfig
+        from fpyv_tpu.world.generators import WorldSpec, build_world
+
+        jenv = JAcro(params=JP(att_mode="quat"), dtype=jnp.float32)
+        world = jenv.default_world()
+        st, _ = jax.jit(jax.vmap(lambda k: jenv.reset(k, world)))(
+            jax.random.split(jax.random.key(5), 4))
+        step = jax.jit(jax.vmap(lambda s, a: jenv.step(s, a, world)))
+        drones = lambda st: st.drone  # noqa: E731
+        world = build_world(WorldSpec.from_config(SimulatorConfig(), seed=0), dtype=jnp.float32)
+    else:
+        jenv = JVRace(race=JRace(n_agents=2, max_episode_steps=2000), frame_stack=1)
+        world = jenv.default_world()
+        st, _ = jax.jit(lambda k: jenv.reset_batched(k, world))(
+            jax.random.split(jax.random.key(6), 4))
+        step = jax.jit(lambda s, a: jenv.step_batched(s, a.reshape(8, 4), world))
+        drones = lambda st: jax.tree.map(lambda x: x.reshape((8,) + x.shape[2:]),  # noqa: E731
+                                         getattr(st, "race", st).drones)
+    out = []
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        d = drones(st)
+        out += [jax.tree.map(lambda x, i=i: x[i], d) for i in range(0, 4, 2)]
+        st = step(st, jnp.asarray(rng.uniform(-0.5, 0.5, (4 if env_name == "acro" else 8, 4)),
+                                  jnp.float32))[0]
+    return jenv, world, out
+
+
+@pytest.mark.parametrize("env_name", ["acro", "vision_race"])
+def test_video_frame_teacher_forced(env_name):
+    """The port's frame path (``video_frame`` at ``_video_rig((640, 480))``)
+    against JAX's ``render_depth_raycast`` on the same env-0 drone. On the
+    same camera pose the levels are equal, as tests/test_torch_vision.py
+    holds the raycast; each package's own ``camera_pose`` differs by float32
+    ulps, which can move an edge by a pixel, so the frames from the drone
+    may differ on at most 0.5 % of the pixels (that file's post-step
+    tolerance), by one level (measured: 1 pixel of 307 200 in 12 frames)."""
+    from fpyv_tpu.apps.play import _video_rig as jrig
+    from fpyv_tpu.physics.drone import _att_to_rotmat
+    from fpyv_tpu.vision.camera import camera_pose
+    from fpyv_tpu.vision.raycast import render_depth_raycast
+    from fpyv_tpu_torch.apps.play import _video_rig, video_frame
+    from fpyv_tpu_torch.vision.raycast import render_depth_raycast as trender
+
+    jenv, jworld, jdrones = _video_drones(env_name)
+    tworld = interop.world_from_numpy(interop.to_numpy_tree(jworld), "cpu")
+    rig, params = _video_rig((640, 480)), TP(att_mode="quat")  # both envs' drone
+    assert jenv.params.att_mode == params.att_mode
+    assert rig.resolution == (640, 480) and rig.fov_deg == 120.0 and rig.pitch_deg == 35.0
+    lit = 0.0
+    for jd in jdrones:
+        R = _att_to_rotmat(jenv.params, jd.att)
+        cam_pos, cam_R = camera_pose(jrig((640, 480)), jd.pos, R)
+        ref = np.asarray(render_depth_raycast(jrig((640, 480)), cam_pos, cam_R, jworld,
+                                              max_depth=25.0))
+        same_pose = trender(rig, torch.from_numpy(np.array(cam_pos)),
+                            torch.from_numpy(np.array(cam_R)), tworld, max_depth=25.0).numpy()
+        np.testing.assert_array_equal(same_pose, ref)
+        td = interop.drone_state_from_numpy(interop.to_numpy_tree(jd), "cpu")
+        out = video_frame(rig, params, td, tworld).numpy()
+        assert out.shape == (480, 640) and out.dtype == np.uint8
+        diff = np.abs(out.astype(np.int16) - ref)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 0.005
+        lit = max(lit, (ref > 0).mean())
+    assert lit > 0.01  # the world is in view
+
+
+def test_play_policy_saves_video(tmp_path):
+    """play_policy(save_video=...) end to end on the CPU: acro, 16 envs, one
+    chunk of 8; a frame a step in the file, the keys JAX's function adds."""
+    import cv2
+
+    _, tree = _state_nets(17, 0)
+    path = tmp_path / "flight.mp4"
+    out = play_policy(env_name="acro", steps=8, chunk=8, num_envs=16, params=tree,
+                      hidden=(32, 32), save_video=str(path), device="cpu")
+    assert out["video"] == str(path) and out["video_frames"] == out["steps"] == 8
+    cap = cv2.VideoCapture(str(path))
+    assert (cap.get(cv2.CAP_PROP_FRAME_WIDTH), cap.get(cv2.CAP_PROP_FRAME_HEIGHT)) == (640, 480)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 8
+    # the same run without the video, and its frames through a sink instead
+    frames = []
+    plain = play_policy(env_name="acro", steps=8, chunk=8, num_envs=16, params=tree,
+                        hidden=(32, 32), device="cpu", frame_sink=frames.append)
+    assert {k: v for k, v in out.items() if not k.startswith("video")} == plain
+    assert len(frames) == 8 and frames[0].shape == (480, 640) and frames[0].dtype == np.uint8
