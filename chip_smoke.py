@@ -206,6 +206,28 @@ each:
    4096 --iterations 3``, ``train --vision --iterations 2`` (K7) and
    ``parity --steps 300`` (float64 on the card, ``"pass": true``), each
    exiting 0 with its JSON line.
+29. the secondary paths, no kernel on any (every launch counter stays 0
+   across the phase; TF32 off for their float32 products), each held
+   against the CPU on the same CPU generator's draws: (a) ``SensorAcroEnv``
+   at 4096 envs, 256 steps at throttle -0.6 (obs (4096, 21), finite, mass
+   scales that vary, every env's obs changing at every step; 64 envs x 8
+   steps against the CPU within 1e-4), its env-steps/s beside the eager
+   ``AcroEnv(randomize=True)`` step's in the same call and its busy share;
+   (b) ``HoverEnv`` + ``HoverPilot``, 4096 envs x 600 closed-loop steps on
+   the card and on the CPU: the bank's mean error (last 50 below 2 m, and
+   falling; its ratio printed beside JAX's single-env 0.3), the same envs
+   crashed, the share of envs that meet both of JAX's conditions, 64 envs
+   x 60 steps within 1e-4 m; (c) ANGLE and HORIZON from tilts up to 40
+   degrees, 240 steps through ``drone_step`` at 4096 envs: roll and pitch
+   below 2 degrees, no crash, 64 envs within 1e-4 of the CPU, HORIZON at
+   full stick equal to acro's action; (d) the racer at 4096 envs, 1500
+   steps: its rates within 5 % of (80, 10) deg/s, 64 envs against the CPU;
+   (e) ``is_peak_altitude`` on (4096, 64) series (flags equal to the
+   CPU's, both fits), the geometry algorithms at tests/test_geometry_es.py's
+   sizes and tolerances, the terrain at 100x100 and ``attention`` within
+   1e-5 of the CPU relative to the largest value, ``GymAdapter(AcroEnv(),
+   16)``, ``evaluate_policy`` at 4096 envs x 50 steps, ``finite_mask`` and
+   ``assert_finite`` on a bank with three poisoned envs.
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -2133,6 +2155,357 @@ def cli_checks(smi: str) -> None:
             f"(process start included), {json.dumps(out)} on {smi}")
 
 
+SENSOR_STEPS = 256  # phase 29 (a): tests/test_envs.py::TestSensorAcroEnv's action, 4096 envs
+HOVER_STEPS = 600  # (b): test_envs.py::TestHoverEnv::test_rates_pid_hover_pilot's length
+LEVEL_STEPS = 240  # (c): test_flight_modes.py::test_self_levels_from_tilt's length
+LEVEL_TILT_DEG = 40.0  # (c): that test's tilts reach 40-44 degrees
+HOVER_THROTTLE = -0.646  # (c): thrust ~= weight for the default F80 curve
+RACER_STEPS = 1500  # (d): test_racer_and_io.py::TestRacer::test_rate_tracking
+RACER_CMD = (80.0, 10.0, 0.0, 0.0)
+SMALL = 64  # envs of each card-against-CPU check
+TOL_SENSOR_OBS = 1e-4  # (a): float32 obs; an ulp of the baro's exp is 3e-5 of it
+TOL_HOVER_POS = 1e-4  # (b): m after 60 closed-loop float32 steps
+TOL_LEVEL_ATT = 1e-4  # (c): attitude after 240 float32 steps of a self-levelling loop
+TOL_RACER = {"omega": 1e-3, "R": 1e-4, "pos": 1e-5}  # (d): after 1500 float32 steps
+TOL_REL = 1e-5  # (e): terrain and attention, relative to the largest value
+
+
+def _on(dev, fn):
+    """fn(dev) on the card and on the CPU: (card's, CPU's)."""
+    return fn(dev), fn(torch.device("cpu"))
+
+
+def _max_diff(a, b) -> float:
+    return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+
+
+def sensor_acro_checks(dev, smi: str) -> None:
+    """Phase 29 (a): ``SensorAcroEnv`` at the main path's bank."""
+    from fpyv_tpu_torch.envs.sensor_acro import SensorAcroEnv
+
+    def run(device, n, steps):
+        env, g = SensorAcroEnv(), torch.Generator().manual_seed(0)
+        world = env.acro.default_world(device)
+        st, obs = env.reset(g, world, (n,))
+        act = torch.zeros(n, 4, device=device)
+        act[:, 3] = THROTTLE
+        for _ in range(steps):
+            st, obs, *_ = env.step(st, act, world, generator=g)
+        return obs
+
+    card, host = _on(dev, lambda d: run(d, SMALL, 8))
+    err = _max_diff(card, host)
+    if err > TOL_SENSOR_OBS:
+        raise AssertionError(f"phase 29 (a): card against CPU {err} > {TOL_SENSOR_OBS}")
+    env, g = SensorAcroEnv(), torch.Generator().manual_seed(1)
+    world = env.acro.default_world(dev)
+    st, obs = env.reset(g, world, (N_ENVS,))
+    act = torch.zeros(N_ENVS, 4, device=dev)
+    act[:, 3] = THROTTLE
+    for _ in range(8):  # warm-up
+        st, obs, *_ = env.step(st, act, world, generator=g)
+    torch.cuda.synchronize()
+    same = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)  # an env's obs repeated
+    t0 = time.perf_counter()
+    for _ in range(SENSOR_STEPS):
+        prev = obs
+        st, obs, *_ = env.step(st, act, world, generator=g)
+        same |= (prev == obs).all(-1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if (obs.shape != (N_ENVS, env.obs_dim) or not torch.isfinite(obs).all() or same.any()
+            or not st.acro.domain_rand.mass_scale.std() > 0):
+        raise AssertionError(f"phase 29 (a): obs {tuple(obs.shape)}, finite "
+                             f"{bool(torch.isfinite(obs).all())}, {int(same.sum())} envs "
+                             f"repeated an observation")
+    busy, top = device_busy(lambda: [env.step(st, act, world, generator=g) for _ in range(16)])
+    acro, ag = AcroEnv(randomize=True), torch.Generator().manual_seed(1)
+    ast, _ = acro.reset(ag, world, (N_ENVS,))
+    for _ in range(8):
+        ast, *_ = acro.step(ast, act, world, generator=ag)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(SENSOR_STEPS):
+        ast, *_ = acro.step(ast, act, world, generator=ag)
+    torch.cuda.synchronize()
+    acro_wall = time.perf_counter() - t1
+    log(f"phase 29 (a) SensorAcroEnv ({N_ENVS} envs, throttle {THROTTLE}, {SENSOR_STEPS} steps): "
+        f"obs ({N_ENVS}, {env.obs_dim}) finite, successive obs differ at every step, mass scales "
+        f"vary; card against CPU ({SMALL} envs, 8 steps, the same CPU generator's draws) max abs "
+        f"err {err} (tolerance {TOL_SENSOR_OBS}); {N_ENVS * SENSOR_STEPS / wall:.6e} env-steps/s "
+        f"({1e3 * wall / SENSOR_STEPS:.3f} ms a step) beside the eager AcroEnv(randomize=True) "
+        f"step's {N_ENVS * SENSOR_STEPS / acro_wall:.6e} ({1e3 * acro_wall / SENSOR_STEPS:.3f} "
+        f"ms) in this call; busy {busy:.6f}, top {json.dumps(top)} on {smi}")
+
+
+def hover_checks(dev, smi: str) -> None:
+    """Phase 29 (b): ``HoverEnv`` with its rates-PID pilot, closed loop."""
+    from fpyv_tpu_torch.envs.hover import HoverEnv, HoverPilot
+
+    def run(device, n, steps):
+        env, pilot = HoverEnv(), HoverPilot(drone_params=DroneParams())
+        g = torch.Generator().manual_seed(0)
+        st, _ = env.reset(g, (n,), device)
+        ps, world = pilot.init((n,), device=device), env.default_world(device)
+        errs, done = [], torch.zeros(n, dtype=torch.bool, device=device)
+        for _ in range(steps):
+            ps, a = pilot.act(ps, st.drone, st.target_pos)
+            st, _, _, d, info = env.step(st, a, world, generator=g)
+            errs.append(info["pos_err"])
+            done |= d
+        return st, torch.stack(errs), done
+
+    (cs, _, _), (hs, _, _) = _on(dev, lambda d: run(d, SMALL, 60))
+    err = _max_diff(cs.drone.pos, hs.drone.pos)
+    if err > TOL_HOVER_POS:
+        raise AssertionError(f"phase 29 (b): card against CPU {err} m > {TOL_HOVER_POS}")
+    run(dev, N_ENVS, 8)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, errs, crashed = run(dev, N_ENVS, HOVER_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    _, host_errs, host_crashed = run(torch.device("cpu"), N_ENVS, HOVER_STEPS)
+    host_wall = time.perf_counter() - t1
+    errs, crashed = errs.cpu(), crashed.cpu()
+    mean = errs.mean(1)
+    ratio, last50 = float(mean[-1] / mean[0]), float(mean[-50:].mean())
+    both = ((errs[-1] < 0.3 * errs[0]) & (errs[-50:].mean(0) < 2.0)).double().mean().item()
+    if not (last50 < 2.0 and mean[-1] < mean[0]):
+        raise AssertionError(f"phase 29 (b): the bank's mean error {float(mean[0])} -> "
+                             f"{float(mean[-1])}, last 50 {last50}")
+    if not torch.equal(crashed, host_crashed):
+        raise AssertionError(f"phase 29 (b): the card crashed envs "
+                             f"{crashed.nonzero().flatten().tolist()}, the CPU "
+                             f"{host_crashed.nonzero().flatten().tolist()}")
+    curve = _max_diff(mean, host_errs.mean(1))
+    log(f"phase 29 (b) HoverEnv + HoverPilot ({N_ENVS} envs, {HOVER_STEPS} closed-loop steps): "
+        f"the bank's mean position error {float(mean[0]):.6f} -> {float(mean[-1]):.6f} m (ratio "
+        f"{ratio:.6f} against JAX's single-env test's 0.3: the pilot settles ~1.01 m off its "
+        f"target, so envs spawned nearer than ~3.4 m cannot meet it), mean of the last 50 "
+        f"{last50:.6f} (< 2.0), {int(crashed.sum())} envs crashed (the CPU's run of the same "
+        f"bank: the same envs, its mean error curve within {curve:.3e}), {both:.6f} of the envs "
+        f"meet both of JAX's conditions on their own; card against CPU ({SMALL} envs, 60 steps) "
+        f"{err} m (tolerance {TOL_HOVER_POS}); {N_ENVS * HOVER_STEPS / wall:.6e} env-steps/s "
+        f"with the pilot ({1e3 * wall / HOVER_STEPS:.3f} ms a step; the CPU's "
+        f"{N_ENVS * HOVER_STEPS / host_wall:.6e}) on {smi}")
+
+
+def level_checks(dev, smi: str) -> None:
+    """Phase 29 (c): ANGLE and HORIZON self-level through ``drone_step``."""
+    from fpyv_tpu_torch.control.flight_modes import (FlightModeParams, angle_mode_action,
+                                                     flight_mode_init, horizon_mode_action)
+    from fpyv_tpu_torch.ops import rotations as rot
+    from fpyv_tpu_torch.physics.drone import drone_step
+    from fpyv_tpu_torch.physics.world import empty_world
+
+    params = DroneParams(att_mode="rotmat")
+    fm = FlightModeParams(max_rates=params.max_rates)
+
+    def fly(device, mode, n):
+        g = torch.Generator().manual_seed(2)
+        tilt = (torch.rand(n, 3, generator=g, dtype=torch.float64) * 2 - 1) \
+            * torch.tensor([LEVEL_TILT_DEG, LEVEL_TILT_DEG, 180.0], dtype=torch.float64)
+        st = drone_reset(params, torch.tensor([0.0, 0.0, 30.0], device=device).repeat(n, 1),
+                         torch.zeros(n, 3, device=device), tilt.float().to(device))
+        world, fs = empty_world(ground=True, device=device), flight_mode_init((n,), device=device)
+        sticks = torch.zeros(n, 4, device=device)
+        sticks[:, 3] = HOVER_THROTTLE
+        for _ in range(LEVEL_STEPS):
+            fs, action = mode(fm, fs, st.att, sticks)
+            st, _ = drone_step(params, st, action, world)
+        return st
+
+    out = {}
+    for name, mode in (("ANGLE", angle_mode_action), ("HORIZON", horizon_mode_action)):
+        card, host = _on(dev, lambda d: fly(d, mode, SMALL))
+        err = _max_diff(card.att, host.att)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = fly(dev, mode, N_ENVS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tilt = rot.rotmat_to_euler(st.att)[:, :2].abs().max().item() * 180.0 / math.pi
+        if err > TOL_LEVEL_ATT or tilt >= 2.0 or st.done.any():
+            raise AssertionError(f"phase 29 (c) {name}: card against CPU {err}, largest tilt "
+                                 f"{tilt} deg, {int(st.done.sum())} crashed")
+        out[name] = (err, tilt, N_ENVS * LEVEL_STEPS / wall)
+    R = rot.euler_to_rotmat(torch.zeros(N_ENVS, 3, device=dev))
+    full = torch.tensor([1.0, -1.0, 0.3, HOVER_THROTTLE], device=dev).repeat(N_ENVS, 1)
+    _, action = horizon_mode_action(fm, flight_mode_init((N_ENVS,), device=dev), R, full)
+    if not torch.equal(action, full):
+        raise AssertionError("phase 29 (c): HORIZON at full stick is not acro's action")
+    log(f"phase 29 (c) self-level ({N_ENVS} envs tilted up to {LEVEL_TILT_DEG:.0f} deg in roll "
+        f"and pitch, centred sticks at throttle {HOVER_THROTTLE}, {LEVEL_STEPS} steps through "
+        f"drone_step): " + "; ".join(
+            f"{k} largest roll/pitch {v[1]:.3e} deg (< 2), no crash, card against CPU ({SMALL} "
+            f"envs) {v[0]} (tolerance {TOL_LEVEL_ATT}), {v[2]:.6e} env-steps/s"
+            for k, v in out.items())
+        + f"; HORIZON at full stick equals acro's action exactly, on {smi}")
+
+
+def racer_checks(dev, smi: str) -> None:
+    """Phase 29 (d): the torque racer tracks its rate commands."""
+    from fpyv_tpu_torch.physics.racer import RacerParams, racer_reset, racer_step
+
+    params = RacerParams()
+
+    def run(device, n):
+        st = racer_reset((n,), device=device)
+        cmd = torch.tensor(RACER_CMD, device=device).repeat(n, 1)
+        for _ in range(RACER_STEPS):
+            st = racer_step(params, st, cmd)
+        return st
+
+    card, host = _on(dev, lambda d: run(d, SMALL))
+    errs = {k: _max_diff(getattr(card, k), getattr(host, k)) for k in TOL_RACER}
+    if any(errs[k] > tol for k, tol in TOL_RACER.items()):
+        raise AssertionError(f"phase 29 (d): card against CPU {errs}, tolerance {TOL_RACER}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = run(dev, N_ENVS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = torch.tensor(RACER_CMD[:2], device=dev)
+    off = ((st.omega[:, :2] - want).abs() / want).max().item()
+    if off > 0.05:
+        raise AssertionError(f"phase 29 (d): the rates are {off:.4f} off their commands")
+    log(f"phase 29 (d) racer ({N_ENVS} envs, dt {params.dt}, {RACER_STEPS} steps at commands "
+        f"{RACER_CMD[:3]} deg/s): the rates within {off:.3e} of the commands (< 0.05), card "
+        f"against CPU ({SMALL} envs) {json.dumps(errs)} (tolerance {json.dumps(TOL_RACER)}); "
+        f"{N_ENVS * RACER_STEPS / wall:.6e} env-steps/s ({1e3 * wall / RACER_STEPS:.3f} ms a "
+        f"step) on {smi}")
+
+
+def small_path_checks(dev, smi: str) -> None:
+    """Phase 29 (e): the peak detector, the geometry algorithms, the terrain,
+    attention, the gym adapter, ``evaluate_policy`` and the health guards
+    on the card."""
+    from fpyv_tpu_torch.envs.gym_adapter import GymAdapter
+    from fpyv_tpu_torch.envs.wrappers import evaluate_policy
+    from fpyv_tpu_torch.models import nn
+    from fpyv_tpu_torch.models.terrain import terrain_heightmap
+    from fpyv_tpu_torch.sensors.baro import is_peak_altitude
+    from fpyv_tpu_torch.utils.debug import assert_finite, finite_mask
+    from fpyv_tpu_torch.vision import geometry as geo
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    x = np.linspace(0.0, 3.0, 64)
+    series = -(x - rng.uniform(0.5, 2.5, (N_ENVS, 1))) ** 2 + rng.normal(0.0, 0.3, (N_ENVS, 64))
+    peaks = {}
+    for ref_fit in (True, False):
+        card, host = _on(dev, lambda d: is_peak_altitude(torch.from_numpy(x).to(d),
+                                                         torch.from_numpy(series).to(d), 3,
+                                                         ref_fit))
+        if not torch.equal(card.cpu(), host):
+            raise AssertionError(f"phase 29 (e): is_peak_altitude(use_reference_fit={ref_fit}) "
+                                 f"flags {int((card.cpu() != host).sum())} series otherwise")
+        peaks[ref_fit] = int(host.sum())
+    # geometry at tests/test_geometry_es.py's sizes and tolerances, float64
+    K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]])
+    th = 0.1
+    Ry = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0], [-np.sin(th), 0, np.cos(th)]])
+    X = rng.uniform(-2, 2, (30, 3)) + np.array([0, 0, 8.0])
+    P1 = K @ np.hstack([np.eye(3), np.zeros((3, 1))])
+    P2 = K @ np.hstack([Ry, np.array([[1.0], [0.2], [0.1]])])
+    hom = lambda P: (P @ np.hstack([X, np.ones((30, 1))]).T).T
+    p1, p2 = (hom(P)[:, :2] / hom(P)[:, 2:] for P in (P1, P2))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    F = geo.eight_point(t(p1), t(p2))
+    res = geo.epipolar_residual(F, t(p1), t(p2)).max().item()
+    s3 = torch.linalg.svdvals(F.cpu())[2].item()
+    tri = np.abs(geo.triangulate(t(P1), t(P2), t(p1), t(p2)).cpu().numpy() - X).max()
+    anchors, target = rng.normal(size=(6, 3)) * 5, rng.normal(size=3)
+    gn = np.abs(geo.trilaterate_gauss_newton(t(anchors), t(np.linalg.norm(
+        anchors - target, axis=1))).cpu().numpy() - target).max()
+    src = rng.uniform(-1, 1, (80, 2))
+    Rt = np.array([[np.cos(0.12), -np.sin(0.12)], [np.sin(0.12), np.cos(0.12)]])
+    Ri, ti, rmse = geo.icp_2d(t(src), t(src @ Rt.T + np.array([0.1, -0.05])), 40)
+    icp = max(np.abs(Ri.cpu().numpy() - Rt).max(), np.abs(ti.cpu().numpy() - [0.1, -0.05]).max())
+    if not (res < 1e-8 and s3 < 1e-10 and tri < 1e-6 and gn < 1e-8 and rmse.item() < 1e-3
+            and icp < 1e-2):
+        raise AssertionError(f"phase 29 (e) geometry: residual {res}, s3 {s3}, triangulation "
+                             f"{tri}, Gauss-Newton {gn}, ICP rmse {rmse.item()} and {icp}")
+    # the terrain at 100x100 and attention, float32 (TF32 off)
+    (_, zc), (_, zh) = _on(dev, lambda d: terrain_heightmap(torch.Generator().manual_seed(0),
+                                                            resolution=100, device=d))
+    qkv = [torch.from_numpy(rng.normal(size=(8, 128, 64)).astype(np.float32)) for _ in range(3)]
+    ac, ah = _on(dev, lambda d: nn.attention(*(a.to(d) for a in qkv)))
+    rel = {"terrain": _max_diff(zc, zh) / zh.abs().max().item(),
+           "attention": max(_max_diff(ac[i], ah[i]) / ah[i].abs().max().item() for i in (0, 1))}
+    if max(rel.values()) > TOL_REL:
+        raise AssertionError(f"phase 29 (e): card against CPU {rel} > {TOL_REL}")
+    # the gym adapter and the evaluation over the acro env, on the card
+    gym = GymAdapter(AcroEnv(), 16, seed=0)
+    obs = gym.reset()
+    a = np.zeros((16, 4), np.float32)
+    a[:, 3] = THROTTLE
+    o, r, d, info = gym.step(a)
+    if not (isinstance(o, np.ndarray) and o.shape == obs.shape == (16, AcroEnv().obs_dim)
+            and r.shape == (16,) and d.dtype == np.bool_
+            and isinstance(info["dist_to_target"], np.ndarray)):
+        raise AssertionError(f"phase 29 (e): the gym adapter gave {o.shape}, {r.shape}, {d.dtype}")
+
+    def hover(o):
+        act = torch.zeros(o.shape[:-1] + (4,), device=o.device)
+        act[..., 3] = THROTTLE
+        return act
+
+    stats = evaluate_policy(AcroEnv(), None, hover, torch.Generator().manual_seed(0), N_ENVS, 50)
+    if set(stats) != {"mean_step_reward", "total_episodes", "crash_rate_per_step",
+                      "reward_per_episode_lower_bound"} or not all(
+            torch.isfinite(v).all() for v in stats.values()):
+        raise AssertionError(f"phase 29 (e): evaluate_policy gave {stats}")
+    # the health guards on a bank with poisoned envs
+    st, _ = AcroEnv().reset(torch.Generator().manual_seed(0), None, (N_ENVS,), dev)
+    bad = [3, N_ENVS // 4, N_ENVS - 96]
+    st.drone.pos[bad[0], 2] = float("nan")
+    st.wind[bad[1]] = float("inf")
+    st.domain_rand.mass_scale[bad[2]] = float("nan")
+    mask = finite_mask(st)
+    if mask.device != st.drone.pos.device or (~mask).nonzero().flatten().tolist() != bad:
+        raise AssertionError(f"phase 29 (e): finite_mask flags "
+                             f"{(~mask).nonzero().flatten().tolist()}, poisoned {bad}")
+    try:
+        assert_finite(st, name="bank")
+        raise AssertionError("phase 29 (e): assert_finite passed a poisoned bank")
+    except FloatingPointError as e:
+        msg = str(e)
+    if msg != ("non-finite values in bank: .drone.pos (1 values), .domain_rand.mass_scale "
+               "(1 values), .wind (3 values)"):
+        raise AssertionError(f"phase 29 (e): assert_finite said {msg!r}")
+    log(f"phase 29 (e) small paths on the card: is_peak_altitude on ({N_ENVS}, 64) noisy "
+        f"float64 series, flags equal to the CPU's (reference fit {peaks[True]} peaks, "
+        f"least squares {peaks[False]}); eight_point residual {res:.3e} (< 1e-8), rank-2 "
+        f"s3 {s3:.3e} (< 1e-10), triangulate {tri:.3e} (< 1e-6), Gauss-Newton {gn:.3e} "
+        f"(< 1e-8), ICP rmse {rmse.item():.3e} (< 1e-3) and R, t within {icp:.3e} (< 1e-2); "
+        f"terrain 100x100 and attention against the CPU relative to the largest value "
+        f"{json.dumps(rel)} (tolerance {TOL_REL}); GymAdapter(AcroEnv(), 16) numpy "
+        f"{o.shape}, {r.shape}, {d.dtype}; evaluate_policy ({N_ENVS} envs x 50 steps) "
+        f"{json.dumps({k: float(v) for k, v in stats.items()})}; finite_mask flags exactly "
+        f"envs {bad}; assert_finite: {msg!r}; {time.perf_counter() - t0:.3f} s on {smi}")
+
+
+def secondary_checks(dev, smi: str) -> None:
+    """Phase 29: the secondary envs, sensors, controllers and models on the
+    card, with every launch counter at 0 from start to end (no kernel is on
+    these paths) and TF32 off for their float32 products."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 29: TF32 is on for float32 matmuls")
+    _build.reset_launch_counts()
+    for part in (sensor_acro_checks, hover_checks, level_checks, racer_checks,
+                 small_path_checks):
+        t0 = time.perf_counter()
+        part(dev, smi)
+        log(f"phase 29 {part.__name__} took {time.perf_counter() - t0:.3f} s")
+    counts = dict(_build.launch_counts)
+    if any(counts.values()):
+        raise AssertionError(f"phase 29: kernels launched {counts}")
+    log(f"phase 29 (f) the kernel launches across phase 29: {json.dumps(counts)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2790,6 +3163,11 @@ def main() -> int:
             kr["max_abs_err"] = max(kr["max_abs_err"], k5_video["max_abs_err"])
     cli_checks(smi)
     log(f"phase 28 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 29. the secondary envs, sensors, controllers and models ---------------------------
+    t0 = time.perf_counter()
+    secondary_checks(dev, smi)
+    log(f"phase 29 took {time.perf_counter() - t0:.3f} s")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

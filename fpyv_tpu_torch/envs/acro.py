@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
-from fpyv_tpu_torch.envs.base import Part, draw_shape, take_part, tree_where
+from fpyv_tpu_torch.envs.base import Part, default_generator, draw_shape, take_part, tree_where
 from fpyv_tpu_torch.physics.drone import (
     DomainRand,
     DroneParams,
@@ -202,8 +202,7 @@ class AcroEnv:
                                    episode_return=ep_ret)
 
         if generator is None:
-            generator = (torch.cuda.default_generators[drone.pos.device.index or 0]
-                         if drone.pos.is_cuda else torch.default_generator)
+            generator = default_generator(drone.pos.device)
         reset_state = (self._fresh(generator, world, tuple(done.shape), part)
                        if reset_shape is None else self._fresh(generator, world, reset_shape))
         next_state = tree_where(done, reset_state, live_state)
@@ -227,6 +226,13 @@ class AcroEnv:
 def vector_reset(env: AcroEnv, generator: torch.Generator, n_envs: int,
                  world: Optional[World] = None, device=None):
     return env.reset(generator, world, batch_shape=(n_envs,), device=device)
+
+
+def vector_step(env: AcroEnv, state: AcroState, actions, world: Optional[World] = None,
+                generator: Optional[torch.Generator] = None):
+    """One step of a bank of envs. JAX vmaps its single-env step here; the
+    port's ``step`` is already batched, so this is ``env.step`` itself."""
+    return env.step(state, actions, world, generator=generator)
 
 
 def rollout(env: AcroEnv, state: AcroState, world: World, policy_fn, steps: int,

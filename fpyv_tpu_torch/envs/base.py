@@ -61,3 +61,12 @@ def take_part(tree, part: Optional[Part]):
     if part is None:
         return tree
     return tree_map_tensors(lambda x: x[part.lo:part.hi], tree)
+
+
+def default_generator(device: torch.device) -> torch.Generator:
+    """The default generator of ``device``: an env's draws when the caller
+    passes none."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.default_generators[device.index or 0]
+    return torch.default_generator

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
-from fpyv_tpu_torch.envs.base import Part, draw_shape, take_part, tree_where
+from fpyv_tpu_torch.envs.base import Part, default_generator, draw_shape, take_part, tree_where
 from fpyv_tpu_torch.physics.drone import DroneParams, DroneState, drone_reset, drone_step
 from fpyv_tpu_torch.physics.world import World, empty_world
 
@@ -288,8 +288,7 @@ class MultiRaceEnv:
             episode_return=ep_ret)
 
         if generator is None:
-            generator = (torch.cuda.default_generators[device.index or 0]
-                         if device.type == "cuda" else torch.default_generator)
+            generator = default_generator(device)
         reset_state = self._fresh(generator, world, tuple(env_done.shape), part)
         next_state = tree_where(env_done, reset_state, next_state)
 

@@ -31,8 +31,9 @@ from typing import Optional
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
-from fpyv_tpu_torch.envs.base import Part, draw_shape, take_part, tree_where
+from fpyv_tpu_torch.envs.base import Part, default_generator, draw_shape, take_part, tree_where
 from fpyv_tpu_torch.ops import rotations as rot
+from fpyv_tpu_torch.sensors.gyro import mod_two_pi
 
 
 @dataclass
@@ -61,13 +62,6 @@ def gyro_noise(generator: torch.Generator, batch_shape, dtype, device) -> torch.
                        device=generator.device).to(device)
 
 
-def _mod_two_pi(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.mod(x, 2π)``: the exact remainder, taking the divisor's sign."""
-    two_pi = torch.tensor(2.0 * math.pi, dtype=x.dtype, device=x.device)
-    r = torch.fmod(x, two_pi)
-    return torch.where(r < 0, r + two_pi, r)
-
-
 @dataclass(frozen=True)
 class RotateEnv:
     dt: float = 1e-2
@@ -81,7 +75,7 @@ class RotateEnv:
     def _sample(self, generator, batch_shape, device, part: Optional[Part] = None):
         euler_goal, n = take_part(
             reset_draws(generator, draw_shape(batch_shape, part), self.dtype, device), part)
-        euler_current = _mod_two_pi(euler_goal + self.difficulty * n)
+        euler_current = mod_two_pi(euler_goal + self.difficulty * n)
         return rot.euler_to_rotmat(euler_goal), rot.euler_to_rotmat(euler_current)
 
     def reset(self, generator: torch.Generator, batch_shape=(), device=None,
@@ -116,8 +110,7 @@ class RotateEnv:
         ``reset_shape``) are made at the whole bank's shape and sliced."""
         device = state.current.device
         if generator is None:
-            generator = (torch.cuda.default_generators[device.index or 0]
-                         if state.current.is_cuda else torch.default_generator)
+            generator = default_generator(device)
         action = torch.as_tensor(action, dtype=self.dtype, device=device)
         current = state.current
         batch = tuple(current.shape[:-2])
@@ -125,7 +118,7 @@ class RotateEnv:
             noise_deg = self.noise_lvl_deg * take_part(
                 gyro_noise(generator, draw_shape(batch, part), self.dtype, device), part)
             # the reference's quirk: mod 2π taken of degrees
-            noise = torch.deg2rad(_mod_two_pi(noise_deg))
+            noise = torch.deg2rad(mod_two_pi(noise_deg))
             current = rot.mat3_mul(rot.euler_to_rotmat(noise), current)
 
         current = rot.rotate_body_by_rates(current, action * self.max_rates, self.dt)

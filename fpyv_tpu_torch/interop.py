@@ -38,20 +38,33 @@ the actor and critic trees as a pair.
 :func:`ravel_params` and :func:`unravel_params` flatten a tree into ES's
 theta and back in ``jax.flatten_util.ravel_pytree``'s order (keys sorted at
 every level), so the port's theta has JAX's length and layout.
+
+The secondary paths' states — ``HoverState``, ``SensorAcroState`` (the acro
+state and ``prev_action``), ``RacerState``, ``RatesControllerState`` and
+``FlightModeState`` — carry across with their ``*_from_numpy`` and
+``*_to_numpy`` pairs, and the ``models.nn`` MLP layers (``[{"weight",
+"bias"}, ...]``, the JAX package's (in, out) layout in both) with
+:func:`mlp_params_from_numpy` and :func:`mlp_params_to_numpy`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
 
 from fpyv_tpu_torch.device import resolve_device
+from fpyv_tpu_torch.control.flight_modes import FlightModeState
+from fpyv_tpu_torch.control.rates_controller import RatesControllerState
 from fpyv_tpu_torch.envs.acro import AcroState
+from fpyv_tpu_torch.envs.hover import HoverState
 from fpyv_tpu_torch.envs.multi_race import MultiRaceState
+from fpyv_tpu_torch.envs.sensor_acro import SensorAcroState
 from fpyv_tpu_torch.envs.vision_race import VisionRaceState
-from fpyv_tpu_torch.physics.drone import DomainRand, DroneState
+from fpyv_tpu_torch.physics.drone import DroneState
+from fpyv_tpu_torch.physics.racer import RacerState
 from fpyv_tpu_torch.physics.world import World
 
 
@@ -59,8 +72,14 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def _from(cls, d: dict, device):
-    return cls(**{f.name: _tensor(d[f.name], device) for f in dataclasses.fields(cls)})
+def _dataclass_from(cls, d: dict, device):
+    """A (nested) dict of arrays -> ``cls``, nested dataclasses by their
+    fields' annotations."""
+    hints = typing.get_type_hints(cls)
+    return cls(**{f.name: (_dataclass_from(hints[f.name], d[f.name], device)
+                           if dataclasses.is_dataclass(hints[f.name])
+                           else _tensor(d[f.name], device))
+                  for f in dataclasses.fields(cls)})
 
 
 def to_numpy_tree(obj) -> dict:
@@ -81,7 +100,7 @@ def _numpy(x) -> np.ndarray:
 
 
 def world_from_numpy(d: dict, device=None) -> World:
-    return _from(World, d, resolve_device(device))
+    return _dataclass_from(World, d, resolve_device(device))
 
 
 def world_to_numpy(world: World) -> dict:
@@ -89,19 +108,11 @@ def world_to_numpy(world: World) -> dict:
 
 
 def drone_state_from_numpy(d: dict, device=None) -> DroneState:
-    return _from(DroneState, d, resolve_device(device))
+    return _dataclass_from(DroneState, d, resolve_device(device))
 
 
 def acro_state_from_numpy(d: dict, device=None) -> AcroState:
-    device = resolve_device(device)
-    return AcroState(
-        drone=drone_state_from_numpy(d["drone"], device),
-        domain_rand=_from(DomainRand, d["domain_rand"], device),
-        t=_tensor(d["t"], device),
-        prev_dist=_tensor(d["prev_dist"], device),
-        episode_return=_tensor(d["episode_return"], device),
-        wind=_tensor(d["wind"], device),
-    )
+    return _dataclass_from(AcroState, d, resolve_device(device))
 
 
 def acro_state_to_numpy(state: AcroState) -> dict:
@@ -111,13 +122,8 @@ def acro_state_to_numpy(state: AcroState) -> dict:
 def race_state_from_numpy(d: dict, device=None):
     """A ``MultiRaceState`` dict, or a ``VisionRaceState`` one (``race`` and
     ``frames``), -> the port's state on ``device`` (CUDA unless told)."""
-    device = resolve_device(device)
-    if "frames" in d:
-        return VisionRaceState(race=race_state_from_numpy(d["race"], device),
-                               frames=_tensor(d["frames"], device))
-    return MultiRaceState(drones=drone_state_from_numpy(d["drones"], device),
-                          **{f.name: _tensor(d[f.name], device)
-                             for f in dataclasses.fields(MultiRaceState) if f.name != "drones"})
+    return _dataclass_from(VisionRaceState if "frames" in d else MultiRaceState, d,
+                           resolve_device(device))
 
 
 def race_state_to_numpy(state) -> dict:
@@ -260,3 +266,55 @@ def unravel_params(theta: torch.Tensor, like: dict) -> dict:
         node[path[-1]] = theta[..., start:start + size].reshape(lead + shape).contiguous()
         start += size
     return out
+
+
+def hover_state_from_numpy(d: dict, device=None) -> HoverState:
+    return _dataclass_from(HoverState, d, resolve_device(device))
+
+
+def hover_state_to_numpy(state: HoverState) -> dict:
+    return to_numpy_tree(state)
+
+
+def sensor_acro_state_from_numpy(d: dict, device=None) -> SensorAcroState:
+    return _dataclass_from(SensorAcroState, d, resolve_device(device))
+
+
+def sensor_acro_state_to_numpy(state: SensorAcroState) -> dict:
+    return to_numpy_tree(state)
+
+
+def racer_state_from_numpy(d: dict, device=None) -> RacerState:
+    return _dataclass_from(RacerState, d, resolve_device(device))
+
+
+def racer_state_to_numpy(state: RacerState) -> dict:
+    return to_numpy_tree(state)
+
+
+def rates_controller_state_from_numpy(d: dict, device=None) -> RatesControllerState:
+    return _dataclass_from(RatesControllerState, d, resolve_device(device))
+
+
+def rates_controller_state_to_numpy(state: RatesControllerState) -> dict:
+    return to_numpy_tree(state)
+
+
+def flight_mode_state_from_numpy(d: dict, device=None) -> FlightModeState:
+    return _dataclass_from(FlightModeState, d, resolve_device(device))
+
+
+def flight_mode_state_to_numpy(state: FlightModeState) -> dict:
+    return to_numpy_tree(state)
+
+
+def mlp_params_from_numpy(layers, device=None) -> list:
+    """``models.nn`` MLP layers (a list of ``{"weight", "bias"}`` arrays,
+    ``nn.mlp_init``'s) -> the same list of tensors on ``device`` (CUDA
+    unless told); ``TerrainNet.from_params`` takes it."""
+    device = resolve_device(device)
+    return [{k: _tensor(v, device) for k, v in layer.items()} for layer in layers]
+
+
+def mlp_params_to_numpy(layers) -> list:
+    return [{k: _numpy(v) for k, v in layer.items()} for layer in layers]

@@ -38,3 +38,23 @@ def fit_poly_through_origin(x, y, degree: int = 3, origin: bool = True) -> np.nd
         x = np.append(0.0, x)
         y = np.append(0.0, y)
     return np.polyfit(x, y, degree)
+
+
+def quadratic_fit(x, y) -> torch.Tensor:
+    """Least-squares quadratic fit ``y = a x² + b x + c`` on tensors: (...,
+    3) coefficients (a, b, c), batched over ``y``'s leading dims.
+
+    The *correct* fit behind the baro peak detector's
+    ``use_reference_fit=False`` (:mod:`fpyv_tpu_torch.sensors.baro`, which
+    also keeps the reference's own ad-hoc fit). On CUDA ``torch.linalg.lstsq``
+    solves only by QR (``gels``), which needs full rank; the design matrix
+    ``[x², x, 1]`` of a series with at least three distinct times is full
+    rank and tall, so QR solves the same problem as the SVD-based solve of
+    the JAX version, up to rounding."""
+    y = torch.as_tensor(y)
+    x = torch.as_tensor(x, dtype=y.dtype, device=y.device)
+    X = torch.stack([x * x, x, torch.ones_like(x)], dim=-1)
+    batch = torch.broadcast_shapes(X.shape[:-2], y.shape[:-1])
+    X = X.expand(batch + X.shape[-2:])
+    coef = torch.linalg.lstsq(X, y.expand(batch + y.shape[-1:])[..., None]).solution
+    return coef[..., 0]

@@ -1,6 +1,6 @@
-"""World construction: icosphere meshes and the params.yaml world
-generators (mirrors ``fpyv_tpu.world``; render banks and randomized worlds
-belong to a later slice)."""
+"""World construction (mirrors ``fpyv_tpu.world``): icosphere meshes, the
+params.yaml world generators, render point banks and per-env randomized
+worlds."""
 
 from fpyv_tpu_torch.world.icosphere import icosphere  # noqa: F401
 from fpyv_tpu_torch.world.generators import (  # noqa: F401
@@ -10,3 +10,9 @@ from fpyv_tpu_torch.world.generators import (  # noqa: F401
     gate_corners,
     ground_points,
 )
+from fpyv_tpu_torch.world.render_bank import (  # noqa: F401
+    RenderBank,
+    build_dynamic_render_bank,
+    build_render_bank,
+)
+from fpyv_tpu_torch.world.randomize import WorldRanges, sample_worlds  # noqa: F401

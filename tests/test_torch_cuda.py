@@ -43,7 +43,12 @@ its losses within 1e-6 + 1e-5 relative and every parameter within 1e-6 +
 sharing the card replay one process's fixed-action rollouts bit for bit.
 K5 renders play's video frames (one camera at 640x480) with levels equal to
 its plain version; the simulator (no kernel) on the card holds the CPU's
-run within tests/test_torch_simulator.py's crash tolerance.
+run within tests/test_torch_simulator.py's crash tolerance. The secondary
+paths (no kernel) hold the CPU's run from the same generator's draws:
+``SensorAcroEnv`` 1e-4 on the observation over 8 steps, the hover env and
+its pilot 1e-4 m over 60 steps, the geometry algorithms 1e-9 in float64,
+``attention`` and the terrain heightmap in float32 within 1e-5 of the
+largest value (TF32 off).
 """
 
 import numpy as np
@@ -888,3 +893,69 @@ def test_run_simulator_on_the_card_matches_the_cpu(cuda_device):
     assert out["steps"] == 40 and len(frames) == 20
     assert (frames[0] != first[0]).mean() <= 0.005
     assert not any(_build.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_sensor_acro_and_hover_on_the_card_match_the_cpu(cuda_device):
+    """``SensorAcroEnv`` (64 envs, 8 steps) and the hover env with its pilot
+    (64 envs, 60 closed-loop steps) from the same CPU generator's draws on
+    the card and on the CPU: no kernel launched."""
+    from fpyv_tpu_torch.envs.hover import HoverEnv, HoverPilot
+    from fpyv_tpu_torch.envs.sensor_acro import SensorAcroEnv
+
+    _build.reset_launch_counts()
+    runs = []  # the card's, then the CPU's
+    for dev in (cuda_device, torch.device("cpu")):
+        env, g = SensorAcroEnv(), torch.Generator().manual_seed(0)
+        world = env.acro.default_world(dev)
+        st, obs = env.reset(g, world, (64,))
+        act = torch.zeros(64, 4, device=dev)
+        act[:, 3] = -0.6
+        for _ in range(8):
+            st, obs, *_ = env.step(st, act, world, generator=g)
+        henv, pilot, g = HoverEnv(), HoverPilot(drone_params=DroneParams()), torch.Generator()
+        hs, _ = henv.reset(g.manual_seed(1), (64,), dev)
+        ps, hworld = pilot.init((64,), device=dev), henv.default_world(dev)
+        for _ in range(60):
+            ps, a = pilot.act(ps, hs.drone, hs.target_pos)
+            hs, *_ = henv.step(hs, a, hworld, generator=g)
+        runs.append((obs.cpu(), hs.drone.pos.cpu()))
+    np.testing.assert_allclose(runs[0][0], runs[1][0], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(runs[0][1], runs[1][1], atol=1e-4, rtol=0)
+    assert not any(_build.launch_counts.values())
+
+
+@pytest.mark.cuda
+def test_geometry_and_nn_on_the_card_match_the_cpu(cuda_device):
+    """The geometry algorithms in float64 and the float32 nets (TF32 off)
+    on the card against the CPU."""
+    from fpyv_tpu_torch.models import nn
+    from fpyv_tpu_torch.models.terrain import terrain_heightmap
+    from fpyv_tpu_torch.vision import geometry as geo
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (30, 3)) + np.array([0, 0, 8.0])
+    P1 = np.hstack([np.eye(3), np.zeros((3, 1))])
+    P2 = np.hstack([np.eye(3), np.array([[1.0], [0.2], [0.1]])])
+    h = lambda P: (P @ np.hstack([X, np.ones((30, 1))]).T).T
+    p1, p2 = h(P1)[:, :2] / h(P1)[:, 2:], h(P2)[:, :2] / h(P2)[:, 2:]
+    anchors = rng.normal(size=(6, 3)) * 5
+    ranges = np.linalg.norm(anchors - rng.normal(size=3), axis=1)
+    src = rng.uniform(-1, 1, (80, 2))
+    dst = src @ np.array([[0.99, -0.12], [0.12, 0.99]]).T + 0.1
+    q, k, v = (rng.normal(size=(2, 64, 32)).astype(np.float32) for _ in range(3))
+    out = []  # the card's, then the CPU's
+    for dev in (cuda_device, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(a).to(dev)
+        F = geo.eight_point(t(p1), t(p2))
+        F = F * torch.sign(F[2, 2])
+        out.append([F, geo.triangulate(t(P1), t(P2), t(p1), t(p2)),
+                         geo.trilaterate_gauss_newton(t(anchors), t(ranges)),
+                         *geo.icp_2d(t(src), t(dst), 20),
+                         *nn.attention(t(q), t(k), t(v)),
+                         terrain_heightmap(torch.Generator().manual_seed(0), device=dev)[1]])
+    for i, (a, b) in enumerate(zip(*out)):
+        a, b = a.cpu(), b
+        tol = 1e-9 if a.dtype == torch.float64 else 1e-5 * b.abs().max().item()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol, rtol=0, err_msg=str(i))

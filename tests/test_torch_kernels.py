@@ -433,7 +433,11 @@ for name in ("ops.vision_kernel", "envs.vision_acro", "vision.raycast", "vision.
              "parallel.train", "parallel.launch", "cli", "apps.simulator", "viz.video",
              "viz.hud", "viz.render3d", "viz.pid_plot", "viz.trail", "inputs.rc",
              "inputs.mouse", "inputs.ports", "inputs.serial_readers", "inputs.build_native",
-             "inputs.joystick_native", "io.logs", "io.blackbox_native", "oracle.sim"):
+             "inputs.joystick_native", "io.logs", "io.blackbox_native", "oracle.sim",
+             "sensors.gyro", "sensors.imu", "sensors.baro", "control.rates_controller",
+             "control.flight_modes", "envs.sensor_acro", "envs.hover", "envs.ball",
+             "envs.gridworld", "envs.wrappers", "envs.gym_adapter", "physics.racer",
+             "vision.geometry", "models.nn", "models.terrain", "utils.debug"):
     assert "fpyv_tpu_torch." + name in walked, name
 print("ok", len([m for m in new if m.startswith("fpyv_tpu_torch")]))
 """
