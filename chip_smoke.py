@@ -227,7 +227,22 @@ each:
    sizes and tolerances, the terrain at 100x100 and ``attention`` within
    1e-5 of the CPU relative to the largest value, ``GymAdapter(AcroEnv(),
    16)``, ``evaluate_policy`` at 4096 envs x 50 steps, ``finite_mask`` and
-   ``assert_finite`` on a bank with three poisoned envs.
+   ``assert_finite`` on a bank with three poisoned envs;
+30. the configurations the Pallas kernels take past the quad and the
+   256-wide fc (``any_config_checks``, budget 60 s), each kernel equal to
+   its plain version on the card (bf16 teacher-forced within
+   ``TOL_BF16_HEADS``), its time beside the quad's or the 256-wide one's
+   from the same call and its bound (``step_ops``, ``policy_ops`` and
+   ``race_ops`` count the motor points and the fc width): (a) the acro
+   megaloop of a hexacopter (``DroneParams(n_motors=6)``) at 4096 envs on
+   the params.yaml world with DR and wind (K4 at K = 64, and one
+   ``fused_env_rollout`` launch); (b) the contact-heavy bank at 3, 6 and 8
+   motors through K3 and K4 (the share of envs that feel a contact at the
+   first step printed, at least half); (c) the chase (K6) of a hexacopter
+   at 1024 envs, 20-step episodes; (d) K7 and K8 at the trainers' shapes
+   with an fc of 384 units in float32 and bf16 and of 200 in bf16 (padded
+   to 208), each width held against its plain version on a hexacopter's
+   bank (1024 envs, 4 steps of 3-step episodes: every env resets).
 
 Phase 1 also counts the tensor-core instructions (``HMMA``, ``HGMMA``) of
 each K7 and K8 instantiation in the built library (``cuobjdump -sass``) and
@@ -517,9 +532,10 @@ def cuda_ms(fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def step_ops(S: int, C: int, reps: int = 2, dr: bool = False, wind: bool = False) -> int:
+def step_ops(S: int, C: int, reps: int = 2, dr: bool = False, wind: bool = False,
+             n_motors: int = 4) -> int:
     base = 12 + 9 + 5 + 6 + 3 + 39 + 3 + 6 + 15 + 6 + 15  # action, R, thrust, drag
-    motors = 4 * (19 + 31 * S + 58 * C)  # motor points, ground, spheres, cylinders
+    motors = n_motors * (19 + 31 * S + 58 * C)  # motor points, ground, spheres, cylinders
     tail = 10 + 12 + 42 + 31 * reps + 1  # accel, integrate, attitude, done
     return base + motors + tail + (7 if dr else 0) + (3 if wind else 0)
 
@@ -543,12 +559,13 @@ def render_ops(cfg: "vk.RenderConfig", live_gates: int) -> int:
     return ops + (89 * live_gates if cfg.gates else 0)
 
 
-def chase_step_ops(hw: int, S: int, C: int, dr: bool, wind: bool) -> int:
+def chase_step_ops(hw: int, S: int, C: int, dr: bool, wind: bool, n_motors: int = 4) -> int:
     """Counted operations per env-step of K6: the target-only render (world
     ray, |d|^2, sphere, compare: 54 per pixel; the accumulation of lit pixels
     is left out), the block reduction, the camera pose, the target centres,
     the pilot, then the K4 physics and env rows."""
-    return hw * 54 + 130 + 102 + 15 * S + 182 + step_ops(S, C, dr=dr, wind=wind) + 24
+    return (hw * 54 + 130 + 102 + 15 * S + 182 + step_ops(S, C, dr=dr, wind=wind, n_motors=n_motors)
+            + 24)
 
 
 def bound(ops: float, nbytes: float, tensor_flops: float = 0.0):
@@ -559,15 +576,16 @@ def bound(ops: float, nbytes: float, tensor_flops: float = 0.0):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def policy_setup(dev, gen, n: int, max_steps: int, bf16: bool):
+def policy_setup(dev, gen, n: int, max_steps: int, bf16: bool, hidden: int = 256):
     """The trainer's env (quat, no DR or wind) in per-env sample_worlds with
     1 sphere and 4 cylinders, a reset bank as the (N, 18) matrix, and a
-    Flax-initialised net whose std samples and whose mean head steers."""
+    Flax-initialised net (fc width ``hidden``) whose std samples and whose
+    mean head steers."""
     env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=max_steps)
     worlds = sample_worlds(gen, n, n_spheres=1, n_cylinders=4, device=dev)
     st, _ = vector_reset(env, gen, n, worlds)
     net = PixelActorCritic(action_dim=4, n_patches=108, torso="patch", prepatched=True,
-                           compute_dtype=torch.bfloat16 if bf16 else None,
+                           compute_dtype=torch.bfloat16 if bf16 else None, hidden=(hidden,),
                            device=dev).init_params(gen)
     with torch.no_grad():
         net.log_std.fill_(-0.3)
@@ -584,29 +602,34 @@ def max_err(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
     return e
 
 
-def policy_ops(hw: int, cfg, n_patches: int, S: int, C: int):
+def policy_ops(hw: int, cfg, n_patches: int, S: int, C: int, hidden: int = 256,
+               n_motors: int = 4):
     """(float32 operations, bf16 flops) per env-step of K7: the render
     (render_ops per pixel), physics, sampling and env; the actor's products
-    as tensor-core work: patch embed, fc over its real rows, heads."""
-    ops = hw * render_ops(cfg, 0) + step_ops(S, C) + 2 * 13 + 20 + 30 + 41
-    flops = 2 * (n_patches * 64 * 128 + (n_patches * 128 + 5) * 256 + 256 * 5)
+    as tensor-core work: patch embed, fc over its real rows and the net's
+    ``hidden`` units, heads."""
+    ops = hw * render_ops(cfg, 0) + step_ops(S, C, n_motors=n_motors) + 2 * 13 + 20 + 30 + 41
+    flops = 2 * (n_patches * 64 * 128 + (n_patches * 128 + 5) * hidden + hidden * 5)
     return ops, flops
 
 
-def race_setup(dev, gen, n: int, K: int, S: int, max_steps: int, bf16: bool):
+def race_setup(dev, gen, n: int, K: int, S: int, max_steps: int, bf16: bool, hidden: int = 256,
+               n_motors: int = 4):
     """The race trainer's single-agent env (96x72, the 6-gate track of gate
     size 5, S obstacles) on its track, n fresh races as the (N, 22) matrix, a
-    random history of levels and a Flax-initialised frame-stacked net whose
-    std samples and whose mean head steers."""
+    random history of levels and a Flax-initialised frame-stacked net (fc
+    width ``hidden``) whose std samples and whose mean head steers."""
     venv = VisionRaceEnv(race=MultiRaceEnv(n_agents=1, gate_size=5.0, max_episode_steps=max_steps,
-                                           n_obstacles=S), frame_stack=K)
+                                           n_obstacles=S,
+                                           params=DroneParams(att_mode="quat", n_motors=n_motors)),
+                         frame_stack=K)
     world = venv.default_world(dev)
     st, _ = venv.race.reset(gen, world, (n,))
     hist = torch.randint(0, 256, (n, 108 * (K - 1) * 64), generator=gen, dtype=torch.uint8)
     net = PixelActorCritic(action_dim=4, n_patches=108, proprio_dim=5 + venv.n_gates,
                            torso="patch", prepatched=True,
                            compute_dtype=torch.bfloat16 if bf16 else None, frame_stack=K,
-                           device=dev).init_params(gen)
+                           hidden=(hidden,), device=dev).init_params(gen)
     with torch.no_grad():
         net.log_std.fill_(-0.3)
         net.pi_mean.weight.mul_(30.0)
@@ -615,15 +638,17 @@ def race_setup(dev, gen, n: int, K: int, S: int, max_steps: int, bf16: bool):
             rk.obstacle_cols(world, S))
 
 
-def race_ops(hw: int, cfg, n_patches: int, K: int, G: int):
+def race_ops(hw: int, cfg, n_patches: int, K: int, G: int, hidden: int = 256,
+             n_motors: int = 4):
     """(float32 operations, bf16 flops) per env-step of K8: the render
     (render_ops per pixel, every gate live), the camera, obstacle centres,
     proprio, sampling, physics and the race step; the actor's products as
-    tensor-core work: the K*64-wide embed, fc over its real rows, heads."""
+    tensor-core work: the K*64-wide embed, fc over its real rows and the
+    net's ``hidden`` units, heads."""
     S = cfg.n_spheres
     ops = (hw * render_ops(cfg, G) + 60 + 16 * S + 5 + 3 * G + 2 * 13 + 20 + 30
-           + step_ops(S, 0) + 60)
-    flops = 2 * (n_patches * K * 64 * 128 + (n_patches * 128 + 5 + G) * 256 + 256 * 5)
+           + step_ops(S, 0, n_motors=n_motors) + 60)
+    flops = 2 * (n_patches * K * 64 * 128 + (n_patches * 128 + 5 + G) * hidden + hidden * 5)
     return ops, flops
 
 
@@ -680,12 +705,13 @@ def sass_mma_counts(sections: dict) -> dict:
         for kern in ("policy_vision_rollout", "race_vision_rollout"):
             if f"{kern}_kernel" in name:
                 label = (kern + (" bf16" if "bfloat16" in name else " float32")
-                         + (" instrumented" if "Lb1ELb1E" in name else ""))
+                         + (" instrumented" if "Lb1ELb1E" in name else "")
+                         + (" generic motors" if "Li0E" in name else ""))
                 counts[label] = {"HMMA": sum("HMMA" in ln for ln in lines),
                                  "HGMMA": sum("HGMMA" in ln for ln in lines)}
     log(f"tensor-core instructions in the built kernels (cuobjdump -sass): {json.dumps(counts)}")
     bf16 = {k: v for k, v in counts.items() if "bf16" in k}
-    if len(bf16) != 4 or any(v["HMMA"] + v["HGMMA"] == 0 for v in bf16.values()):
+    if len(bf16) != 6 or any(v["HMMA"] + v["HGMMA"] == 0 for v in bf16.values()):
         raise AssertionError(f"a bf16 instantiation of K7 or K8 runs no tensor-core "
                              f"instruction: {counts}")
     return counts
@@ -697,7 +723,7 @@ REPORTED_KERNELS = re.compile(r"(env_rollout_kernel|rollout_kernel|chase_kernel|
 
 
 def kernel_label(mangled: str):
-    """``chase_kernel<0,0,1>`` for a mangled K3, K4, K5 or K6 instantiation
+    """``chase_kernel<4,0,0,1>`` for a mangled K3, K4, K5 or K6 instantiation
     (its template arguments in order), else None."""
     m = REPORTED_KERNELS.search(mangled)
     if not m:
@@ -711,8 +737,10 @@ def kernel_report(sections: dict) -> dict:
     NOP; MUFU, the special-function unit's; SHFL, the warp shuffles) of each
     K3, K4, K5 and K6 instantiation, and its trigonometric range reductions
     (the multiplies by 2/pi that start each inline ``sinf``/``cosf``: a sine
-    and a cosine of one argument fused into one ``sincosf`` share one). K4's
-    and K6's template arguments: DomainRand, wind, instrumented."""
+    and a cosine of one argument fused into one ``sincosf`` share one).
+    Template arguments: K3's lanes and motors; K4's lanes, motors,
+    DomainRand, wind, instrumented; K6's motors, DomainRand, wind,
+    instrumented (motors 4: the quad's contact loop, 0: the generic one)."""
     ptxas, name = {}, None
     for ln in str(_build.build_info.get("log", "")).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -2506,6 +2534,257 @@ def secondary_checks(dev, smi: str) -> None:
     log(f"phase 29 (f) the kernel launches across phase 29: {json.dumps(counts)}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the configurations the Pallas kernels take past the quad and the
+# 256-wide fc: any motor count through K1 (K3, K4, K6), any fc width in K7 and
+# K8. Each kernel against its plain version on the card (float32 equal, bf16
+# teacher-forced), each time beside the quad's or the 256-wide one's.
+# ---------------------------------------------------------------------------
+
+HEX = 6  # the hexacopter of phase 30's megaloop and chase
+MOTOR_BANK = (4, 3, 6, 8)  # phase 30's contact-heavy bank, the quad first
+WIDE_FC = ((256, True), (384, False), (384, True), (200, True))  # (hidden, bf16), 256 first
+WIDE_CHECK_T, WIDE_CHECK_EPISODE = 4, 3  # the plain check's steps; every env resets in them
+PHASE30_K = 64
+PHASE30_MEGALOOP_K = 100_000  # the megaloop's steps a launch (~0.2 s at 4096 envs)
+
+
+def contact_share(params, drone, world) -> float:
+    """The share of envs whose first plain step feels a contact force: the
+    step's velocity on ``world`` against the same step with every sphere and
+    cylinder inactive (the bank flies far above the ground)."""
+    s, a = sk.state_to_matrix(drone), torch.zeros(4, drone.pos.shape[0], device=drone.pos.device)
+    sph = sk.sphere_matrix(world)
+    free = sph.clone()
+    free[4] = 0.0
+    hit = sk.drone_step_reference(params, s, a, sph, sk.cylinder_matrix(world))
+    miss = sk.drone_step_reference(params, s, a, free, None)
+    return (hit[3:6] != miss[3:6]).any(0).float().mean().item()
+
+
+def motor_checks(dev, gen, smi: str) -> dict:
+    """(a) The acro megaloop (K4) of a hexacopter at 4096 envs on the
+    params.yaml world with DR and wind beside the quad's; (b) the
+    contact-heavy bank at 3, 6 and 8 motors through K3 and K4 beside the
+    quad's; (c) the chase (K6) of a hexacopter at 1024 envs beside the
+    quad's. Returns the largest error of each kernel (0.0: equal)."""
+    pworld = build_world(WorldSpec.from_config(SimulatorConfig(), seed=2), device=dev)
+    pcyl, pwm = sk.cylinder_matrix(pworld), ek.env_world_matrix(pworld)
+    S, C = pworld.num_spheres, pcyl.shape[1]
+    hover = torch.zeros(N_ENVS, 4, device=dev)
+    hover[:, 3] = THROTTLE
+    a4 = sk.action_matrix(hover)
+    K = PHASE30_K
+    kw = dict(randomize=True, wind=(1.0, 0.5, 0.0), wind_scale=0.5)
+    k4_bytes = N_ENVS * (24 + 4 + 24 + 1) * 4 + (12 * S + 6 * C) * 4
+    rows = {}
+    for nm in (4, HEX):
+        env = AcroEnv(params=DroneParams(att_mode="quat", n_motors=nm), **kw)
+        st, _ = vector_reset(env, gen, N_ENVS, pworld)
+        s24 = ek.env_state_to_matrix(st)
+        out, rsum = ek.launch_env_rollout(env, s24, a4, pwm, K, seed=2, cyl_mat=pcyl)
+        torch.cuda.synchronize()
+        ref, ref_rsum, resets = ek.env_rollout_reference(env, s24, a4, pwm, K, seed=2,
+                                                         cyl_mat=pcyl)
+        equal_bits(f"K4 ({nm} motors, params.yaml world + DR + wind, N={N_ENVS}, K={K})",
+                   [(out, ref), (rsum, ref_rsum)])
+        ms = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, pwm, K, seed=2, cyl_mat=pcyl),
+                     50)
+        ops = (N_ENVS * K * (step_ops(S, C, dr=True, wind=True, n_motors=nm) + 21)
+               + resets * reset_ops(True, True) + K * 18 * S + N_ENVS * 17)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, rs = ek.fused_env_rollout(env, st, hover, pworld, PHASE30_MEGALOOP_K, seed=5)
+        total = rs.sum().item()
+        wall = time.perf_counter() - t0
+        if _build.launch_counts["env_rollout"] != 1 or not math.isfinite(total):
+            raise AssertionError(f"megaloop ({nm} motors): {dict(_build.launch_counts)}, "
+                                 f"reward sum {total}")
+        check_state(f"megaloop ({nm} motors)", ek.env_state_to_matrix(state), N_ENVS,
+                    max_t=env.max_episode_steps)
+        rows[nm] = (ms, bound(ops, k4_bytes)[0], N_ENVS * PHASE30_MEGALOOP_K / wall, resets)
+    (q_ms, q_b, q_rate, _), (h_ms, h_b, h_rate, h_res) = rows[4], rows[HEX]
+    log(f"K4 hexacopter (N={N_ENVS}, K={K}, params.yaml world + DR + wind, {h_res} resets): "
+        f"{h_ms:.6f} ms, {h_ms / q_ms:.6f}x the quad's {q_ms:.6f} ms; bound {h_b:.6f} ms "
+        f"(quad {q_b:.6f}); the megaloop (fused_env_rollout, K={PHASE30_MEGALOOP_K}, one K4 "
+        f"launch) {h_rate:.6e} env-steps/s beside the quad's {q_rate:.6e}, on {smi}")
+
+    # (b) the contact-heavy bank through K3 and K4 at 3, 6 and 8 motors
+    bank = {}
+    for nm in MOTOR_BANK:
+        env = AcroEnv(params=DroneParams(att_mode="quat", n_motors=nm), max_episode_steps=50)
+        cw, cst = contact_bank(env, gen, N_ENVS, dev)
+        share = contact_share(env.params, cst.drone, cw)
+        if share < 0.5:
+            raise AssertionError(f"contact bank ({nm} motors): only {share} of the envs in "
+                                 f"contact at the first step")
+        cs15, csph, ccyl = sk.state_to_matrix(cst.drone), sk.sphere_matrix(cw), sk.cylinder_matrix(cw)
+        cS, cC = csph.shape[1], ccyl.shape[1]
+        out = sk.launch_rollout(env.params, cs15, a4, csph, K, ccyl)
+        torch.cuda.synchronize()
+        ref = sk.rollout_reference(env.params, cs15, a4, csph, K, ccyl)
+        equal_bits(f"K3 ({nm} motors, contact-heavy start)", [(out, ref)])
+        k3_ms = cuda_ms(lambda: sk.launch_rollout(env.params, cs15, a4, csph, K, ccyl), 50)
+        s24, cwm = ek.env_state_to_matrix(cst), ek.env_world_matrix(cw)
+        out, rsum = ek.launch_env_rollout(env, s24, a4, cwm, K, seed=3, cyl_mat=ccyl)
+        torch.cuda.synchronize()
+        ref, ref_rsum, cres = ek.env_rollout_reference(env, s24, a4, cwm, K, seed=3,
+                                                       cyl_mat=ccyl)
+        equal_bits(f"K4 ({nm} motors, contact-heavy start)", [(out, ref), (rsum, ref_rsum)])
+        k4_ms = cuda_ms(lambda: ek.launch_env_rollout(env, s24, a4, cwm, K, seed=3,
+                                                      cyl_mat=ccyl), 50)
+        k3_b = bound(N_ENVS * K * step_ops(cS, cC, n_motors=nm),
+                     N_ENVS * (15 + 4 + 15) * 4 + (5 * cS + 6 * cC) * 4)[0]
+        k4_b = bound(N_ENVS * K * (step_ops(cS, cC, n_motors=nm) + 21) + cres * reset_ops(False, False)
+                     + K * 18 * cS + N_ENVS * 17,
+                     N_ENVS * (24 + 4 + 24 + 1) * 4 + (12 * cS + 6 * cC) * 4)[0]
+        bank[nm] = {"contact_share": share, "resets": cres, "K3_ms": k3_ms, "K3_bound_ms": k3_b,
+                    "K4_ms": k4_ms, "K4_bound_ms": k4_b,
+                    "K3_x_quad": k3_ms / bank[4]["K3_ms"] if nm != 4 else 1.0,
+                    "K4_x_quad": k4_ms / bank[4]["K4_ms"] if nm != 4 else 1.0}
+    log(f"contact-heavy bank (N={N_ENVS}, K={K}, 2 spheres, 8 cylinders) by motor count, K3 and "
+        f"K4 equal to their plain versions: {json.dumps(bank)} on {smi}")
+
+    # (c) the chase of a hexacopter at 1024 envs beside the quad's
+    world = AcroEnv().default_world(dev)
+    wm, rig = ek.env_world_matrix(world), default_vision_rig()
+    hw = rig.resolution[0] * rig.resolution[1]
+    chase = {}
+    err = 0.0
+    for nm in (4, HEX):  # 20-step episodes: every env resets inside the K steps
+        env = AcroEnv(params=DroneParams(att_mode="quat", n_motors=nm), max_episode_steps=20)
+        st, _ = vector_reset(env, gen, N_VISION, world)
+        s28 = vk.chase_state_matrix(st)
+        out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s28, wm, K, rig)
+        torch.cuda.synchronize()
+        ref, ref_rsum, resets, rc, rct = vk.vision_env_rollout_reference(env, s28, wm, K, rig)
+        err = max(err, check_chase(f"{nm} motors, default world, N={N_VISION}, K={K}", env, out,
+                                   ref, rsum, ref_rsum, crashes, rc, contacts, rct, N_VISION,
+                                   resets))
+        ms = cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, K, rig), 10)
+        if nm == 4:  # the pixels the target lit, counted by the quad's instrumented launch
+            lit = chase_phases(dev, env, s28, wm, rig, K, ms)["lit_per_step"]
+        ops = (N_VISION * K * chase_step_ops(lit, world.num_spheres, 0, False, False, nm)
+               + resets * reset_ops(False, False))
+        chase[nm] = (ms, bound(ops, (N_VISION * (28 + 28 + 3) + 12 * world.num_spheres
+                                     + 3 * hw) * 4)[0])
+    log(f"K6 hexacopter (N={N_VISION}, K={K}, default world): {chase[HEX][0]:.6f} ms, "
+        f"{chase[HEX][0] / chase[4][0]:.6f}x the quad's {chase[4][0]:.6f} ms; bound "
+        f"{chase[HEX][1]:.6f} ms (quad {chase[4][1]:.6f}; the lit pixels of the quad's "
+        f"instrumented launch), on {smi}")
+    return {"env_rollout": 0.0, "rollout": 0.0, "vision_env_rollout": err}
+
+
+def width_checks(dev, gen, smi: str) -> dict:
+    """K7 and K8 at the trainers' shapes (1024 envs, 96x72, T = 32; K8 with 4
+    frames) with an fc of 384 units in float32 and bf16 and of 200 in bf16,
+    each timed beside the 256-wide bf16 launch; each width held against its
+    plain version on a hexacopter's bank of 1024 for WIDE_CHECK_T steps of
+    WIDE_CHECK_EPISODE-step episodes (every env resets): float32 equal, bf16
+    teacher-forced. Returns the largest error of each kernel."""
+    rig = default_vision_rig()
+    hw = rig.resolution[0] * rig.resolution[1]
+    n_patches, T = hw // 64, WIDE_CHECK_T
+    errs = {"policy_vision_rollout": 0.0, "race_vision_rollout": 0.0}
+    times = {}
+
+    def held(name, out, ref, bf16):
+        frames, extra, aux, state = out
+        if not (torch.equal(frames, ref[0]) and torch.equal(aux[..., 5], ref[2][..., 5])):
+            raise AssertionError(f"{name}: frames or env ends differ")
+        if bf16:
+            return max(max_err(f"{name} extra", extra, ref[1], TOL_K7["extra"]),
+                       max_err(f"{name} action", aux[..., :4], ref[2][..., :4],
+                               TOL_K7_BF16["action"]),
+                       max_err(f"{name} value", aux[..., 6], ref[2][..., 6], TOL_K7_BF16["value"]),
+                       max_err(f"{name} state", state, ref[3], TOL_K7_BF16["state"]))
+        for a, b in zip(out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} (float32): not equal to its plain version, max "
+                                     f"abs err {(a.float() - b.float()).abs().max().item()}")
+        return 0.0
+
+    for hidden, bf16 in WIDE_FC:
+        label = f"hidden {hidden}, {'bf16' if bf16 else 'float32'}"
+        env, worlds, cols, w, cfg, wcol = policy_setup(dev, gen, N_VISION, 1000, bf16, hidden)
+        ms = cuda_ms(lambda: pk.launch_policy_vision_rollout(env, rig, cols, wcol, cfg, w,
+                                                             K7_STEPS, 9), 3)
+        ops, flops = policy_ops(hw, cfg, n_patches, cfg.n_spheres, cfg.n_cylinders, hidden)
+        wbytes = sum(t.numel() * t.element_size() for t in (w.we, w.be, w.bf, w.wm, w.bm, w.std))
+        wbytes += (n_patches * 128 + 5) * w.wf.shape[1] * w.wf.element_size()
+        nbytes = (K7_STEPS * N_VISION * (hw + 2 * 8 * 4) + N_VISION * (2 * 18 + cfg.n_cols) * 4
+                  + 3 * hw * 4 + wbytes)
+        b = (bound(N_VISION * K7_STEPS * ops, nbytes, N_VISION * K7_STEPS * flops) if bf16
+             else bound(N_VISION * K7_STEPS * (ops + flops), nbytes))[0]
+        times[("K7", hidden, bf16)] = (ms, b)
+        if hidden != 256:
+            envc = AcroEnv(params=DroneParams(att_mode="quat", n_motors=HEX),
+                           max_episode_steps=WIDE_CHECK_EPISODE)
+            out = pk.launch_policy_vision_rollout(envc, rig, cols, wcol, cfg, w, T, 11)
+            torch.cuda.synchronize()
+            ref = pk.policy_vision_rollout_reference(
+                envc, rig, cols, wcol, cfg, w, T, 11,
+                forced_actions=out[2][..., :4] if bf16 else None)
+            if not (out[3][:, 15] < T).all():
+                raise AssertionError(f"K7 ({label}): not every env reset")
+            e = held(f"K7 ({label})", out, ref, bf16)
+            errs["policy_vision_rollout"] = max(errs["policy_vision_rollout"], e)
+            log(f"K7 ({label}, hexacopter, N={N_VISION}, T={T}, {WIDE_CHECK_EPISODE}-step episodes): "
+                f"{'frames and crash flags equal, teacher-forced' if bf16 else 'equal'}, max abs "
+                f"err {e}")
+        venv, rcols, rhist, rw, rwcol, rocol = race_setup(dev, gen, N_VISION, RACE_STACK, 0, 2000,
+                                                          bf16, hidden)
+        ms = cuda_ms(lambda: rk.launch_race_vision_rollout(venv, rcols, rhist, rwcol, rocol, rw,
+                                                           K7_STEPS, 9), 3)
+        rcfg = rk.race_render_config(venv)
+        ops, flops = race_ops(hw, rcfg, n_patches, RACE_STACK, venv.race.n_gates, hidden)
+        wbytes = sum(t.numel() * t.element_size() for t in (rw.we, rw.be, rw.bf, rw.wm, rw.bm,
+                                                            rw.std))
+        wbytes += (n_patches * 128 + 5 + venv.race.n_gates) * rw.wf.shape[1] * rw.wf.element_size()
+        nbytes = (K7_STEPS * N_VISION * (n_patches * RACE_STACK * 64 + 2 * 16 * 4)
+                  + N_VISION * (2 * 22 * 4 + n_patches * (RACE_STACK - 1) * 64) + 3 * hw * 4
+                  + wbytes)
+        b = (bound(N_VISION * K7_STEPS * ops, nbytes, N_VISION * K7_STEPS * flops) if bf16
+             else bound(N_VISION * K7_STEPS * (ops + flops), nbytes))[0]
+        times[("K8", hidden, bf16)] = (ms, b)
+        if hidden != 256:
+            venvc, ccols, chist, cw, cwcol, cocol = race_setup(dev, gen, N_VISION, RACE_STACK, 3,
+                                                               WIDE_CHECK_EPISODE, bf16, hidden,
+                                                               HEX)
+            out = rk.launch_race_vision_rollout(venvc, ccols, chist, cwcol, cocol, cw, T, 11)
+            torch.cuda.synchronize()
+            ref = rk.race_vision_rollout_reference(
+                venvc, ccols, chist, cwcol, cocol, cw, T, 11,
+                forced_actions=out[2][..., :4] if bf16 else None)
+            if not (out[2][..., 5].sum(0) >= 1).all():
+                raise AssertionError(f"K8 ({label}): not every env ended")
+            e = held(f"K8 ({label})", out, ref, bf16)
+            errs["race_vision_rollout"] = max(errs["race_vision_rollout"], e)
+            log(f"K8 ({label}, hexacopter, N={N_VISION}, K={RACE_STACK} frames, 3 obstacles, T={T}, "
+                f"{WIDE_CHECK_EPISODE}-step episodes): "
+                f"{'frames and env ends equal, teacher-forced' if bf16 else 'equal'}, max abs "
+                f"err {e}")
+    for kern in ("K7", "K8"):
+        base = times[(kern, 256, True)][0]
+        log(f"{kern} by fc width (N={N_VISION}, T={K7_STEPS}{', 4 frames' if kern == 'K8' else ''}"
+            f"; ms a launch, x the 256-wide bf16 launch, bound ms): " + json.dumps(
+                {f"{h} {'bf16' if bf else 'float32'}": [round(times[(kern, h, bf)][0], 6),
+                                                        round(times[(kern, h, bf)][0] / base, 6),
+                                                        round(times[(kern, h, bf)][1], 6)]
+                 for h, bf in WIDE_FC}) + f" on {smi}")
+    return errs
+
+
+def any_config_checks(dev, smi: str) -> dict:
+    """Phase 30: ``motor_checks`` and ``width_checks``; the largest error of
+    each kernel."""
+    gen = torch.Generator().manual_seed(30)
+    errs = motor_checks(dev, gen, smi)
+    errs.update(width_checks(dev, gen, smi))
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3168,6 +3447,14 @@ def main() -> int:
     t0 = time.perf_counter()
     secondary_checks(dev, smi)
     log(f"phase 29 took {time.perf_counter() - t0:.3f} s")
+
+    # ---- 30. any motor count through K1, any fc width in K7 and K8 ------------------------
+    t0 = time.perf_counter()
+    for name, err in any_config_checks(dev, smi).items():
+        for kr in kernels:
+            if kr["name"] == name:
+                kr["max_abs_err"] = max(kr["max_abs_err"], err)
+    log(f"phase 30 took {time.perf_counter() - t0:.3f} s (budget 60 s)")
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

@@ -10,7 +10,10 @@
 // group (pool consecutive patches) at a time: the group's embeddings of the
 // E envs go to shared memory and thread h adds the group's 128 fc rows into
 // its E float32 accumulators of hidden unit h, so the (E, NP*128) fc input
-// never exists and the fc weights stream from L2 once a block and step. Its
+// never exists and the fc weights stream from L2 once a block and step.
+// Any fc width: thread h also owns units h + 256, h + 512, ..., whose
+// accumulators live in h_s (E, hidden), which is free until the heads
+// (fc_group_wide, heads_wide; the kWide instantiations only). Its
 // products accumulate in row order by multiply then add (built with
 // --fmad=false), as ops/policy_kernel.py::policy_forward_reference does, so
 // kernel and plain version agree bit for bit.
@@ -77,24 +80,74 @@ __device__ __forceinline__ void fill_level_table(float* lut) {
   for (int j = threadIdx.x; j < 256; j += blockDim.x) lut[j] = rnd<kBF16>(static_cast<float>(j) / 255.0f);
 }
 
+// The units a block's threads do not cover (hidden > 256) are the wide
+// path: thread t also owns units t + 256, t + 512, ..., whose E sums wait in
+// h_s (E, hidden) between groups. Only the kWide instantiations compile it
+// (the kernels' generic one), so the quad's 256-wide actor keeps the code
+// and registers it had.
+
+// Group g's 128 fc rows into the wide units' sums in h_s (zero at g = 0),
+// in the order of a thread's own unit.
+template <int E>
+__device__ __forceinline__ void fc_group_wide(const float* wf, int hidden, int g,
+                                           const float* fcin_s, float* h_s) {
+  for (int u = threadIdx.x + kActorThreads; u < hidden; u += kActorThreads) {
+    const float* wrow = wf + static_cast<size_t>(g) * kEmbed * hidden + u;
+    float a[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) a[e] = g == 0 ? 0.0f : h_s[e * hidden + u];
+    for (int i = 0; i < kEmbed; ++i) {
+      const float w = wload(wrow + static_cast<size_t>(i) * hidden);
+      const float* x = fcin_s + i * E;
+#pragma unroll
+      for (int e = 0; e < E; ++e) a[e] = a[e] + x[e] * w;
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) h_s[e * hidden + u] = a[e];
+  }
+}
+
+// The wide units' proprio rows, bias and ReLU, from their sums in h_s to
+// their outputs there (actor_heads' epilogue).
+template <typename W, bool kBF16, int E>
+__device__ __forceinline__ void heads_wide(const W* wf, const W* bfc, int hidden, int row0,
+                                        const float* prop_s, int prop_stride, int n_prop,
+                                        float* h_s) {
+  for (int u = threadIdx.x + kActorThreads; u < hidden; u += kActorThreads) {
+    const W* wrow = wf + static_cast<size_t>(row0) * hidden + u;
+    float a[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) a[e] = h_s[e * hidden + u];
+    for (int i = 0; i < n_prop; ++i) {
+      const float w = wload(wrow + static_cast<size_t>(i) * hidden);
+#pragma unroll
+      for (int e = 0; e < E; ++e) a[e] = madd<kBF16>(a[e], rnd<kBF16>(prop_s[e * prop_stride + i]), w);
+    }
+    const float b = wload(bfc + u);
+#pragma unroll
+    for (int e = 0; e < E; ++e) h_s[e * hidden + u] = fmaxf(rnd<kBF16>(rnd<kBF16>(a[e]) + b), 0.0f);
+  }
+}
+
 // Patch group g of the float32 actor for E envs. The levels of patch j of
 // the group for env e are px + e * env_stride + j * patch_stride (kp of them,
 // the embed's contraction, a multiple of 64; strides multiples of 4 bytes).
 // fcin_s (128, E) receives the group's fc input, emb_s (E * pool, 128) holds
 // the embeddings when pool > 1; thread tid < hidden adds the group's fc rows
-// into acc. Every thread calls it; it ends synchronised.
+// into acc, and those of its units tid + 256 j (j >= 1) into h_s (E,
+// hidden). Every thread calls it; it ends synchronised.
 //
 // The embed: thread tid computes output o = tid % 128 of four rows (row r =
 // e * pool + j) at a time, r0, r0 + 2, r0 + 4, r0 + 6, so each weight it
 // loads serves four rows, and reads the levels four at a time as 32-bit
 // words; each row still sums its products in row order.
-template <int E, class Clock>
+template <int E, bool kWide, class Clock>
 __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px, int env_stride,
                                             int patch_stride, int kp, const float* we,
                                             const float* be, const float* wp, const float* bp,
                                             const float* wf, int hidden, int g, int pool,
                                             float* fcin_s, float* emb_s, float acc[E],
-                                            Clock& clk) {
+                                            float* h_s, Clock& clk) {
   static_assert(kActorThreads == 2 * kEmbed && E % 4 == 0, "two rows per output a pass");
   const int tid = threadIdx.x;
   const int o = tid & (kEmbed - 1);
@@ -156,6 +209,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
       for (int e = 0; e < E; ++e) acc[e] = acc[e] + x[e] * w;
     }
   }
+  if constexpr (kWide) fc_group_wide<E>(wf, hidden, g, fcin_s, h_s);
   __syncthreads();
   clk.mark(kPhFc);
 }
@@ -163,8 +217,9 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
 // After the last group: the n_prop proprio rows (fc rows from row0 on; env
 // e's values at prop_s + e * prop_stride), the bias and ReLU into h_s (E,
 // hidden), then the float32 heads into mm_s (E, 8): cols 0:4 the mean, 4
-// the value. Every thread calls it; it ends synchronised.
-template <typename W, bool kBF16, int E, class Clock>
+// the value. Units tid + 256 j (j >= 1) take their sums from h_s and leave
+// their outputs there. Every thread calls it; it ends synchronised.
+template <typename W, bool kBF16, int E, bool kWide, class Clock>
 __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidden, int row0,
                                             const float* prop_s, int prop_stride, int n_prop,
                                             float acc[E], float* h_s, const float* wm,
@@ -181,6 +236,8 @@ __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidde
 #pragma unroll
     for (int e = 0; e < E; ++e) h_s[e * hidden + tid] = fmaxf(rnd<kBF16>(rnd<kBF16>(acc[e]) + b), 0.0f);
   }
+  if constexpr (kWide)
+    heads_wide<W, kBF16, E>(wf, bfc, hidden, row0, prop_s, prop_stride, n_prop, h_s);
   __syncthreads();
   if (tid < E * 5) {
     const int e = tid / 5, col = tid - 5 * (tid / 5);
@@ -213,7 +270,9 @@ __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidde
 //   Dense(dtype=bf16): round the sum to bf16, add the bias in bf16, ReLU,
 //   store bf16 into the fc input tile (E, PB/pool*128 + 8).
 // - fc, per batch: D(hidden, env) += wfT(hidden, PB/pool*128) . X(., env),
-//   warp w the hidden tiles w and w + 8 (16 rows each). Its A fragments come
+//   warp w the hidden tiles w and w + 8 (16 rows each) in registers, and at
+//   hidden > 256 (kWide) the tiles w + 16, w + 24, ... too, two at a time,
+//   whose sums wait in h_s between batches. Its A fragments come
 //   straight from device memory (L2) in the fragment order that
 //   ops/policy_kernel.py::fragment_order_fc lays out once per rollout: one
 //   16-byte load a lane per mma, the warp's 512 bytes contiguous, four
@@ -365,20 +424,15 @@ __device__ __forceinline__ void tc_embed(const TcTiles& t, const __nv_bfloat16* 
   }
 }
 
-// The fc rows of a batch (its fc input in t.xf; global k-tiles kt0 ..
-// kt0 + pb / pool * 8 of KT) into acc: acc[m] is hidden tile warp + 8m of
-// n_mt. wft is the fragment-order copy of the fc's patch rows: (n_mt, KT,
-// 32 lanes, 8) bf16, lane l's 8 values its A fragment {a0, a1, a2, a3}.
-__device__ __forceinline__ void tc_fc(const TcTiles& t, const uint4* __restrict__ wft, int kt0,
-                                      int KT, int n_mt, float acc[2][4]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= n_mt) return;
-  const bool two = warp + 8 < n_mt;  // warp-uniform
-  const int nk = t.pb / t.pool * 8;  // a multiple of 8
-  const int xfs = t.pb / t.pool * kEmbed + kRowPad;
-  const uint32_t b_base = smem_u32(t.xf + (lane & 7) * xfs + (lane >> 3) * 8);
-  const uint4* p0 = wft + (static_cast<size_t>(warp) * KT + kt0) * 32 + lane;
-  const uint4* p1 = wft + (static_cast<size_t>(two ? warp + 8 : warp) * KT + kt0) * 32 + lane;
+// The nk k-tiles of a batch (B fragments at b_base) for hidden tiles mt and,
+// when two, mt + 8 (A fragments from wft, k-tile kt0 on) into acc[0] and
+// acc[1].
+__device__ __forceinline__ void tc_fc_tiles(const uint4* __restrict__ wft, int mt, bool two,
+                                            int kt0, int KT, int nk, uint32_t b_base,
+                                            float acc[2][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint4* p0 = wft + (static_cast<size_t>(mt) * KT + kt0) * 32 + lane;
+  const uint4* p1 = wft + (static_cast<size_t>(two ? mt + 8 : mt) * KT + kt0) * 32 + lane;
   uint4 c0[4], c1[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -409,9 +463,61 @@ __device__ __forceinline__ void tc_fc(const TcTiles& t, const uint4* __restrict_
   }
 }
 
-// After the last batch: the fc sums into h_s (E, hidden) float32, then each
-// thread tid < hidden takes its hidden unit's E sums back into acc (for
-// actor_heads). Every thread calls it; it ends synchronised.
+// The fragment's sums of hidden tile mt in h_s (E, hidden): d[0] (row mt *
+// 16 + g, env 2tq), d[1] (that row, env 2tq + 1), d[2], d[3] 8 rows down.
+__device__ __forceinline__ float* tile_sums(float* h_s, int hidden, int mt, int lane, int i) {
+  const int g = lane >> 2, tq = lane & 3;
+  return h_s + (2 * tq + (i & 1)) * hidden + mt * 16 + g + (i >> 1) * 8;
+}
+
+// The wide path of tc_fc (hidden > 256): this warp's tiles warp + 16,
+// warp + 24, ..., two at a time, their sums in h_s between batches (zero at
+// kt0 = 0).
+__device__ __forceinline__ void tc_fc_wide(const uint4* __restrict__ wft, int kt0, int KT,
+                                           int n_mt, int nk, uint32_t b_base, float* h_s,
+                                           int hidden) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int mt = warp + 16; mt < n_mt; mt += 16) {
+    const bool two = mt + 8 < n_mt;
+    float a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[m][i] = kt0 == 0 || (m == 1 && !two) ? 0.0f
+                                               : *tile_sums(h_s, hidden, mt + 8 * m, lane, i);
+    tc_fc_tiles(wft, mt, two, kt0, KT, nk, b_base, a);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (m == 0 || two) *tile_sums(h_s, hidden, mt + 8 * m, lane, i) = a[m][i];
+  }
+}
+
+// The fc rows of a batch (its fc input in t.xf; global k-tiles kt0 ..
+// kt0 + pb / pool * 8 of KT) into acc: acc[m] is hidden tile warp + 8m of
+// n_mt; tiles warp + 16, warp + 24, ... sum into h_s (E, hidden) (zero at
+// kt0 = 0), where tc_fc_gather finds them. wft is the fragment-order copy
+// of the fc's patch rows: (n_mt, KT, 32 lanes, 8) bf16, lane l's 8 values
+// its A fragment {a0, a1, a2, a3}. Only kWide takes hidden > 256.
+template <bool kWide>
+__device__ __forceinline__ void tc_fc(const TcTiles& t, const uint4* __restrict__ wft, int kt0,
+                                      int KT, int n_mt, float acc[2][4], float* h_s,
+                                      int hidden) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= n_mt) return;
+  const int nk = t.pb / t.pool * 8;  // a multiple of 8
+  const int xfs = t.pb / t.pool * kEmbed + kRowPad;
+  const uint32_t b_base = smem_u32(t.xf + (lane & 7) * xfs + (lane >> 3) * 8);
+  tc_fc_tiles(wft, warp, warp + 8 < n_mt, kt0, KT, nk, b_base, acc);  // warp-uniform two
+  if constexpr (kWide) tc_fc_wide(wft, kt0, KT, n_mt, nk, b_base, h_s, hidden);
+}
+
+// After the last batch: the fc sums into h_s (E, hidden) float32 (tiles
+// past the registers' are there already), then each thread tid < hidden
+// takes its hidden unit's E sums back into acc (for actor_heads). Every
+// thread calls it; it ends synchronised.
 template <int E>
 __device__ __forceinline__ void tc_fc_gather(float acc2[2][4], int n_mt, int hidden,
                                              float* h_s, float acc[E]) {

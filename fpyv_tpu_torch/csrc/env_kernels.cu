@@ -6,7 +6,8 @@
 // murmur3 counter RNG, DomainRand resampling and wind gusts.
 //
 // Layout: state (24, N) and action (4, N) float32. kLanes adjacent lanes of
-// a warp own env n (lanes.cuh): each keeps the env's 24 rows in registers
+// a warp own env n below kOneThreadEnvs envs when the staged terms fit a
+// block (lanes.cuh), else one thread: each keeps the env's 24 rows in registers
 // for all K steps and computes the contact terms of its motor points; the
 // force sums are formed in K1's order from shared memory. A block holds 32
 // envs, so 4096 envs make 128 blocks of kLanes warps. The world (12, S) and
@@ -20,7 +21,9 @@
 // default world (more on a reset), 404 bytes per env per launch — bound by
 // operations, and at N = 4096 by the latency of one env's chain of
 // dependent operations. DomainRand and wind are template flags, so the
-// nominal path carries none of their multiplies.
+// nominal path carries none of their multiplies; the motor count is one too
+// (the quad's 4, or the generic count; the instrumented instantiation
+// exists for the quad only).
 #include "clock.cuh"
 #include "lanes.cuh"
 
@@ -43,7 +46,7 @@ namespace {
 // env-steps that reset.
 enum EnvPhase { kCentres, kHead, kContacts, kTail, kEnvStep, kEnvPhases };
 
-template <int L, bool kDR, bool kWind, bool kTimed>
+template <int L, int kMotors, bool kDR, bool kWind, bool kTimed>
 __global__ void __launch_bounds__(L * kEnvsPerBlock)
     env_rollout_kernel(StepConsts k, EnvConsts c, int seed, const float* __restrict__ state,
                        const float* __restrict__ action, const float* __restrict__ world, int S,
@@ -53,8 +56,9 @@ __global__ void __launch_bounds__(L * kEnvsPerBlock)
   extern __shared__ float4 sh4[];
   const int slot = threadIdx.x / L, sub = threadIdx.x % L;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float4* stage = sh4 + slot * fpyv::stage_slots(S, C);  // this env's contact terms
-  float* wm = reinterpret_cast<float*>(sh4 + fpyv::block_stage<L>(S, C));
+  const int M = fpyv::motor_count<kMotors>(k);
+  float4* stage = sh4 + slot * fpyv::stage_slots(M, S, C);  // this env's contact terms
+  float* wm = reinterpret_cast<float*>(sh4 + fpyv::block_stage<L>(M, S, C));
   float* cm = wm + kWorldRows * S;                      // (6, C) cylinder rows
   float* cen = cm + 6 * C + warp * 32 * 3 * S;          // this warp's (32 steps, 3, S)
   fpyv::load_shared(wm, world, kWorldRows * S);         // (12, S) world rows
@@ -98,7 +102,7 @@ __global__ void __launch_bounds__(L * kEnvsPerBlock)
     const fpyv::StepHead h = fpyv::step_head<kDR, kWind>(k, phys, a, ep);
     clk.mark(kHead);
     float cf[3], crashed;
-    fpyv::env_contacts<L>(k, h, sp, cv, stage, lane, cf, &crashed);
+    fpyv::env_contacts<L, kMotors>(k, h, sp, cv, stage, lane, cf, &crashed);
     clk.mark(kContacts);
     fpyv::env_tail<L, kDR>(k, h, cf, crashed, ep, phys, lane);
     clk.mark(kTail);
@@ -124,13 +128,18 @@ __global__ void __launch_bounds__(L * kEnvsPerBlock)
   }
 }
 
-template <int L, bool kDR, bool kWind, bool kTimed>
+// Shared floats of a block besides the staged terms: the world and
+// cylinder rows and each warp's target centres.
+size_t env_floats(int L, int S, int C) { return kWorldRows * S + 6 * C + L * 32 * 3 * S; }
+
+template <int L, int kMotors, bool kDR, bool kWind, bool kTimed>
 int launch(const StepConsts& k, const EnvConsts& c, int seed, const float* state,
            const float* action, const float* world, int S, const float* cyl, int C, float* out,
            float* rsum, int n, int n_steps, unsigned long long* probe, cudaStream_t stream) {
-  const size_t shmem = sizeof(float4) * fpyv::block_stage<L>(S, C) +
-                       sizeof(float) * (kWorldRows * S + 6 * C + L * 32 * 3 * S);
-  auto kernel = env_rollout_kernel<L, kDR, kWind, kTimed>;
+  const size_t shmem =
+      sizeof(float4) * fpyv::block_stage<L>(static_cast<int>(k.n_motors), S, C) +
+      sizeof(float) * env_floats(L, S, C);
+  auto kernel = env_rollout_kernel<L, kMotors, kDR, kWind, kTimed>;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shmem));
@@ -142,18 +151,19 @@ int launch(const StepConsts& k, const EnvConsts& c, int seed, const float* state
 }
 
 // K4 at L lanes an env with the template flags of the env's DomainRand and
-// wind; the instrumented instantiation exists for the lane design only.
-template <int L>
+// wind; the instrumented instantiation exists for the quad's lane design only.
+template <int L, int kMotors>
 int launch_env(const StepConsts& k, const EnvConsts& c, int seed, const float* state,
                const float* action, const float* world, int S, const float* cyl, int C,
                float* out, float* rsum, int n, int n_steps, int randomize, int use_wind,
                unsigned long long* pr, cudaStream_t st) {
-  if (L == 1 && pr != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-#define FPYV_K4(DR, WIND)                                                                    \
-  (pr != nullptr ? launch<L, DR, WIND, (L > 1)>(k, c, seed, state, action, world, S, cyl, C, \
-                                                out, rsum, n, n_steps, pr, st)               \
-                 : launch<L, DR, WIND, false>(k, c, seed, state, action, world, S, cyl, C,   \
-                                              out, rsum, n, n_steps, pr, st))
+  constexpr bool kProbe = L > 1 && kMotors == 4;
+  if (!kProbe && pr != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#define FPYV_K4(DR, WIND)                                                                     \
+  (pr != nullptr ? launch<L, kMotors, DR, WIND, kProbe>(k, c, seed, state, action, world, S,  \
+                                                        cyl, C, out, rsum, n, n_steps, pr, st) \
+                 : launch<L, kMotors, DR, WIND, false>(k, c, seed, state, action, world, S,   \
+                                                       cyl, C, out, rsum, n, n_steps, pr, st))
   if (randomize && use_wind) return FPYV_K4(true, true);
   if (randomize) return FPYV_K4(true, false);
   if (use_wind) return FPYV_K4(false, true);
@@ -161,33 +171,63 @@ int launch_env(const StepConsts& k, const EnvConsts& c, int seed, const float* s
 #undef FPYV_K4
 }
 
+template <int L>
+int launch_motors(const StepConsts& k, const EnvConsts& c, int seed, const float* state,
+                  const float* action, const float* world, int S, const float* cyl, int C,
+                  float* out, float* rsum, int n, int n_steps, int randomize, int use_wind,
+                  unsigned long long* pr, cudaStream_t st) {
+  if (fpyv::quad_frame(k))
+    return launch_env<L, 4>(k, c, seed, state, action, world, S, cyl, C, out, rsum, n, n_steps,
+                            randomize, use_wind, pr, st);
+  return launch_env<L, 0>(k, c, seed, state, action, world, S, cyl, C, out, rsum, n, n_steps,
+                          randomize, use_wind, pr, st);
+}
+
+bool read_step_consts(const float* host, int count, StepConsts* k) {
+  if (count != static_cast<int>(sizeof(StepConsts) / sizeof(float))) return false;
+  std::memcpy(k, host, sizeof(StepConsts));
+  return fpyv::motors_in_range(*k);
+}
+
+// K4's lanes an env at n envs (lanes.cuh::lanes_for).
+int env_lanes(const StepConsts& k, int S, int C, int n) {
+  return fpyv::lanes_for(n, static_cast<int>(k.n_motors), S, C, env_floats(fpyv::kLanes, S, C));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 on success). Below
-// kOneThreadEnvs envs kLanes lanes own an env, from there one thread. A
-// non-null probe (kEnvPhases + 1 int64) runs the instrumented instantiation
-// of the lane design (n below kOneThreadEnvs).
+// The lanes an env that fpyv_env_rollout takes at n envs (kLanes or 1), or
+// -1 for constants it refuses.
+int fpyv_env_rollout_lanes(const float* step_consts, int n_step_consts, int S, int C, int n) {
+  StepConsts k;
+  if (!read_step_consts(step_consts, n_step_consts, &k)) return -1;
+  return env_lanes(k, S, C, n);
+}
+
+// Returns the cudaError_t of the launch (0 on success). kLanes lanes own an
+// env below kOneThreadEnvs envs when the staged terms fit a block, else one
+// thread (fpyv_env_rollout_lanes). A non-null probe (kEnvPhases + 1 int64)
+// runs the instrumented instantiation of the quad's lane design.
 int fpyv_env_rollout(const float* step_consts, int n_step_consts, const float* env_consts,
                      int n_env_consts, int seed, const float* state, const float* action,
                      const float* world, int S, const float* cyl, int C, float* out, float* rsum,
                      int n, int n_steps, int randomize, int use_wind, void* probe_ptr,
                      void* stream) {
-  if (n_step_consts != static_cast<int>(sizeof(StepConsts) / sizeof(float)) ||
-      n_env_consts != static_cast<int>(sizeof(EnvConsts) / sizeof(float)))
-    return static_cast<int>(cudaErrorInvalidValue);
   StepConsts k;
   EnvConsts c;
-  std::memcpy(&k, step_consts, sizeof k);
+  if (!read_step_consts(step_consts, n_step_consts, &k) ||
+      n_env_consts != static_cast<int>(sizeof(EnvConsts) / sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidValue);
   std::memcpy(&c, env_consts, sizeof c);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* pr = static_cast<unsigned long long*>(probe_ptr);
-  if (n < fpyv::kOneThreadEnvs)
-    return launch_env<fpyv::kLanes>(k, c, seed, state, action, world, S, cyl, C, out, rsum, n,
-                                    n_steps, randomize, use_wind, pr, st);
-  return launch_env<1>(k, c, seed, state, action, world, S, cyl, C, out, rsum, n, n_steps,
-                       randomize, use_wind, pr, st);
+  if (env_lanes(k, S, C, n) == fpyv::kLanes)
+    return launch_motors<fpyv::kLanes>(k, c, seed, state, action, world, S, cyl, C, out, rsum,
+                                       n, n_steps, randomize, use_wind, pr, st);
+  return launch_motors<1>(k, c, seed, state, action, world, S, cyl, C, out, rsum, n, n_steps,
+                          randomize, use_wind, pr, st);
 }
 
 }  // extern "C"

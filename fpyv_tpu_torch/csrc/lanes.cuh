@@ -4,13 +4,14 @@
 // the H100's 132 SMs x 4, and a step lasts as long as one thread's chain of
 // dependent operations. Here 4 adjacent lanes own an env: each holds the
 // env's state and runs the step's head and tail (one copy of K1's code in
-// physics.cuh); lane m computes motor point m's contact terms and the sine
-// and cosine of one of the attitude's three half-angles. The force sums
-// must come out as K1's: float addition is not associative, so the terms go
-// to shared memory and every lane of the env adds them in K1's order (motor
-// by motor: the ground, each sphere, each cylinder). The crash flag is a
-// max and is formed in the same pass. K4's auto-reset spreads its draws and
-// sin/cos over the env's lanes and gathers them with warp shuffles.
+// physics.cuh); lane m computes the contact terms of motor points m, m + 4,
+// m + 8, ... (one point a lane on the quad) and the sine and cosine of one
+// of the attitude's three half-angles. The force sums must come out as
+// K1's: float addition is not associative, so the terms go to shared memory
+// and every lane of the env adds them in K1's order (motor by motor: the
+// ground, each sphere, each cylinder). The crash flag is a max and is formed
+// in the same pass. K4's auto-reset spreads its draws and sin/cos over the
+// env's lanes and gathers them with warp shuffles.
 #pragma once
 
 #include "env.cuh"
@@ -26,36 +27,43 @@ constexpr int kLanes = 4;
 // and the lanes' repeated head and tail would only cost instruction slots
 // (the sweep over N: 4 lanes win at 16384 envs, one thread from 32768 on).
 constexpr int kOneThreadEnvs = 32768;
+constexpr size_t kSharedLimit = 232448;  // opt-in shared memory of one H100 block
 
 // float4 slots of one env's staged contact terms: (x, y, z, crash) for each
-// of the 4 motor points and each of its 1 + S + C terms (the ground, the
+// of the M motor points and each of its 1 + S + C terms (the ground, the
 // spheres, the cylinders)
-__host__ __device__ __forceinline__ int stage_slots(int S, int C) { return 4 * (1 + S + C); }
+__host__ __device__ __forceinline__ int stage_slots(int M, int S, int C) {
+  return M * (1 + S + C);
+}
 
 // float4s of a block's staged terms at L lanes an env (one thread an env
 // sums in registers)
 template <int L>
-__host__ __device__ __forceinline__ int block_stage(int S, int C) {
-  return L > 1 ? kEnvsPerBlock * stage_slots(S, C) : 0;
+__host__ __device__ __forceinline__ int block_stage(int M, int S, int C) {
+  return L > 1 ? kEnvsPerBlock * stage_slots(M, S, C) : 0;
 }
 
-// The contact force sums cf and the crash flag of the env whose 4 lanes call
-// this together (every lane of the warp must: it synchronises the warp).
-// m is the lane's index in its env and its motor point, stage the env's
-// slots. When no term of the warp's envs is non-zero (no contact: the
-// common step), K1's sums are +0 and its flag 0, and the staged terms are
-// not read.
-__device__ __forceinline__ void contacts_lanes(const StepConsts& k, const StepHead& h,
-                                               const Spheres& sph, const Cylinders& cyl,
-                                               float4* stage, int m, float cf[3],
-                                               float* crashed) {
+// Lanes an env for a launch of n envs: kLanes below kOneThreadEnvs when the
+// block's shared memory (its staged terms and `floats` more) fits a block,
+// else one thread (the same hand-written kernel, instantiated at L = 1).
+// The wrappers in ops/ call it before a launch to log the choice.
+__host__ __forceinline__ int lanes_for(int n, int M, int S, int C, size_t floats) {
+  const size_t shmem = sizeof(float4) * block_stage<kLanes>(M, S, C) + sizeof(float) * floats;
+  return n < kOneThreadEnvs && shmem <= kSharedLimit ? kLanes : 1;
+}
+
+// The terms of motor point p into its row of the env's slots; true when one
+// is not +-0 (or is NaN), or crashes.
+__device__ __forceinline__ bool stage_point(const StepConsts& k, const StepHead& h,
+                                            const Spheres& sph, const Cylinders& cyl,
+                                            float4* stage, int p) {
   const int S = sph.n, C = cyl.n, T = 1 + S + C;
   float mx, my, mz, f[3], hit;
-  motor_point(k, h, m, &mx, &my, &mz);
-  float4* row = stage + m * T;
+  motor_point(k, h, p, &mx, &my, &mz);
+  float4* row = stage + p * T;
   ground_term(k, mz, &f[2], &hit);
   row[0] = make_float4(0.0f, 0.0f, f[2], hit);
-  bool some = f[2] != 0.0f || hit != 0.0f;  // a term not +-0 (or NaN), or a crash
+  bool some = f[2] != 0.0f || hit != 0.0f;
   for (int i = 0; i < S; ++i) {
     sphere_term(k, sph, i, mx, my, mz, f, &hit);
     row[1 + i] = make_float4(f[0], f[1], f[2], hit);
@@ -66,11 +74,32 @@ __device__ __forceinline__ void contacts_lanes(const StepConsts& k, const StepHe
     row[1 + S + i] = make_float4(f[0], f[1], f[2], hit);
     some = some || f[0] != 0.0f || f[1] != 0.0f || f[2] != 0.0f || hit != 0.0f;
   }
+  return some;
+}
+
+// The contact force sums cf and the crash flag of the env whose 4 lanes call
+// this together (every lane of the warp must: it synchronises the warp).
+// m is the lane's index in its env, stage the env's slots. When no term of
+// the warp's envs is non-zero (no contact: the common step), K1's sums are
+// +0 and its flag 0, and the staged terms are not read.
+template <int kMotors>
+__device__ __forceinline__ void contacts_lanes(const StepConsts& k, const StepHead& h,
+                                               const Spheres& sph, const Cylinders& cyl,
+                                               float4* stage, int m, float cf[3],
+                                               float* crashed) {
+  const int nm = motor_count<kMotors>(k), T = 1 + sph.n + cyl.n;
+  bool some;
+  if constexpr (kMotors == kLanes) {  // the quad: motor point m
+    some = stage_point(k, h, sph, cyl, stage, m);
+  } else {  // motor points m, m + kLanes, ...
+    some = false;
+    for (int p = m; p < nm; p += kLanes) some = stage_point(k, h, sph, cyl, stage, p) || some;
+  }
   float cfx = 0.0f, cfy = 0.0f, cfz = 0.0f, cr = 0.0f;
   if (__ballot_sync(0xffffffffu, some) != 0u) {
     __syncwarp();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < nm; ++j) {
       const float4* mrow = stage + j * T;
       const float4 g = mrow[0];  // the ground adds to z only
       cfz = cfz + g.z;
@@ -113,16 +142,16 @@ __device__ __forceinline__ void step_tail_lanes(const StepConsts& k, const StepH
 
 // The contacts and the tail of a step at L lanes an env (kLanes, or one
 // thread, which runs K1's own loop).
-template <int L>
+template <int L, int kMotors>
 __device__ __forceinline__ void env_contacts(const StepConsts& k, const StepHead& h,
                                              const Spheres& sph, const Cylinders& cyl,
                                              float4* stage, int lane, float cf[3],
                                              float* crashed) {
   static_assert(L == 1 || L == kLanes, "one thread or kLanes lanes an env");
   if constexpr (L == 1)
-    contacts(k, h, sph, cyl, cf, crashed);
+    contacts<kMotors>(k, h, sph, cyl, cf, crashed);
   else
-    contacts_lanes(k, h, sph, cyl, stage, lane % kLanes, cf, crashed);
+    contacts_lanes<kMotors>(k, h, sph, cyl, stage, lane % kLanes, cf, crashed);
 }
 
 template <int L, bool kDR>

@@ -6,7 +6,10 @@
 // one motor point and one primitive, and the tail (acceleration,
 // integration, attitude). step_components runs them for one thread's env
 // (K2, K5-K8); K3 and K4 run the same parts on 4 lanes an env (lanes.cuh).
-// The 15 state values live in registers.
+// The 15 state values live in registers. The motor count is the template
+// parameter kMotors of the contact loop: 4, the quad's X frame, unrolled as
+// a constant, or 0, the generic instantiation that reads StepConsts'
+// n_motors (2 to kMaxMotors); each kernel's launch picks one of the two.
 //
 // The operation order follows _step_components line by line. Constants that
 // JAX folds from Python floats arrive pre-folded in float64 and rounded once
@@ -28,6 +31,7 @@
 namespace fpyv {
 
 constexpr int kStateRows = 15;
+constexpr int kMaxMotors = 16;  // the motor arrays' capacity (MAX_MOTORS in ops/step_kernel.py)
 
 // Field order must match StepConstants.as_array() in ops/step_kernel.py.
 struct StepConsts {
@@ -36,9 +40,28 @@ struct StepConsts {
   float drag_x, drag_y, drag_z;
   float gz, mass, inv_m, half_rate;
   float motor_radius, neg_spring;
-  float motor_x[4], motor_y[4];
+  float n_motors;                                   // motor points, 2 to kMaxMotors
+  float motor_x[kMaxMotors], motor_y[kMaxMotors];  // zero past n_motors
   float reps;
 };
+
+// The motor count of an instantiation: kMotors, or the runtime count at 0.
+template <int kMotors>
+__host__ __device__ __forceinline__ int motor_count(const StepConsts& k) {
+  if constexpr (kMotors > 0) {
+    return kMotors;
+  } else {
+    return static_cast<int>(k.n_motors);
+  }
+}
+
+// The instantiation a launch takes: 4 for the quad's X frame, else 0.
+__host__ __forceinline__ bool quad_frame(const StepConsts& k) { return k.n_motors == 4.0f; }
+
+// A motor count the kernels take: 2 to kMaxMotors.
+__host__ __forceinline__ bool motors_in_range(const StepConsts& k) {
+  return k.n_motors >= 2.0f && k.n_motors <= static_cast<float>(kMaxMotors);
+}
 
 // Sphere centers may move per step (the env kernel); radius/active are rows
 // of the world matrix. All pointers are into shared memory.
@@ -239,15 +262,17 @@ __device__ __forceinline__ void cylinder_term(const StepConsts& k, const Cylinde
   *crash = lt0(d) * act_c;
 }
 
-// The contact force sums and the crash flag of one thread's env: the four
-// motor points in order, each adding its ground, sphere and cylinder terms
-// in that order.
+// The contact force sums and the crash flag of one thread's env: the motor
+// points in order, each adding its ground, sphere and cylinder terms in that
+// order.
+template <int kMotors>
 __device__ __forceinline__ void contacts(const StepConsts& k, const StepHead& h,
                                          const Spheres& sph, const Cylinders& cyl, float cf[3],
                                          float* crashed) {
+  const int nm = motor_count<kMotors>(k);
   float cfx = 0.0f, cfy = 0.0f, cfz = 0.0f, cr = 0.0f;
 #pragma unroll
-  for (int m = 0; m < 4; ++m) {
+  for (int m = 0; m < nm; ++m) {
     float mx, my, mz, f[3], hit;
     motor_point(k, h, m, &mx, &my, &mz);
     ground_term(k, mz, &f[2], &hit);
@@ -353,7 +378,7 @@ __device__ __forceinline__ void step_tail(const StepConsts& k, const StepHead& h
 }
 
 // One step of one thread's env (K1): head, contacts, tail.
-template <bool kDR, bool kWind, bool kOverride = false>
+template <int kMotors, bool kDR, bool kWind, bool kOverride = false>
 __device__ __forceinline__ void step_components(const StepConsts& k, const Spheres& sph,
                                                 const Cylinders& cyl, float s[kStateRows],
                                                 const float act[4], const EnvPhysics& ep,
@@ -361,7 +386,7 @@ __device__ __forceinline__ void step_components(const StepConsts& k, const Spher
                                                 float* accel_z = nullptr) {
   const StepHead h = step_head<kDR, kWind, kOverride>(k, s, act, ep, ov);
   float cf[3], crashed;
-  contacts(k, h, sph, cyl, cf, &crashed);
+  contacts<kMotors>(k, h, sph, cyl, cf, &crashed);
   step_tail<kDR>(k, h, cf, crashed, ep, s, accel_z);
 }
 

@@ -19,7 +19,11 @@
 // pixel), then the actor runs patch group by patch group: the group's
 // embeddings of the 8 envs go to shared memory and thread h adds the
 // group's 128 rows of the fc weights into its 8 float32 accumulators of
-// hidden unit h, so the (8, 13952) fc input never exists.
+// hidden unit h, so the (8, 13952) fc input never exists. Two
+// instantiations of each weight type: the quad's (4 motor points, at most
+// 256 hidden units), and the generic one (any motor count; hidden units h +
+// 256, ... and tensor-core tiles past a warp's two sum in shared memory),
+// picked at the launch.
 // The fc weights (7.1 MB in bf16) do not fit in shared memory; every block
 // streams them from L2 once per step. Per-env worlds: each env's world
 // columns sit in shared memory for the render, and a copy in the row layout
@@ -81,7 +85,7 @@ struct PolicyConsts {
   float mount[9], rel[3];
 };
 
-template <typename W, bool kBF16, bool kTimed>
+template <typename W, bool kBF16, bool kTimed, int kMotors>
 __global__ void __launch_bounds__(kThreads)
     policy_vision_rollout_kernel(StepConsts k, PolicyConsts c, RenderConsts rc, int seed,
                                  const float* __restrict__ state_in,
@@ -102,6 +106,8 @@ __global__ void __launch_bounds__(kThreads)
   const int NPG = hw / kPatch / pool;  // patch groups the fc sees
   const int prow = 5 * S + 6 * C;      // one env's physics rows
   constexpr int E = kEnvs;
+  // the generic instantiation takes any motor count and any fc width
+  constexpr bool kWide = kMotors == 0;
 
   extern __shared__ __align__(16) float sh[];
   float* lut = sh;                     // (256,) bf16(level / 255)
@@ -202,18 +208,19 @@ __global__ void __launch_bounds__(kThreads)
         clk.mark(fpyv::kPhStack);
         fpyv::tc_embed<E>(tt, be, wp, bp);
         clk.mark(fpyv::kPhEmbed);
-        fpyv::tc_fc(tt, wft, p0 / pool * 8, KT, n_mt, acc2);
+        fpyv::tc_fc<kWide>(tt, wft, p0 / pool * 8, KT, n_mt, acc2, h_s, hidden);
         if constexpr (kTimed) __syncthreads();
         clk.mark(fpyv::kPhFc);
       }
       fpyv::tc_fc_gather<E>(acc2, n_mt, hidden, h_s, acc);
     } else {  // ---- actor, one patch group at a time (actor.cuh)
       for (int g = 0; g < NPG; ++g)
-        fpyv::actor_group<E>(lut, frame_s + g * pool * kPatch, hw, kPatch, kPatch, we,
-                                       be, wp, bp, wf, hidden, g, pool, fcin_s, emb_s, acc, clk);
+        fpyv::actor_group<E, kWide>(lut, frame_s + g * pool * kPatch, hw, kPatch, kPatch, we,
+                                    be, wp, bp, wf, hidden, g, pool, fcin_s, emb_s, acc, h_s,
+                                    clk);
     }
-    fpyv::actor_heads<W, kBF16, E>(wf, bfc, hidden, NPG * kEmbed, prop_s, kOut, 5, acc, h_s, wm,
-                                   bm, mm_s, clk);
+    fpyv::actor_heads<W, kBF16, E, kWide>(wf, bfc, hidden, NPG * kEmbed, prop_s, kOut, 5, acc,
+                                          h_s, wm, bm, mm_s, clk);
 
     // ---- sample, env step, auto-reset
     if (owner) {
@@ -235,7 +242,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < kStateRows; ++r) phys[r] = s[r];
       float az;
-      fpyv::step_components<false, false>(k, sp, cv, phys, act, EnvPhysics{}, nullptr, &az);
+      fpyv::step_components<kMotors, false, false>(k, sp, cv, phys, act, EnvPhysics{}, nullptr,
+                                                   &az);
 
       const float* tgt = ws + tid * wcols;  // sphere 0 of the env's own world
       const float crashed = phys[14];
@@ -287,7 +295,7 @@ bool read_consts(const float* host, int count, T* out) {
   return true;
 }
 
-template <typename W, bool kBF16, bool kTimed>
+template <typename W, bool kBF16, bool kTimed, int kMotors>
 int launch(const StepConsts& k, const PolicyConsts& c, const RenderConsts& rc, int seed,
            const float* state, const float* wcol, int wcols, const float* dcam, int hw,
            const void* we, const void* be, const void* wp, const void* bp, const void* wf,
@@ -309,7 +317,7 @@ int launch(const StepConsts& k, const PolicyConsts& c, const RenderConsts& rc, i
     shmem = floats * sizeof(float) + static_cast<size_t>(kEnvs) * hw;
   }
   if (shmem > static_cast<size_t>(kSharedLimit)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = policy_vision_rollout_kernel<W, kBF16, kTimed>;
+  auto kernel = policy_vision_rollout_kernel<W, kBF16, kTimed, kMotors>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -344,27 +352,30 @@ int fpyv_policy_vision_rollout(const float* step_consts, int n_step_consts,
   if (!read_consts(step_consts, n_step_consts, &k) ||
       !read_consts(policy_consts, n_policy_consts, &c) ||
       !read_consts(render_consts, n_render_consts, &rc) || n < 1 || hw % kPatch || pool < 1 ||
-      (hw / kPatch) % pool || hidden < 1 || hidden > kThreads || rc.n_spheres < 1.0f ||
-      n_steps < 1 || (phase_ns && !bf16))
+      (hw / kPatch) % pool || hidden < 1 || rc.n_spheres < 1.0f || n_steps < 1 ||
+      !fpyv::motors_in_range(k) ||
+      (phase_ns && (!bf16 || !fpyv::quad_frame(k) || hidden > kThreads)))
     return static_cast<int>(cudaErrorInvalidValue);
   // bf16: the tensor-core actor's batch of pb patches (a multiple of pool
   // dividing the patches), 16-row hidden tiles, the fragment-order fc rows
   if (bf16 && (pb < pool || pb % pool || (hw / kPatch) % pb || hidden % 16 || !wft))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FPYV_K7(W, BF16, TIMED, M)                                                              \
+  launch<W, BF16, TIMED, M>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp, bp, wf,    \
+                            bfc, hidden, wft, pb, wm, bm, stdv, pool, frames, extra, aux,        \
+                            state_out, n, n_steps, phase_ns, st)
+  // the quad's instantiation takes 4 motors and at most kThreads hidden units
+  const bool quad = fpyv::quad_frame(k) && hidden <= kThreads;
+  int err;
   if (phase_ns)
-    return launch<__nv_bfloat16, true, true>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we,
-                                             be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm, stdv,
-                                             pool, frames, extra, aux, state_out, n, n_steps,
-                                             phase_ns, st);
-  if (bf16)
-    return launch<__nv_bfloat16, true, false>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we,
-                                              be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm, stdv,
-                                              pool, frames, extra, aux, state_out, n, n_steps,
-                                              nullptr, st);
-  return launch<float, false, false>(k, c, rc, seed, state, wcol, wcols, dcam, hw, we, be, wp,
-                                     bp, wf, bfc, hidden, wft, pb, wm, bm, stdv, pool, frames,
-                                     extra, aux, state_out, n, n_steps, nullptr, st);
+    err = FPYV_K7(__nv_bfloat16, true, true, 4);
+  else if (bf16)
+    err = quad ? FPYV_K7(__nv_bfloat16, true, false, 4) : FPYV_K7(__nv_bfloat16, true, false, 0);
+  else
+    err = quad ? FPYV_K7(float, false, false, 4) : FPYV_K7(float, false, false, 0);
+#undef FPYV_K7
+  return err;
 }
 
 }  // extern "C"

@@ -119,7 +119,7 @@ size_t shared_bytes(int hw, int K, int S, int G, int hidden, int pool, int pb) {
          static_cast<size_t>(kEnvs) * hw;
 }
 
-template <typename W, bool kBF16, bool kTimed>
+template <typename W, bool kBF16, bool kTimed, int kMotors>
 __global__ void __launch_bounds__(kThreads)
     race_vision_rollout_kernel(StepConsts k, RaceConsts c, RenderConsts rc, int seed, int K,
                                const float* __restrict__ state_in,
@@ -143,6 +143,8 @@ __global__ void __launch_bounds__(kThreads)
   const int wcols = 5 * S + 15 * G + 1;  // spheres, gates, ground
   const int hrow = NP * (K - 1) * kPatch;  // one env's history
   constexpr int E = kEnvs;
+  // the generic instantiation takes any motor count and any fc width
+  constexpr bool kWide = kMotors == 0;
 
   extern __shared__ __align__(16) float sh[];
   float* lut = sh;                      // (256,) bf16(level / 255)
@@ -282,7 +284,7 @@ __global__ void __launch_bounds__(kThreads)
         clk.mark(fpyv::kPhStack);
         fpyv::tc_embed<E>(tt, be, wp, bp);
         clk.mark(fpyv::kPhEmbed);
-        fpyv::tc_fc(tt, wft, p0 / pool * 8, KT, n_mt, acc2);
+        fpyv::tc_fc<kWide>(tt, wft, p0 / pool * 8, KT, n_mt, acc2, h_s, hidden);
         if constexpr (kTimed) __syncthreads();
         clk.mark(fpyv::kPhFc);
       }
@@ -310,12 +312,12 @@ __global__ void __launch_bounds__(kThreads)
         }
         __syncthreads();
         clk.mark(fpyv::kPhStack);
-        fpyv::actor_group<E>(lut, stk_s, gstride, KP, KP, we, be, wp, bp, wf, hidden, g,
-                                       pool, fcin_s, emb_s, acc, clk);
+        fpyv::actor_group<E, kWide>(lut, stk_s, gstride, KP, KP, we, be, wp, bp, wf, hidden, g,
+                                    pool, fcin_s, emb_s, acc, h_s, clk);
       }
     }
-    fpyv::actor_heads<W, kBF16, E>(wf, bfc, hidden, NPG * kEmbed, prop_s, kProp, 5 + G, acc,
-                                   h_s, wm, bm, mm_s, clk);
+    fpyv::actor_heads<W, kBF16, E, kWide>(wf, bfc, hidden, NPG * kEmbed, prop_s, kProp, 5 + G,
+                                          acc, h_s, wm, bm, mm_s, clk);
 
     // ---- sample, race step, respawn
     if (owner) {
@@ -336,7 +338,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < kStateRows; ++r) phys[r] = s[r];
       float az;
-      fpyv::step_components<false, false>(k, sp, cv, phys, act, EnvPhysics{}, nullptr, &az);
+      fpyv::step_components<kMotors, false, false>(k, sp, cv, phys, act, EnvPhysics{}, nullptr,
+                                                   &az);
       const float crashed = phys[14];
 
       // gate passing and reward (multi_race.step at A == 1)
@@ -422,7 +425,7 @@ bool read_consts(const float* host, int count, T* out) {
   return true;
 }
 
-template <typename W, bool kBF16, bool kTimed>
+template <typename W, bool kBF16, bool kTimed, int kMotors>
 int launch(const StepConsts& k, const RaceConsts& c, const RenderConsts& rc, int seed, int K,
            const float* state, const float* wcol, const float* ocol, const uint8_t* hist,
            const float* dcam, int hw, const void* we, const void* be, const void* wp,
@@ -430,7 +433,7 @@ int launch(const StepConsts& k, const RaceConsts& c, const RenderConsts& rc, int
            const float* wm, const float* bm, const float* stdv, int pool, uint8_t* frames,
            float* extra, float* aux, float* state_out, int n, int n_steps,
            unsigned long long* phase_ns, size_t shmem, cudaStream_t stream) {
-  auto kernel = race_vision_rollout_kernel<W, kBF16, kTimed>;
+  auto kernel = race_vision_rollout_kernel<W, kBF16, kTimed, kMotors>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -468,8 +471,9 @@ int fpyv_race_vision_rollout(const float* step_consts, int n_step_consts,
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = static_cast<int>(rc.n_spheres), G = static_cast<int>(rc.n_gates);
   if (n < 1 || n_steps < 1 || K < 1 || hw % kPatch || pool < 1 || (hw / kPatch) % pool ||
-      hidden < 1 || hidden > kThreads || rc.n_cylinders != 0.0f || G < 1 || 5 + G > kProp ||
-      (phase_ns && !bf16))
+      hidden < 1 || rc.n_cylinders != 0.0f || G < 1 || 5 + G > kProp ||
+      !fpyv::motors_in_range(k) ||
+      (phase_ns && (!bf16 || !fpyv::quad_frame(k) || hidden > kThreads)))
     return static_cast<int>(cudaErrorInvalidValue);
   // bf16: the tensor-core actor's batch of pb patches (a multiple of pool
   // dividing the patches), 16-row hidden tiles, the fragment-order fc rows
@@ -479,19 +483,21 @@ int fpyv_race_vision_rollout(const float* step_consts, int n_step_consts,
   const size_t shmem = shared_bytes(hw, K, S, G, hidden, pool, pb);
   if (shmem > static_cast<size_t>(kSharedLimit)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FPYV_K8(W, BF16, TIMED, M)                                                               \
+  launch<W, BF16, TIMED, M>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw, we, be, wp, bp, \
+                            wf, bfc, hidden, wft, pb, wm, bm, stdv, pool, frames, extra, aux,     \
+                            state_out, n, n_steps, phase_ns, shmem, st)
+  // the quad's instantiation takes 4 motors and at most kThreads hidden units
+  const bool quad = fpyv::quad_frame(k) && hidden <= kThreads;
+  int err;
   if (phase_ns)
-    return launch<__nv_bfloat16, true, true>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw,
-                                             we, be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm,
-                                             stdv, pool, frames, extra, aux, state_out, n, n_steps,
-                                             phase_ns, shmem, st);
-  if (bf16)
-    return launch<__nv_bfloat16, true, false>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam,
-                                              hw, we, be, wp, bp, wf, bfc, hidden, wft, pb, wm, bm,
-                                              stdv, pool, frames, extra, aux, state_out, n,
-                                              n_steps, nullptr, shmem, st);
-  return launch<float, false, false>(k, c, rc, seed, K, state, wcol, ocol, hist, dcam, hw, we, be,
-                                     wp, bp, wf, bfc, hidden, wft, pb, wm, bm, stdv, pool, frames,
-                                     extra, aux, state_out, n, n_steps, nullptr, shmem, st);
+    err = FPYV_K8(__nv_bfloat16, true, true, 4);
+  else if (bf16)
+    err = quad ? FPYV_K8(__nv_bfloat16, true, false, 4) : FPYV_K8(__nv_bfloat16, true, false, 0);
+  else
+    err = quad ? FPYV_K8(float, false, false, 4) : FPYV_K8(float, false, false, 0);
+#undef FPYV_K8
+  return err;
 }
 
 }  // extern "C"

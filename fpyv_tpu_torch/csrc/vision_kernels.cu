@@ -58,7 +58,9 @@
 // renders. __launch_bounds__ asks for 8 resident blocks
 // per SM (at most 64 registers a thread): 1056 slots hold a 1024-env bank
 // in one wave. The instrumented instantiation (kTimed) clocks the phases of
-// a step and counts the pixels tested and lit (chip_smoke.py --phases).
+// a step and counts the pixels tested and lit (chip_smoke.py --phases). The
+// motor count is a template parameter of K1's contact loop: the quad's 4 or
+// the generic count (physics.cuh); the instrumented one is the quad's.
 #include "clock.cuh"
 #include "env.cuh"
 #include "render.cuh"
@@ -294,7 +296,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <bool kDR, bool kWind, bool kTimed>
+template <int kMotors, bool kDR, bool kWind, bool kTimed>
 __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
     chase_kernel(StepConsts k, EnvConsts c, ChaseConsts p, int seed,
                  const float* __restrict__ state, const float* __restrict__ world, int S,
@@ -429,7 +431,7 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
     float phys[kStateRows];
 #pragma unroll
     for (int r = 0; r < kStateRows; ++r) phys[r] = s[r];
-    fpyv::step_components<kDR, kWind, true>(k, sp, cv, phys, zero_act, ep, ov);
+    fpyv::step_components<kMotors, kDR, kWind, true>(k, sp, cv, phys, zero_act, ep, ov);
 
     float dist;
     bool reset;
@@ -461,14 +463,14 @@ __global__ void __launch_bounds__(kChaseBlock, kChaseBlocksPerSM)
   }
 }
 
-template <bool kDR, bool kWind, bool kTimed>
+template <int kMotors, bool kDR, bool kWind, bool kTimed>
 void launch_chase(const StepConsts& k, const EnvConsts& c, const ChaseConsts& p, int seed,
                   const float* state, const float* world, int S, const float* cyl, int C,
                   const float* dcam, int hw, int width, float* out, float* rsum, float* crashes,
                   float* contacts, int n, int n_steps, unsigned long long* probe,
                   cudaStream_t stream) {
   const size_t shmem = sizeof(float) * (kWorldRows * S + 6 * C + 6 * S);
-  chase_kernel<kDR, kWind, kTimed><<<n, kChaseBlock, shmem, stream>>>(
+  chase_kernel<kMotors, kDR, kWind, kTimed><<<n, kChaseBlock, shmem, stream>>>(
       k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, rsum, crashes, contacts, n,
       n_steps, probe);
 }
@@ -514,24 +516,31 @@ int fpyv_vision_env_rollout(const float* step_consts, int n_step_consts, const f
   EnvConsts c;
   ChaseConsts p;
   if (!read_consts(step_consts, n_step_consts, &k) || !read_consts(env_consts, n_env_consts, &c) ||
-      !read_consts(chase_consts, n_chase_consts, &p) || n < 1 ||
-      (probe && (randomize || use_wind)))
+      !read_consts(chase_consts, n_chase_consts, &p) || n < 1 || !fpyv::motors_in_range(k) ||
+      (probe && (randomize || use_wind || !fpyv::quad_frame(k))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FPYV_CHASE(DR, WIND, TIMED)                                                        \
-  launch_chase<DR, WIND, TIMED>(k, c, p, seed, state, world, S, cyl, C, dcam, hw, width, out, \
-                                rsum, crashes, contacts, n, n_steps,                       \
-                                static_cast<unsigned long long*>(probe), st)
-  if (probe)
-    FPYV_CHASE(false, false, true);
-  else if (randomize && use_wind)
-    FPYV_CHASE(true, true, false);
-  else if (randomize)
-    FPYV_CHASE(true, false, false);
-  else if (use_wind)
-    FPYV_CHASE(false, true, false);
-  else
-    FPYV_CHASE(false, false, false);
+#define FPYV_CHASE(M, DR, WIND, TIMED)                                                       \
+  launch_chase<M, DR, WIND, TIMED>(k, c, p, seed, state, world, S, cyl, C, dcam, hw, width,   \
+                                   out, rsum, crashes, contacts, n, n_steps,                 \
+                                   static_cast<unsigned long long*>(probe), st)
+#define FPYV_CHASE_FLAGS(M)                 \
+  if (randomize && use_wind)                \
+    FPYV_CHASE(M, true, true, false);       \
+  else if (randomize)                       \
+    FPYV_CHASE(M, true, false, false);      \
+  else if (use_wind)                        \
+    FPYV_CHASE(M, false, true, false);      \
+  else                                      \
+    FPYV_CHASE(M, false, false, false)
+  if (probe) {
+    FPYV_CHASE(4, false, false, true);
+  } else if (fpyv::quad_frame(k)) {
+    FPYV_CHASE_FLAGS(4);
+  } else {
+    FPYV_CHASE_FLAGS(0);
+  }
+#undef FPYV_CHASE_FLAGS
 #undef FPYV_CHASE
   return static_cast<int>(cudaGetLastError());
 }

@@ -114,6 +114,8 @@ def library() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fpyv_drone_step.argtypes = [P, I, P, P, P, I, P, I, P, I, P]
         lib.fpyv_rollout.argtypes = [P, I, P, P, P, I, P, I, P, I, I, P]
+        lib.fpyv_rollout_lanes.argtypes = [P, I, I, I, I]
+        lib.fpyv_env_rollout_lanes.argtypes = [P, I, I, I, I]
         lib.fpyv_env_rollout.argtypes = [P, I, P, I, I, P, P, P, I, P, I, P, P, I, I,
                                          I, I, P, P]
         lib.fpyv_render_depth.argtypes = [P, I, P, I, P, P, I, I, P, I, P]
@@ -125,7 +127,8 @@ def library() -> ctypes.CDLL:
         lib.fpyv_race_vision_rollout.argtypes = [P, I, P, I, P, I, I, I, P, P, P, P, P, I, P, P,
                                                  P, P, P, P, I, P, I, P, P, P, I, I, P, P, P, P, I,
                                                  I, P, P]
-        for fn in (lib.fpyv_drone_step, lib.fpyv_rollout, lib.fpyv_env_rollout,
+        for fn in (lib.fpyv_drone_step, lib.fpyv_rollout, lib.fpyv_rollout_lanes,
+                   lib.fpyv_env_rollout, lib.fpyv_env_rollout_lanes,
                    lib.fpyv_render_depth, lib.fpyv_vision_env_rollout,
                    lib.fpyv_policy_vision_rollout, lib.fpyv_race_vision_rollout):
             fn.restype = I

@@ -37,12 +37,14 @@ import torch
 from fpyv_tpu_torch.envs.acro import AcroEnv, AcroState
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops.step_kernel import (
+    ONE_THREAD_ENVS,
     STATE_ROWS,
     _f32,
     action_matrix,
     check_cuda_inputs,
     cylinder_list,
     cylinder_matrix,
+    log_lanes,
     matrix_to_state,
     state_to_matrix,
     step_components,
@@ -396,6 +398,8 @@ def launch_env_rollout(env: AcroEnv, state_mat, action_mat, world_mat, n_steps: 
     n = state_mat.shape[1]
     if probe is not None and n >= ONE_THREAD_ENVS:
         raise ValueError(f"the instrumented K4 splits the lane design: N < {ONE_THREAD_ENVS}")
+    if probe is not None and env.params.n_motors != 4:
+        raise ValueError("the instrumented K4 is the quad's (n_motors=4)")
     if state_mat.shape != (ENV_ROWS, n) or action_mat.shape != (4, n):
         raise ValueError("state / action must be (24, N) / (4, N)")
     if world_mat.ndim != 2 or world_mat.shape[0] != WORLD_ROWS:
@@ -412,6 +416,11 @@ def launch_env_rollout(env: AcroEnv, state_mat, action_mat, world_mat, n_steps: 
     rsum = torch.empty(n, dtype=torch.float32, device=device)
     S = world_mat.shape[1]
     C = 0 if cyl_mat is None else cyl_mat.shape[1]
+    lanes = lib.fpyv_env_rollout_lanes(kc.ctypes.data, kc.size, S, C, n)
+    log_lanes("env_rollout", lanes, n, env.params.n_motors, S, C)
+    if probe is not None and lanes == 1:
+        raise ValueError("the instrumented K4 splits the lane design, which this world's "
+                         "staged contact terms do not fit")
     cyl_ptr = None if cyl_mat is None else cyl_mat.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -427,7 +436,6 @@ def launch_env_rollout(env: AcroEnv, state_mat, action_mat, world_mat, n_steps: 
     return out, rsum
 
 
-ONE_THREAD_ENVS = 32768  # kOneThreadEnvs in csrc/lanes.cuh: from here one thread an env
 ENV_PHASES = ("centres", "head", "contacts", "tail", "env")  # EnvPhase in csrc/env_kernels.cu
 N_ENV_PROBE = len(ENV_PHASES) + 1  # the phases, then the env-steps that reset
 ENVS_PER_BLOCK = 32  # K4's block: 32 envs

@@ -78,6 +78,7 @@ PP = PATCH * PATCH  # pixels per patch (the embed contraction)
 N_OUT = 8  # extra / aux columns
 INCLUDE = ("spheres", "cylinders", "ground", "gates")
 ENVS_PER_BLOCK = 8  # kEnvs in csrc/policy_kernels.cu and csrc/race_kernels.cu
+ACTOR_THREADS = 256  # kActorThreads in csrc/actor.cuh: a block's threads, one hidden unit each
 SHARED_LIMIT = 232448  # opt-in shared memory of one block on the H100
 MAX_BATCH = 12  # patches a barrier pass of the tensor-core actor, at most
 ROW_PAD = 8  # kRowPad in csrc/actor.cuh
@@ -128,6 +129,8 @@ class PolicyWeights:
     be: torch.Tensor  # (1, embed)
     wp: torch.Tensor  # (pool*embed, embed), or an (8, embed) zero dummy at pool 1
     bp: torch.Tensor  # (1, embed), zeros at pool 1
+    # hidden: the net's fc width; in bf16 rounded up to a multiple of 16 with
+    # zero units (build_policy_weights)
     wf: torch.Tensor  # (KF_pad, hidden): rows [patch-flat, proprio (5, or 5 + G in K8), zero pad]
     bf: torch.Tensor  # (1, hidden)
     wm: torch.Tensor  # (hidden, 8) float32: cols 0:4 pi_mean, col 4 v_out
@@ -161,15 +164,21 @@ def build_policy_weights(net, compute_dtype: Optional[torch.dtype] = torch.bfloa
     else:
         wp = torch.zeros(8, embed, dtype=dt, device=dev)
         bp = torch.zeros(1, embed, dtype=dt, device=dev)
-    wf_raw, bf = kernel(net.fc0)  # (NP*embed + proprio, hidden)
+    wf_raw, bf_raw = kernel(net.fc0)  # (NP*embed + proprio, hidden)
     kf, hidden = wf_raw.shape
-    wf = torch.zeros(-(-kf // 128) * 128, hidden, dtype=dt, device=dev)
-    wf[:kf] = wf_raw
+    # The bf16 kernels' fc takes 16-row hidden tiles: another width gets zero
+    # units up to the next multiple of 16 (zero fc columns, bias and head
+    # rows), each ReLU(0) = +0, adding an exact +0 to the heads.
+    width = -(-hidden // 16) * 16 if dt == torch.bfloat16 else hidden
+    wf = torch.zeros(-(-kf // 128) * 128, width, dtype=dt, device=dev)
+    wf[:kf, :hidden] = wf_raw
+    bf = torch.zeros(1, width, dtype=dt, device=dev)
+    bf[:, :hidden] = bf_raw
     pi_w, pi_b = net.pi_mean.weight.detach().to(f), net.pi_mean.bias.detach().to(f)
     v_w, v_b = net.v_out.weight.detach().to(f), net.v_out.bias.detach().to(f)
-    wm = torch.zeros(hidden, N_OUT, dtype=f, device=dev)
-    wm[:, :4] = pi_w.T
-    wm[:, 4] = v_w[0]
+    wm = torch.zeros(width, N_OUT, dtype=f, device=dev)
+    wm[:hidden, :4] = pi_w.T
+    wm[:hidden, 4] = v_w[0]
     bm = torch.zeros(1, N_OUT, dtype=f, device=dev)
     bm[0, :4] = pi_b
     bm[0, 4] = v_b[0]
@@ -178,7 +187,7 @@ def build_policy_weights(net, compute_dtype: Optional[torch.dtype] = torch.bfloa
     std[0, :4] = torch.exp(log_std)
     std[0, 4:8] = log_std
     wf_tc = None
-    if dt == torch.bfloat16 and hidden % 16 == 0:
+    if dt == torch.bfloat16:
         wf_tc = fragment_order_fc(wf[:kf // 128 * 128])  # the patch rows (proprio < 128)
     return PolicyWeights(we=we, be=be, wp=wp, bp=bp, wf=wf, bf=bf, wm=wm, bm=bm, std=std,
                          wf_tc=wf_tc)
@@ -497,14 +506,14 @@ def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch
     if patch_pool < 1 or n_patches % patch_pool:
         raise ValueError(f"patch_pool={patch_pool} must divide {n_patches} patches")
     embed, hidden = weights.we.shape[1], weights.wf.shape[1]
-    if (weights.we.shape[0] != PP or embed != 128 or hidden > 256
+    if (weights.we.shape[0] != PP or embed != 128
             or weights.wf.shape[0] < n_patches // patch_pool * embed + 5):
-        raise ValueError("the kernel takes 8x8 patches, embed 128, hidden <= 256")
+        raise ValueError("the kernel takes 8x8 patches and an embed of 128")
     if cfg.n_spheres < 1:
         raise ValueError("the reward needs sphere 0")
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
-    timing = check_phase_ns(phase_ns, device, dt)
+    timing = check_phase_ns(phase_ns, device, dt, env.params.n_motors, hidden)
     n_phys = 5 * cfg.n_spheres + 6 * cfg.n_cylinders
     batch = 0
     if dt == torch.bfloat16:
@@ -545,13 +554,17 @@ PHASES = ("render", "stack", "embed", "fc", "heads", "step")  # the Phase enum o
 N_PHASES = len(PHASES)
 
 
-def check_phase_ns(phase_ns: Optional[torch.Tensor], device, dt) -> Optional[int]:
+def check_phase_ns(phase_ns: Optional[torch.Tensor], device, dt, n_motors: int,
+                   hidden: int) -> Optional[int]:
     """The pointer of an instrumented launch's phase array (None: a plain
     launch)."""
     if phase_ns is None:
         return None
     if dt != torch.bfloat16:
         raise ValueError("the instrumented instantiation takes bf16 weights")
+    if n_motors != 4 or hidden > ACTOR_THREADS:
+        raise ValueError(f"the instrumented instantiation is the quad's (n_motors=4) with at "
+                         f"most {ACTOR_THREADS} hidden units")
     if (phase_ns.device != device or phase_ns.dtype != torch.int64
             or phase_ns.shape != (N_PHASES,)):
         raise ValueError(f"phase_ns must be an int64 ({N_PHASES},) tensor on {device}")

@@ -410,9 +410,9 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
     if patch_pool < 1 or NP % patch_pool:
         raise ValueError(f"patch_pool={patch_pool} must divide {NP} patches")
     embed, hidden = weights.we.shape[1], weights.wf.shape[1]
-    if (weights.we.shape[0] != K * PP or embed != 128 or hidden > 256
+    if (weights.we.shape[0] != K * PP or embed != 128
             or weights.wf.shape[0] < NP // patch_pool * embed + 5 + G):
-        raise ValueError(f"the kernel takes a {K}*64-wide embed of 128, hidden <= 256")
+        raise ValueError(f"the kernel takes a {K}*64-wide embed of 128")
     if 5 + G > N_EXTRA:
         raise ValueError(f"the proprio block 5 + {G} exceeds its {N_EXTRA} columns")
     batch = 0
@@ -425,7 +425,7 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
                          f"{SHARED_LIMIT} B a block may use")
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
-    timing = check_phase_ns(phase_ns, device, dt)
+    timing = check_phase_ns(phase_ns, device, dt, race.params.n_motors, hidden)
     lib = _build.library()
     kc = step_constants_array(race.params)
     rcon = race_constants(venv).as_array()

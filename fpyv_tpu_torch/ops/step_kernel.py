@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -42,7 +43,12 @@ from fpyv_tpu_torch.physics.world import World
 
 STATE_ROWS = 15
 SPRING_K = 100.0
+# The kernels' motor arrays hold this many points (kMaxMotors in
+# csrc/physics.cuh); DroneParams.n_motors above it is refused.
+MAX_MOTORS = 16
+ONE_THREAD_ENVS = 32768  # kOneThreadEnvs in csrc/lanes.cuh
 _DEG2RAD = math.pi / 180.0
+_log = logging.getLogger(__name__)
 
 
 def _f32(x: float) -> float:
@@ -113,7 +119,9 @@ def supported(params: DroneParams, world: World) -> bool:
 @dataclass(frozen=True)
 class StepConstants:
     """float32-rounded physics constants, in the order of ``StepConsts`` in
-    ``csrc/physics.cuh``."""
+    ``csrc/physics.cuh``. ``motor_x`` and ``motor_y`` hold the ``n_motors``
+    motor points; :meth:`as_array` pads them with zeros to
+    :data:`MAX_MOTORS`."""
 
     dt: float
     max_rates: float
@@ -134,15 +142,16 @@ class StepConstants:
     half_rate: float
     motor_radius: float
     neg_spring: float
-    motor_x: Tuple[float, float, float, float]
-    motor_y: Tuple[float, float, float, float]
+    n_motors: int
+    motor_x: Tuple[float, ...]
+    motor_y: Tuple[float, ...]
     reps: int
 
     def as_array(self) -> np.ndarray:
         vals = []
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            vals.extend(v if isinstance(v, tuple) else [v])
+            vals.extend(v + (0.0,) * (MAX_MOTORS - len(v)) if isinstance(v, tuple) else [v])
         return np.asarray(vals, np.float32)
 
 
@@ -155,8 +164,9 @@ def step_constants(params: DroneParams) -> StepConstants:
     k = -0.5 * AIR_DENSITY
     (cdx, cdy, cdz), (ax_, ay_, az_) = params.drag_coef, params.cross_sections
     motors = motor_layout(params.n_motors)
-    if len(motors) != 4:
-        raise ValueError("the fused step supports the 4-motor X frame only")
+    if len(motors) > MAX_MOTORS:
+        raise ValueError(f"the fused kernels take at most {MAX_MOTORS} motors "
+                         f"(MAX_MOTORS), got n_motors={params.n_motors}")
     return StepConstants(
         dt=_f32(params.dt), max_rates=_f32(params.max_rates),
         rate_a=_f32(a), rate_keep=_f32(1 - a),
@@ -166,7 +176,7 @@ def step_constants(params: DroneParams) -> StepConstants:
         gz=_f32(-params.gravity * params.mass), mass=_f32(params.mass),
         inv_m=_f32(1.0 / params.mass), half_rate=_f32(0.5 * _DEG2RAD * params.dt),
         motor_radius=_f32(params.motor_radius), neg_spring=-SPRING_K,
-        motor_x=tuple(_f32(float(m[0])) for m in motors),
+        n_motors=len(motors), motor_x=tuple(_f32(float(m[0])) for m in motors),
         motor_y=tuple(_f32(float(m[1])) for m in motors),
         reps=2 if params.double_rotation_quirk else 1,
     )
@@ -257,7 +267,7 @@ def step_components(k: StepConstants, spheres, comps: Sequence[torch.Tensor],
     cfy = torch.zeros_like(px)
     cfz = torch.zeros_like(px)
     crashed = torch.zeros_like(px)
-    for m0, m1 in zip(k.motor_x, k.motor_y):
+    for m0, m1 in zip(k.motor_x, k.motor_y):  # the n_motors points in order
         mx = px + R00 * m0 + R01 * m1
         my = py + R10 * m0 + R11 * m1
         mz = pz + R20 * m0 + R21 * m1
@@ -418,6 +428,8 @@ def _launch_step(kernel, params, state_mat, action_mat, sphere_mat, cyl_mat, n_s
     out = torch.empty_like(state_mat)
     S = sphere_mat.shape[1]
     C = 0 if cyl_mat is None else cyl_mat.shape[1]
+    log_lanes(kernel, lib.fpyv_rollout_lanes(consts.ctypes.data, consts.size, S, C, n), n,
+              params.n_motors, S, C)
     cyl_ptr = None if cyl_mat is None else cyl_mat.data_ptr()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -432,6 +444,22 @@ def _launch_step(kernel, params, state_mat, action_mat, sphere_mat, cyl_mat, n_s
     _build.check(err, kernel)
     _build.launch_counts[kernel] += 1
     return out
+
+
+def log_lanes(kernel: str, lanes: int, n: int, n_motors: int, S: int, C: int) -> None:
+    """Log K3's or K4's launch design when its staged contact terms do not
+    fit a block below :data:`ONE_THREAD_ENVS` envs (it then runs one thread
+    an env); ``lanes`` is what the library's ``*_lanes`` query returned."""
+    if lanes < 0:
+        raise ValueError(f"{kernel}: the kernel refuses these step constants")
+    if lanes == 1 and n < ONE_THREAD_ENVS:
+        _log_one_thread(kernel, n_motors, S, C)
+
+
+@functools.lru_cache(maxsize=64)
+def _log_one_thread(kernel: str, n_motors: int, S: int, C: int) -> None:
+    _log.info("%s: %d motors x (1 + %d spheres + %d cylinders) staged terms do not fit a "
+              "block's shared memory; one thread an env", kernel, n_motors, S, C)
 
 
 def drone_step_matrix(params, state_mat, action_mat, sphere_mat, cyl_mat=None):

@@ -698,6 +698,8 @@ def launch_vision_env_rollout(env: AcroEnv, state_mat, world_mat, n_steps: int, 
     if probe is not None and (probe.device != device or probe.dtype != torch.int64
                               or probe.shape != (N_CHASE_PROBE,)):
         raise ValueError(f"probe must be an int64 ({N_CHASE_PROBE},) tensor on {device}")
+    if probe is not None and env.params.n_motors != 4:
+        raise ValueError("the instrumented K6 is the quad's (n_motors=4)")
     n = state_mat.shape[1]
     if state_mat.shape != (CH_ROWS, n) or n < 1:
         raise ValueError(f"state must be ({CH_ROWS}, N)")

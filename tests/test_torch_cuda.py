@@ -48,7 +48,13 @@ paths (no kernel) hold the CPU's run from the same generator's draws:
 ``SensorAcroEnv`` 1e-4 on the observation over 8 steps, the hover env and
 its pilot 1e-4 m over 60 steps, the geometry algorithms 1e-9 in float64,
 ``attention`` and the terrain heightmap in float32 within 1e-5 of the
-largest value (TF32 off).
+largest value (TF32 off). Any motor count and fc width: K3 and K4 at 3, 6
+and 8 motor points (and 16 on a world whose staged terms do not fit a
+block, one thread an env) equal to their plain versions bit for bit, K6
+with 6 and 8 at its tolerances, K7 and K8 with 384-, 520- and 200-wide fc
+layers (a hexacopter's env) as the 256-wide cases: float32 equal to the
+plain version's frames and flags within its tolerances, bf16
+teacher-forced.
 """
 
 import numpy as np
@@ -75,12 +81,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _bank(device, world="default", n=256, **kw):
+def _bank(device, world="default", n=256, n_motors=4, **kw):
     """An env, its world, a reset bank of n envs and the hover action. The
     "contact" world is ``contact_world`` with the drones at its gaps
     (``contact_start``): several motor points on a sphere and a cylinder in
     one step."""
-    env = AcroEnv(params=DroneParams(att_mode="quat"), **kw)
+    env = AcroEnv(params=DroneParams(att_mode="quat", n_motors=n_motors), **kw)
     if world == "default":
         w = env.default_world(device)
     elif world == "contact":
@@ -164,6 +170,90 @@ def test_cuda_k4_matches_plain_across_resets(cuda_device, world, n, kw):
     split = ek.env_probe_split(probe, n)
     assert split["resets"] == resets
     assert all(split[k] > 0 for k in ek.ENV_PHASES)
+
+
+# Any motor count (DroneParams.n_motors, 2 to 16): the generic
+# instantiation of K1's contact loop; K3 and K4 stage n_motors points' terms
+# (lane m owns points m, m + 4, ...) and sum them in the plain order.
+MOTOR_CASES = [pytest.param("contact", 256, 6, id="contact-m6"),
+               pytest.param("contact", 256, 8, id="contact-m8"),
+               pytest.param("contact", 4097, 3, id="contact4097-m3"),
+               pytest.param("params", 32773, 6, id="one_thread32773-m6")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,n,n_motors", MOTOR_CASES)
+def test_cuda_k3_k4_any_motor_count(cuda_device, world, n, n_motors):
+    """K3 and K4 with 3, 6 and 8 motor points equal bit for bit to their plain
+    versions (K4 across resets), on the contact-heavy start."""
+    env, w, st, act = _bank(cuda_device, world, n, n_motors=n_motors, max_episode_steps=20)
+    s, a = sk.state_to_matrix(st.drone), sk.action_matrix(act)
+    sph = sk.sphere_matrix(w)
+    cyl = sk.cylinder_matrix(w) if sk.world_has_cylinders(w) else None
+    out = sk.launch_rollout(env.params, s, a, sph, 64, cyl)
+    torch.cuda.synchronize()
+    ref = sk.rollout_reference(env.params, s, a, sph, 64, cyl)
+    if world == "contact":
+        assert ref[14].sum() > 0  # premise: motor points inside the obstacles
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    es, wm = ek.env_state_to_matrix(st), ek.env_world_matrix(w)
+    out, rsum = ek.launch_env_rollout(env, es, a, wm, 64, seed=3, cyl_mat=cyl)
+    torch.cuda.synchronize()
+    ref, ref_rsum, resets = ek.env_rollout_reference(env, es, a, wm, 64, seed=3, cyl_mat=cyl)
+    assert resets >= n  # premise: every env's 20-step episode ended
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    torch.testing.assert_close(rsum, ref_rsum, atol=0, rtol=0)
+    probe = torch.zeros(ek.N_ENV_PROBE, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="quad|lane design"):  # the quad's lane design only
+        ek.launch_env_rollout(env, es, a, wm, 64, seed=3, cyl_mat=cyl, probe=probe)
+
+
+@pytest.mark.cuda
+def test_cuda_k3_k4_one_thread_when_the_stage_does_not_fit(cuda_device):
+    """16 motors on a world of 24 spheres and 8 cylinders: 16 x 33 staged
+    terms of 32 envs pass a block's shared memory, so K3 and K4 run one
+    thread an env below kOneThreadEnvs; K3 still equals its plain version."""
+    from fpyv_tpu_torch.physics.world import empty_world
+
+    env, _, st, act = _bank(cuda_device, "default", 256, n_motors=16)
+    g = torch.Generator().manual_seed(4)
+    S, C = 24, 8
+    w = empty_world(n_spheres=S, n_cylinders=C, ground=True, device="cpu").replace(
+        sphere_center=torch.rand(S, 3, generator=g) * 20.0 - 10.0,
+        cyl_center=torch.rand(C, 3, generator=g) * 20.0 - 10.0).to(cuda_device)
+    s, a = sk.state_to_matrix(st.drone), sk.action_matrix(act)
+    sph, cyl = sk.sphere_matrix(w), sk.cylinder_matrix(w)
+    kc = sk.step_constants_array(env.params)
+    lib = _build.library()
+    assert lib.fpyv_rollout_lanes(kc.ctypes.data, kc.size, S, C, 256) == 1
+    assert lib.fpyv_env_rollout_lanes(kc.ctypes.data, kc.size, S, C, 256) == 1
+    assert lib.fpyv_rollout_lanes(kc.ctypes.data, kc.size, 1, 0, 256) == 4
+    out = sk.launch_rollout(env.params, s, a, sph, 16, cyl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, sk.rollout_reference(env.params, s, a, sph, 16, cyl), atol=0,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_motors", [6, 8])
+def test_cuda_k6_any_motor_count(cuda_device, n_motors):
+    env, w, st, _ = _bank(cuda_device, "default", n=64, n_motors=n_motors, max_episode_steps=20)
+    rig = default_vision_rig()
+    s, wm = vk.chase_state_matrix(st), ek.env_world_matrix(w)
+    out, rsum, crashes, contacts = vk.launch_vision_env_rollout(env, s, wm, 64, rig, seed=3)
+    torch.cuda.synchronize()
+    ref, ref_rsum, resets, ref_crashes, ref_contacts = vk.vision_env_rollout_reference(
+        env, s, wm, 64, rig, seed=3)
+    assert resets >= 64  # premise: every env reset
+    torch.testing.assert_close(out[15], ref[15], atol=0, rtol=0)
+    torch.testing.assert_close(crashes, ref_crashes, atol=0, rtol=0)
+    torch.testing.assert_close(contacts, ref_contacts, atol=0, rtol=0)
+    torch.testing.assert_close(out[0:3], ref[0:3], atol=1e-4, rtol=0)
+    torch.testing.assert_close(out[3:6], ref[3:6], atol=1e-3, rtol=0)
+    torch.testing.assert_close(rsum, ref_rsum, atol=2e-3, rtol=0)
+    probe = torch.zeros(vk.N_CHASE_PROBE, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="quad"):
+        vk.launch_vision_env_rollout(env, s, wm, 64, rig, seed=3, probe=probe)
 
 
 @pytest.mark.cuda
@@ -406,20 +496,21 @@ def test_cuda_k6_instrumented_launch_matches_plain_launch(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _policy_setup(device, n, max_steps, pool, bf16, seed=0):
+def _policy_setup(device, n, max_steps, pool, bf16, seed=0, hidden=(256,), n_motors=4):
     """(env, rig, worlds), the (N, 18) state and a Flax-initialised net on
     per-env sample_worlds with 1 sphere and 4 cylinders."""
     from fpyv_tpu_torch.models.policy import PixelActorCritic
     from fpyv_tpu_torch.world.randomize import sample_worlds
 
-    env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=max_steps)
+    env = AcroEnv(params=DroneParams(att_mode="quat", n_motors=n_motors),
+                  max_episode_steps=max_steps)
     rig = default_vision_rig()
     g = torch.Generator().manual_seed(seed)
     worlds = sample_worlds(g, n, n_spheres=1, n_cylinders=4, device=device)
     st, _ = env.reset(g, worlds, (n,))
     net = PixelActorCritic(action_dim=4, n_patches=108, torso="patch", prepatched=True,
                            compute_dtype=torch.bfloat16 if bf16 else None, patch_pool=pool,
-                           device=device).init_params(g)
+                           hidden=hidden, device=device).init_params(g)
     with torch.no_grad():  # a std that samples, and a mean head that steers
         net.log_std.fill_(-0.3)
         net.pi_mean.weight.mul_(30.0)
@@ -482,6 +573,36 @@ def test_cuda_k7_bf16_teacher_forced(cuda_device):
     torch.testing.assert_close(rstate, state, atol=1e-4, rtol=0)
 
 
+# Any fc width (the hidden units past the block's 256 threads, the
+# tensor-core tiles past a warp's two, a bf16 width zero-padded to 16) and a
+# hexacopter: float32 as the plain version, bf16 teacher-forced.
+WIDE_CASES = [pytest.param(384, False, id="384-f32"), pytest.param(384, True, id="384-bf16"),
+              pytest.param(200, True, id="200-bf16"), pytest.param(520, False, id="520-f32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,bf16", WIDE_CASES)
+def test_cuda_k7_wide_fc_hexacopter(cuda_device, hidden, bf16):
+    (env, rig, worlds), cols, net = _policy_setup(cuda_device, 64, 8, 1, bf16,
+                                                  hidden=(hidden,), n_motors=6)
+    w = pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+    cfg = vk.RenderConfig.for_world(worlds, 25.0)
+    wcol = pk.policy_world_cols(worlds, 64)
+    out = pk.launch_policy_vision_rollout(env, rig, cols, wcol, cfg, w, 16, 5)
+    torch.cuda.synchronize()
+    ref = pk.policy_vision_rollout_reference(env, rig, cols, wcol, cfg, w, 16, 5,
+                                             forced_actions=out[2][..., :4] if bf16 else None)
+    frames, extra, aux, state = out
+    assert torch.equal(frames, ref[0]) and torch.equal(aux[..., 5], ref[2][..., 5])
+    assert torch.equal(state[:, 14:16], ref[3][:, 14:16])
+    assert (state[:, 15] < 16).all()  # premise: every env reset
+    mean_tol, value_tol = _heads_tol(bf16)
+    torch.testing.assert_close(extra, ref[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux[..., :4], ref[2][..., :4], atol=mean_tol, rtol=0)
+    torch.testing.assert_close(aux[..., 6], ref[2][..., 6], atol=value_tol, rtol=0)
+    torch.testing.assert_close(state, ref[3], atol=1e-3, rtol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_train_vision_launches_k7(cuda_device):
     from fpyv_tpu_torch.apps.train import train_vision
@@ -499,7 +620,7 @@ def test_cuda_train_vision_launches_k7(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _race_setup(device, n, K, S, max_steps, bf16, pool=1, seed=0):
+def _race_setup(device, n, K, S, max_steps, bf16, pool=1, seed=0, hidden=(256,), n_motors=4):
     """A single-agent VisionRaceEnv (96x72, 6 gates, S obstacles) on its
     track, n fresh races as the (N, 22) state, a random history and a
     Flax-initialised frame-stacked net."""
@@ -508,14 +629,18 @@ def _race_setup(device, n, K, S, max_steps, bf16, pool=1, seed=0):
     from fpyv_tpu_torch.models.policy import PixelActorCritic
 
     venv = VisionRaceEnv(race=MultiRaceEnv(n_agents=1, max_episode_steps=max_steps,
-                                           n_obstacles=S), frame_stack=K)
+                                           n_obstacles=S,
+                                           params=DroneParams(att_mode="quat",
+                                                              n_motors=n_motors)),
+                         frame_stack=K)
     world = venv.default_world(device)
     g = torch.Generator().manual_seed(seed)
     st, _ = venv.race.reset(g, world, (n,))
     hist = torch.randint(0, 256, (n, 108 * (K - 1) * 64), generator=g, dtype=torch.uint8)
     net = PixelActorCritic(action_dim=4, n_patches=108, proprio_dim=11, torso="patch",
                            prepatched=True, compute_dtype=torch.bfloat16 if bf16 else None,
-                           patch_pool=pool, frame_stack=K, device=device).init_params(g)
+                           patch_pool=pool, frame_stack=K, hidden=hidden,
+                           device=device).init_params(g)
     with torch.no_grad():  # a std that samples, and a mean head that steers
         net.log_std.fill_(-0.3)
         net.pi_mean.weight.mul_(30.0)
@@ -573,6 +698,29 @@ def test_cuda_k8_bf16_teacher_forced(cuda_device):
     torch.testing.assert_close(raux[..., 6], aux[..., 6], atol=pk.TOL_BF16_HEADS, rtol=0)
     torch.testing.assert_close(raux[..., 4], aux[..., 4], atol=1e-5, rtol=0)
     torch.testing.assert_close(rstate, state, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,bf16", WIDE_CASES)
+def test_cuda_k8_wide_fc_hexacopter(cuda_device, hidden, bf16):
+    venv, world, cols, hist, net = _race_setup(cuda_device, 64, 3, 3, 6, bf16, hidden=(hidden,),
+                                               n_motors=6)
+    w = pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+    wcol, ocol = _race_inputs(venv, world)
+    out = rk.launch_race_vision_rollout(venv, cols, hist, wcol, ocol, w, 16, 5)
+    torch.cuda.synchronize()
+    ref = rk.race_vision_rollout_reference(venv, cols, hist, wcol, ocol, w, 16, 5,
+                                           forced_actions=out[2][..., :4] if bf16 else None)
+    frames, extra, aux, state = out
+    assert torch.equal(frames, ref[0]) and torch.equal(aux[..., 5], ref[2][..., 5])
+    for c in (14, 15, 16, 19, 21):
+        assert torch.equal(state[:, c], ref[3][:, c]), c
+    assert (aux[..., 5].sum(0) >= 2).all()  # premise: every env ended twice
+    mean_tol, value_tol = _heads_tol(bf16)
+    torch.testing.assert_close(extra, ref[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux[..., :4], ref[2][..., :4], atol=mean_tol, rtol=0)
+    torch.testing.assert_close(aux[..., 6], ref[2][..., 6], atol=value_tol, rtol=0)
+    torch.testing.assert_close(state, ref[3], atol=1e-3, rtol=0)
 
 
 @pytest.mark.cuda

@@ -54,9 +54,9 @@ def _inputs(seed, n=128, z=8.0):
     )
 
 
-def _step_both(att_mode, quirk, extra, seed=0, z=8.0, steps=1):
-    jp = jd.DroneParams(att_mode=att_mode, double_rotation_quirk=quirk)
-    tp = td.DroneParams(att_mode=att_mode, double_rotation_quirk=quirk)
+def _step_both(att_mode, quirk, extra, seed=0, z=8.0, steps=1, n_motors=4):
+    jp = jd.DroneParams(att_mode=att_mode, double_rotation_quirk=quirk, n_motors=n_motors)
+    tp = td.DroneParams(att_mode=att_mode, double_rotation_quirk=quirk, n_motors=n_motors)
     jworld, tworld = _world_pair()
     x = _inputs(seed, z=z)
     js = jd.drone_reset(jp, *(jnp.asarray(x[k]) for k in ("pos", "vel", "ypr")))
@@ -105,6 +105,18 @@ def test_ground_contact_and_crash_flags(att_mode):
     np.testing.assert_array_equal(a["done"], b["done"])
     np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
     np.testing.assert_allclose(a["pos"], b["pos"], atol=1e-5)
+
+
+@pytest.mark.parametrize("att_mode", ["quat", "rotmat"])
+def test_hexacopter_step_matches_jax_f32(att_mode):
+    """Six motor points (DroneParams.n_motors = 6) near the ground: the
+    contact sums and crash flags over the hexacopter's points."""
+    a, b, _, _ = _step_both(att_mode, True, "plain", seed=3, z=0.1, n_motors=6)
+    assert b["done"].any() and not b["done"].all()  # premise: contacts and crashes
+    np.testing.assert_array_equal(a["done"], b["done"])
+    np.testing.assert_allclose(a["vel"], b["vel"], atol=1e-4)
+    np.testing.assert_allclose(a["pos"], b["pos"], atol=1e-5)
+    np.testing.assert_allclose(a["att"], b["att"], atol=1e-6)
 
 
 def test_multi_step_quat_trajectory():

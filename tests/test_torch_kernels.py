@@ -14,6 +14,7 @@ the card they match their plain versions to within libm ulps (1e-5 on
 metre-scale positions after K steps).
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -282,21 +283,21 @@ def _contact_world():
         cyl_height=jnp.asarray(c[:, 4]), cyl_active=jnp.asarray(c[:, 5] > 0))
 
 
-def _contact_drones(seed, n=N):
+def _contact_drones(seed, n=N, n_motors=4):
     """Drones at the gaps of ``contact_world`` (``contact_start``), hovering
     with random stick inputs."""
     pos, vel, ypr = contact_start(n, seed)
     act = np.random.default_rng(seed).uniform(-0.4, 0.4, (n, 4)).astype(np.float32)
     act[:, 3] = -0.6
-    js = jreset(JP(att_mode="quat"), *map(jnp.asarray, (pos, vel, ypr)))
+    js = jreset(JP(att_mode="quat", n_motors=n_motors), *map(jnp.asarray, (pos, vel, ypr)))
     ts = interop.drone_state_from_numpy(interop.to_numpy_tree(js), "cpu")
     return js, ts, act
 
 
-def _motor_contacts(ts):
+def _motor_contacts(ts, n_motors=4):
     """Per env, the motor points that touch a sphere and that touch an active
     cylinder at the first step (penetration below the motor radius)."""
-    k = tsk.step_constants(TP(att_mode="quat"))
+    k = tsk.step_constants(TP(att_mode="quat", n_motors=n_motors))
     pos, (w, x, y, z) = ts.pos.numpy(), ts.att.numpy().T
     cols = np.stack([np.stack([1 - 2 * (y * y + z * z), 2 * (x * y + z * w), 2 * (x * z - y * w)], 1),
                      np.stack([2 * (x * y - z * w), 1 - 2 * (x * x + z * z), 2 * (y * z + x * w)], 1)])
@@ -315,8 +316,8 @@ def _motor_contacts(ts):
     return on_sphere, on_cyl
 
 
-def _assert_contact_heavy(ts):
-    on_sphere, on_cyl = _motor_contacts(ts)
+def _assert_contact_heavy(ts, n_motors=4):
+    on_sphere, on_cyl = _motor_contacts(ts, n_motors)
     both = (on_sphere >= 1) & (on_cyl >= 1) & (on_sphere + on_cyl >= 2)
     assert both.sum() >= len(both) // 4, (on_sphere, on_cyl)  # premise
 
@@ -341,15 +342,23 @@ def test_env_probe_split_reads_the_instrumented_launch():
                      "resets": 7}
 
 
-@pytest.mark.parametrize("seed", [17, 23])
-def test_k3_plain_matches_pallas_contact_heavy(seed):
+# The quad's cases keep their ids; the others put 3, 6 and 8 motor points
+# (DroneParams.n_motors) through the same sums.
+CONTACT_CASES = [pytest.param(17, 4, id="17"), pytest.param(23, 4, id="23"),
+                 pytest.param(17, 3, id="17-m3"), pytest.param(23, 6, id="23-m6"),
+                 pytest.param(17, 8, id="17-m8")]
+
+
+@pytest.mark.parametrize("seed,n_motors", CONTACT_CASES)
+def test_k3_plain_matches_pallas_contact_heavy(seed, n_motors):
     jworld = _contact_world()
-    js, ts, act = _contact_drones(seed)
-    _assert_contact_heavy(ts)
+    js, ts, act = _contact_drones(seed, n_motors=n_motors)
+    _assert_contact_heavy(ts, n_motors)
     K = 6
-    ref = jps.pallas_rollout(JP(att_mode="quat"), js, jnp.asarray(act), jworld, K,
-                             interpret=True)
-    out = tsk.fused_rollout(TP(att_mode="quat"), ts, torch.from_numpy(act), _tw(jworld), K)
+    ref = jps.pallas_rollout(JP(att_mode="quat", n_motors=n_motors), js, jnp.asarray(act),
+                             jworld, K, interpret=True)
+    out = tsk.fused_rollout(TP(att_mode="quat", n_motors=n_motors), ts, torch.from_numpy(act),
+                            _tw(jworld), K)
     assert np.asarray(ref.done).any()  # premise: motor points inside obstacles
     np.testing.assert_allclose(out.pos.numpy(), np.asarray(ref.pos), atol=2e-4)
     np.testing.assert_allclose(out.vel.numpy(), np.asarray(ref.vel), atol=2e-4)
@@ -357,18 +366,18 @@ def test_k3_plain_matches_pallas_contact_heavy(seed):
     np.testing.assert_array_equal(out.done.numpy(), np.asarray(ref.done))
 
 
-@pytest.mark.parametrize("seed", [17, 23])
-def test_k4_plain_matches_pallas_contact_heavy(seed):
+@pytest.mark.parametrize("seed,n_motors", CONTACT_CASES)
+def test_k4_plain_matches_pallas_contact_heavy(seed, n_motors):
     """The contact-heavy start through the env: contact forces, then the
     crash resets that follow."""
     common = dict(pos_low=(-5.0, -5.0, 30.0), pos_high=(5.0, 5.0, 40.0))
-    jenv = JEnv(params=JP(att_mode="quat"), dtype=jnp.float32, **common)
-    tenv = TEnv(params=TP(att_mode="quat"), **common)
+    jenv = JEnv(params=JP(att_mode="quat", n_motors=n_motors), dtype=jnp.float32, **common)
+    tenv = TEnv(params=TP(att_mode="quat", n_motors=n_motors), **common)
     jworld = _contact_world()
     keys = jax.random.split(jax.random.key(seed), N)
     js, _ = jax.vmap(lambda k: jenv.reset(k, jworld))(keys)
-    jd, td, act = _contact_drones(seed)
-    _assert_contact_heavy(td)
+    jd, td, act = _contact_drones(seed, n_motors=n_motors)
+    _assert_contact_heavy(td, n_motors)
     dist = np.linalg.norm(CONTACT_SPHERES[0] - td.pos.numpy(), axis=-1).astype(np.float32)
     js = js.replace(drone=jd, prev_dist=jnp.asarray(dist))
     ts = interop.acro_state_from_numpy(interop.to_numpy_tree(js), "cpu")
@@ -393,7 +402,52 @@ def test_env_layouts_match_pallas():
     for k in ("t", "prev_dist", "episode_return", "wind"):
         np.testing.assert_array_equal(a[k], b[k])
     assert tek.env_constants(tenv).as_array().size == 24
-    assert tsk.step_constants(tenv.params).as_array().size == 28
+    assert tsk.step_constants(tenv.params).as_array().size == 53  # 16-motor arrays
+
+
+def test_step_constants_pad_motors_and_refuse_past_the_cap():
+    """The motor arrays: the n_motors points of motor_layout, zero-padded to
+    MAX_MOTORS in the launch array; 17 motors raise, naming the cap."""
+    for n_motors in (2, 6, 16):
+        k = tsk.step_constants(TP(att_mode="quat", n_motors=n_motors))
+        assert k.n_motors == len(k.motor_x) == len(k.motor_y) == n_motors
+        arr = k.as_array()
+        i = [f.name for f in dataclasses.fields(k)].index("motor_x")  # 20 scalars before
+        assert arr[i - 1] == n_motors  # the field before the motor arrays
+        xs, ys = arr[i:i + tsk.MAX_MOTORS], arr[i + tsk.MAX_MOTORS:i + 2 * tsk.MAX_MOTORS]
+        ref = jps.motor_layout(n_motors).astype(np.float32)  # JAX's points
+        np.testing.assert_array_equal(xs[:n_motors], ref[:, 0])
+        np.testing.assert_array_equal(ys[:n_motors], ref[:, 1])
+        assert not xs[n_motors:].any() and not ys[n_motors:].any()
+    with pytest.raises(ValueError, match="at most 16 motors"):
+        tsk.step_constants(TP(att_mode="quat", n_motors=17))
+    tworld = contact_world(device="cpu")
+    js, ts, act = _contact_drones(17, n=8)
+    with pytest.raises(ValueError, match="16"):
+        tsk.fused_rollout(TP(att_mode="quat", n_motors=17), ts, torch.from_numpy(act[:8]),
+                          tworld, 2)
+
+
+def test_routing_gates_agree_with_jax_for_a_hexacopter():
+    """The gates that send an env to a kernel read what JAX's read (att_mode,
+    dtype, ground, DR and wind for K7) and not the motor count."""
+    from fpyv_tpu.ops import pallas_policy as jpp
+    from fpyv_tpu_torch.ops import policy_kernel as tpk
+    for att_mode in ("quat", "rotmat"):
+        for kw in (dict(), dict(randomize=True, wind=(1.0, 0.0, 0.0))):
+            jp, tp = JP(att_mode=att_mode, n_motors=6), TP(att_mode=att_mode, n_motors=6)
+            jenv = JEnv(params=jp, dtype=jnp.float32, **kw)
+            tenv = TEnv(params=tp, **kw)
+            for world in ("default", "ground"):
+                jworld = jenv.default_world() if world == "default" else _contact_world()
+                tworld = _tw(jworld)
+                assert tsk.supported(tp, tworld) == jps._supported(jp, jworld)
+                assert tek.env_supported(tenv, tworld) == jpe.env_supported(jenv, jworld)
+                assert (tpk.policy_rollout_supported(tenv, tworld)
+                        == jpp.policy_rollout_supported(jenv, jworld))
+    jenv = JEnv(params=JP(att_mode="quat", n_motors=6), dtype=jnp.float32)
+    tenv = TEnv(params=TP(att_mode="quat", n_motors=6))
+    assert tek.env_supported(tenv, _tw(jenv.default_world()))  # the hexacopter is routed
 
 
 def test_launches_refuse_cpu_tensors():

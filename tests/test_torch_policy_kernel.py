@@ -51,20 +51,22 @@ N, T, NP = 16, 6, 12
 MAX_STEPS = 4
 
 
-def _setup(pool=1, bf16=False, seed=0):
-    jenv = JEnv(params=JP(att_mode="quat"), max_episode_steps=MAX_STEPS, dtype=jnp.float32)
+def _setup(pool=1, bf16=False, seed=0, hidden=(256,), n_motors=4):
+    jenv = JEnv(params=JP(att_mode="quat", n_motors=n_motors), max_episode_steps=MAX_STEPS,
+                dtype=jnp.float32)
     jvenv = JVision(acro=jenv, rig=JRIG, renderer="raycast", target_only=False, pixel_dtype="u8")
     worlds, bank = jvenv.make_randomized_worlds(jax.random.key(seed), N, n_cylinders=2)
     state, _ = jvenv.reset_batched(jax.random.split(jax.random.key(seed + 1), N), worlds, bank)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
-    jnet = JNet(action_dim=4, torso="patch", prepatched=True, compute_dtype=jdt, patch_pool=pool)
+    jnet = JNet(action_dim=4, torso="patch", prepatched=True, compute_dtype=jdt, patch_pool=pool,
+                hidden=hidden)
     params = jnet.init(jax.random.key(seed + 2), jnp.zeros((1, NP, 64), jnp.float32),
                        jnp.zeros((1, 5), jnp.float32))
     tnet = TNet(action_dim=4, n_patches=NP, torso="patch", prepatched=True, compute_dtype=tdt,
-                patch_pool=pool, device="cpu")
+                patch_pool=pool, hidden=hidden, device="cpu")
     tnet.load_state_dict(interop.policy_params_from_numpy(jax.tree.map(np.asarray, params),
                                                           "cpu"))
-    tenv = TEnv(params=TP(att_mode="quat"), max_episode_steps=MAX_STEPS)
+    tenv = TEnv(params=TP(att_mode="quat", n_motors=n_motors), max_episode_steps=MAX_STEPS)
     tvenv = TVision(acro=tenv, rig=TRIG, renderer="raycast", target_only=False, pixel_dtype="u8")
     tworlds = interop.world_from_numpy(interop.to_numpy_tree(worlds), "cpu")
     cols = jpp.acro_state_to_cols(state)
@@ -79,7 +81,40 @@ STATE_TOL = [(slice(0, 6), 1e-5), (slice(6, 10), 1e-6), (slice(10, 13), 1e-3),
 
 @pytest.mark.parametrize("pool,bf16", [(1, False), (1, True), (4, False)])
 def test_k7_plain_matches_pallas_across_resets(pool, bf16):
-    s = _setup(pool, bf16)
+    _check_k7(_setup(pool, bf16), pool, bf16)
+
+
+# Any fc width (one hidden layer, as the Pallas kernel's support matrix) and
+# any motor count: 384 units pass the 256 threads of a block, 200 is no
+# multiple of the bf16 kernel's 16-row tiles (build_policy_weights pads it).
+@pytest.mark.parametrize("hidden,bf16", [(384, False), (384, True), (200, True)])
+def test_k7_plain_matches_pallas_wide_fc_hexacopter(hidden, bf16):
+    s = _setup(1, bf16, hidden=(hidden,), n_motors=6)
+    _check_k7(s, 1, bf16)
+
+
+def test_bf16_zero_padding_gives_the_unpadded_heads_exactly():
+    """hidden = 200 in bf16: 8 zero units (fc columns, bias and head rows)
+    round the width up to 208; the padded actor's heads equal the unpadded
+    one's bit for bit."""
+    s = _setup(1, True, hidden=(200,))
+    w = tpk.build_policy_weights(s["tnet"], torch.bfloat16)
+    assert w.wf.shape[1] == w.bf.shape[1] == w.wm.shape[0] == 208
+    assert w.wf_tc.shape[0] == 13  # 16-row tiles
+    assert not w.wf[:, 200:].any() and not w.bf[:, 200:].any() and not w.wm[200:].any()
+    unpadded = tpk.PolicyWeights(we=w.we, be=w.be, wp=w.wp, bp=w.bp, wf=w.wf[:, :200].contiguous(),
+                                 bf=w.bf[:, :200].contiguous(), wm=w.wm[:200].contiguous(),
+                                 bm=w.bm, std=w.std)
+    rng = np.random.default_rng(3)
+    levels = torch.from_numpy(rng.integers(0, 256, (32, NP * 64)).astype(np.float32))
+    prop = list(torch.from_numpy(rng.normal(size=(5, 32)).astype(np.float32)))
+    a = tpk.policy_forward_reference(w, levels, prop, 1)
+    b = tpk.policy_forward_reference(unpadded, levels, prop, 1)
+    assert a.abs().max() > 0
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _check_k7(s, pool, bf16):
     w = jpp.build_policy_weights(s["params"], n_patches=NP, compute_dtype=s["jdt"],
                                  patch_pool=pool)
     fr, ex, ax, co = jpp.pallas_policy_vision_rollout(

@@ -30,6 +30,7 @@ from fpyv_tpu.envs.vision_race import VisionRaceEnv as JVRace
 from fpyv_tpu.models.policy import PixelActorCritic as JNet
 from fpyv_tpu.ops import pallas_policy as jpp
 from fpyv_tpu.ops import pallas_race as jpr
+from fpyv_tpu.physics.drone import DroneParams as JP
 from fpyv_tpu.vision.camera import CameraRig as JRig
 from fpyv_tpu_torch import interop
 from fpyv_tpu_torch.envs.multi_race import MultiRaceEnv as TRace
@@ -38,6 +39,7 @@ from fpyv_tpu_torch.models.policy import PixelActorCritic as TNet
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops import policy_kernel as tpk
 from fpyv_tpu_torch.ops import race_kernel as trk
+from fpyv_tpu_torch.physics.drone import DroneParams as TP
 from fpyv_tpu_torch.rl.ppo import PpoConfig, make_ppo
 from fpyv_tpu_torch.vision.camera import CameraRig as TRig
 
@@ -47,17 +49,21 @@ JRIG, TRIG = JRig(**RIG_ARGS), TRig(**RIG_ARGS)
 N, T, NP, G = 16, 6, 12, 6
 
 
-def _setup(K=1, onehot=True, S=0, bf16=False, max_steps=4, seed=0, pool=1):
+def _setup(K=1, onehot=True, S=0, bf16=False, max_steps=4, seed=0, pool=1, hidden=(256,),
+           n_motors=4):
     race_kw = dict(n_agents=1, gate_size=5.0, max_episode_steps=max_steps, n_obstacles=S)
-    jvenv = JVRace(race=JRace(**race_kw), rig=JRIG, gate_onehot=onehot, frame_stack=K)
-    tvenv = TVRace(race=TRace(**race_kw), rig=TRIG, gate_onehot=onehot, frame_stack=K)
+    jvenv = JVRace(race=JRace(params=JP(att_mode="quat", n_motors=n_motors), **race_kw),
+                   rig=JRIG, gate_onehot=onehot, frame_stack=K)
+    tvenv = TVRace(race=TRace(params=TP(att_mode="quat", n_motors=n_motors), **race_kw),
+                   rig=TRIG, gate_onehot=onehot, frame_stack=K)
     world = jvenv.default_world()
     tworld = interop.world_from_numpy(interop.to_numpy_tree(world), "cpu")
     states = jax.vmap(lambda k: jvenv.race.reset(k, world)[0])(
         jax.random.split(jax.random.key(seed), N))
     cols = jpr.race_state_to_cols(states)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
-    jnet = JNet(action_dim=4, torso="patch", prepatched=True, compute_dtype=jdt, patch_pool=pool)
+    jnet = JNet(action_dim=4, torso="patch", prepatched=True, compute_dtype=jdt, patch_pool=pool,
+                hidden=hidden)
     params = jnet.init(jax.random.key(seed + 2), jnp.zeros((1, NP, K * 64), jnp.float32),
                        jnp.zeros((1, 5 + G), jnp.float32))
     params = jax.tree.map(np.asarray, params)
@@ -65,7 +71,7 @@ def _setup(K=1, onehot=True, S=0, bf16=False, max_steps=4, seed=0, pool=1):
     p["log_std"] = np.full_like(p["log_std"], -0.3)
     p["pi_mean"]["kernel"] = p["pi_mean"]["kernel"] * 30.0
     tnet = TNet(action_dim=4, n_patches=NP, proprio_dim=5 + G, torso="patch", prepatched=True,
-                compute_dtype=tdt, patch_pool=pool, frame_stack=K, device="cpu")
+                compute_dtype=tdt, patch_pool=pool, frame_stack=K, hidden=hidden, device="cpu")
     tnet.load_state_dict(interop.policy_params_from_numpy(params, "cpu"))
     return dict(jvenv=jvenv, tvenv=tvenv, world=world, tworld=tworld, states=states, cols=cols,
                 tcols=torch.from_numpy(np.array(cols)), jnet=jnet, params=params, tnet=tnet,
@@ -116,7 +122,21 @@ def _assert_matches(out, ref, bf16):
     (2, True, 0, False, 4),  # the pooled mixer
 ])
 def test_k8_plain_matches_pallas_across_resets(K, onehot, S, bf16, pool):
-    s = _setup(K, onehot, S, bf16, pool=pool)
+    _check_k8(_setup(K, onehot, S, bf16, pool=pool), bf16)
+
+
+# Any fc width and motor count, as the Pallas kernel takes them, on the
+# set-ups of the float32 case with obstacles and of the bf16 case above:
+# 384 units pass the 256 threads of a block, 200 is no multiple of the bf16
+# kernel's 16-row tiles (build_policy_weights pads it).
+@pytest.mark.parametrize("hidden,bf16", [(384, False), (384, True), (200, True)])
+def test_k8_plain_matches_pallas_wide_fc_hexacopter(hidden, bf16):
+    K, onehot, S = (4, True, 0) if bf16 else (2, False, 3)
+    _check_k8(_setup(K, onehot, S, bf16, hidden=(hidden,), n_motors=6), bf16)
+
+
+def _check_k8(s, bf16):
+    K, pool = s["K"], s["pool"]
     jh, th = _hist(s)
     ref = _pallas(s, jh)
     w = tpk.build_policy_weights(s["tnet"], s["tdt"])

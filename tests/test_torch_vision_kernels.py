@@ -167,9 +167,9 @@ def test_k5_world_cols_match_pallas_layout():
 # ---------------------------------------------------------------------------
 
 
-def _chase_pair(world="default", n=8, seed=0, **kw):
-    jenv = JEnv(params=JP(att_mode="quat"), dtype=jnp.float32, **kw)
-    tenv = TEnv(params=TP(att_mode="quat"), **kw)
+def _chase_pair(world="default", n=8, seed=0, n_motors=4, **kw):
+    jenv = JEnv(params=JP(att_mode="quat", n_motors=n_motors), dtype=jnp.float32, **kw)
+    tenv = TEnv(params=TP(att_mode="quat", n_motors=n_motors), **kw)
     jworld = (jenv.default_world() if world == "default"
               else jbuild(JSpec.from_config(JSim(), seed=2), dtype=jnp.float32))
     keys = jax.random.split(jax.random.key(seed), n)
@@ -227,10 +227,10 @@ def test_k6_params_world_with_dr_wind_and_crashes():
     assert (a["state"]["t"] < K).all()
 
 
-def test_k6_intercept_contacts_match_pallas():
+def _intercept(n_motors):
     """keep_distance 0 on a static target: the pilot flies into it, so the
     contact counter runs on both sides."""
-    jenv, tenv, jworld, tworld, js, ts = _chase_pair(max_episode_steps=1000)
+    jenv, tenv, jworld, tworld, js, ts = _chase_pair(max_episode_steps=1000, n_motors=n_motors)
     center = np.asarray([[0.0, 0.0, 8.0]], np.float32)
     jworld = jworld.replace(sphere_has_path=jnp.zeros((1,), bool),
                             sphere_center=jnp.asarray(center))
@@ -253,6 +253,22 @@ def test_k6_intercept_contacts_match_pallas():
                                        pilot=tvk.ChasePilot(**pilot))
     a = _compare_chase(out, ref)
     assert a["contacts"].sum() > 0
+
+
+def test_k6_intercept_contacts_match_pallas():
+    _intercept(4)
+
+
+def test_k6_hexacopter_matches_pallas():
+    """The chase with six motor points (DroneParams.n_motors = 6): the
+    intercept's contacts, then across resets."""
+    _intercept(6)
+    jenv, tenv, jworld, tworld, js, ts = _chase_pair(max_episode_steps=5, n_motors=6)
+    K = 12
+    ref = jpv.pallas_vision_env_rollout(jenv, js, jworld, K, rig=JRIG, seed=3, interpret=True)
+    out = tvk.fused_vision_env_rollout(tenv, ts, tworld, K, rig=TRIG, seed=3)
+    a = _compare_chase(out, ref)
+    assert (a["state"]["t"] < K).all()  # premise: every env reset
 
 
 def test_quat_cols_from_R_matches_pallas():

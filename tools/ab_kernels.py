@@ -1,4 +1,4 @@
-"""Times K2, K3, K4, K5 and K6 of one checkout of the PyTorch/CUDA port on one
+"""Times K2 to K8 of one checkout of the PyTorch/CUDA port on one
 NVIDIA GPU, for a parent-against-change comparison with one timer.
 
     python3 tools/ab_kernels.py [ROOT]
@@ -29,9 +29,11 @@ bank, where one thread runs an env).
 K5: 1024 envs, 96x72, the params.yaml world, cameras after a reset. K6:
 1024 envs, K = 64, the default world and rig, from a fresh reset and on a
 steady-state bank (8192 chase steps from that reset), and ``bench.py``'s
-chase K-slope (K = 512 -> 2048, host clock). Prints one JSON line; each
-entry's checksum (a sum over its output) shows both checkouts computed the
-same.
+chase K-slope (K = 512 -> 2048, host clock). K7: the pixel trainer's
+shape (1024 envs, 96x72, T = 32, bf16, the 256-wide fc) and K7 in float32
+at 64 envs, T = 16; K8: the race trainer's (1024 envs, 4 frames, T = 32,
+bf16). Prints one JSON line; each entry's checksum (a sum over its output)
+shows both checkouts computed the same.
 """
 
 from __future__ import annotations
@@ -200,6 +202,30 @@ def main() -> int:
         chase(kk, 7)
         slope[kk] = min(chase(kk, 8 + r) for r in range(3))
     res["chase_k_slope"] = n * (2048 - 512) / (slope[2048] - slope[512])
+
+    # K7 and K8 at the trainers' shapes (bf16), K7 in float32 at phase 11's
+    from fpyv_tpu_torch.ops import policy_kernel as pk
+    from fpyv_tpu_torch.ops import race_kernel as rk
+
+    for label, nk, steps, bf16 in (("k7", n, smoke.K7_STEPS, True), ("k7_f32", 64, 16, False)):
+        e7, _, cols, w, cfg, wcol = smoke.policy_setup(dev, gen, nk, 1000, bf16=bf16)
+
+        def k7():
+            return pk.launch_policy_vision_rollout(e7, rig, cols, wcol, cfg, w, steps, 9)
+
+        res[label] = {"cuda_ms": smoke.cuda_ms(k7, 5),
+                      "kernel_ms": kernel_ms(k7, 5, "policy_vision_rollout_kernel"),
+                      "checksum": float(k7()[2].double().sum().item())}
+    venv, rcols, rhist, rw, rwcol, rocol = smoke.race_setup(dev, gen, n, smoke.RACE_STACK, 0,
+                                                            2000, bf16=True)
+
+    def k8():
+        return rk.launch_race_vision_rollout(venv, rcols, rhist, rwcol, rocol, rw,
+                                             smoke.K7_STEPS, 9)
+
+    res["k8"] = {"cuda_ms": smoke.cuda_ms(k8, 5),
+                 "kernel_ms": kernel_ms(k8, 5, "race_vision_rollout_kernel"),
+                 "checksum": float(k8()[2].double().sum().item())}
     print(json.dumps(res))
     return 0
 
