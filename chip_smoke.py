@@ -655,6 +655,91 @@ def race_ops(hw: int, cfg, n_patches: int, K: int, G: int, hidden: int = 256,
 RACE_RESET_OPS = 4 * 13 + 2 * 8 + 6 + 20  # 4 draws, 2 Box-Muller pairs, jitter, gate-0 distances
 
 
+def edge_weights(dev, bf16: bool, proprio: int, K: int):
+    """A Flax-initialised patch net (108 patches, K frames) whose std samples
+    and whose mean head steers, as the kernels' weights."""
+    net = PixelActorCritic(action_dim=4, n_patches=108, proprio_dim=proprio, torso="patch",
+                           prepatched=True, compute_dtype=torch.bfloat16 if bf16 else None,
+                           frame_stack=K, device=dev)
+    net.init_params(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        net.log_std.fill_(-0.3)
+        net.pi_mean.weight.mul_(30.0)
+    return pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+
+
+def rollout_err(label: str, out, ref, bf16: bool, exact_cols) -> float:
+    """A K7 or K8 launch against its plain version (teacher-forced in bf16):
+    frames, env ends and the state's ``exact_cols`` equal, the rest within
+    TOL_K7 (float32) or TOL_K7_BF16; the largest error."""
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[2][..., 5], ref[2][..., 5])
+            and all(torch.equal(out[3][:, c], ref[3][:, c]) for c in exact_cols)):
+        raise AssertionError(f"{label}: frames, env ends or state columns {exact_cols} differ")
+    tol = TOL_K7_BF16 if bf16 else TOL_K7
+    return max(max_err(f"{label} extra", out[1], ref[1], TOL_K7["extra"]),
+               max_err(f"{label} action", out[2][..., :4], ref[2][..., :4], tol["action"]),
+               max_err(f"{label} reward", out[2][..., 4], ref[2][..., 4], tol["reward"]),
+               max_err(f"{label} value", out[2][..., 6], ref[2][..., 6], tol["value"]),
+               max_err(f"{label} state", out[3], ref[3], TOL_K7["state"]))
+
+
+def edge_world_checks(dev, rig) -> dict:
+    """K7 and K8 against their plain versions on the render's edge worlds
+    (``world.generators.render_edge_bank``: a camera inside a sphere or an
+    open tube, on the ground plane, in a gate's plane, looking down a tube;
+    inactive primitives; a gate behind the camera; ``race_edge_start``: a
+    camera inside an obstacle and on its orbit, an edge-on gate, a gate
+    behind), 8 steps of 3-step episodes: K7 at 64 envs with the ground
+    clipped (float32) and at 13 (a last block of 5) with the ground left
+    out (bf16, teacher-forced); K8 at 64 envs, 2 frames, 3 obstacles
+    (float32) and at 13, 4 frames, the ground off (bf16). The largest error
+    of each kernel."""
+    from fpyv_tpu_torch.world.generators import race_edge_start, render_edge_bank
+
+    errs = {}
+    env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=3)
+    for n, extent, include, bf16 in ((64, 4.0, pk.INCLUDE, False),
+                                     (13, None, ("spheres", "cylinders", "gates"), True)):
+        worlds, pos, quat = render_edge_bank(n, rig, device=dev)
+        cols = torch.zeros(n, pk.ROWS, device=dev)
+        cols[:, 0:3] = torch.from_numpy(pos).to(dev)
+        cols[:, 6:10] = torch.from_numpy(quat).to(dev)
+        w = edge_weights(dev, bf16, 5, 1)
+        cfg = vk.RenderConfig.for_world(worlds, 25.0, include, extent)
+        wcol = pk.policy_world_cols(worlds, n)
+        out = pk.launch_policy_vision_rollout(env, rig, cols, wcol, cfg, w, 8, 5)
+        torch.cuda.synchronize()
+        ref = pk.policy_vision_rollout_reference(env, rig, cols, wcol, cfg, w, 8, 5,
+                                                 forced_actions=out[2][..., :4] if bf16 else None)
+        label = f"K7 edge worlds (N={n}, {'bf16' if bf16 else 'float32'}, ground " + (
+            "left out" if "ground" not in include else f"clipped at {extent}") + ")"
+        e = rollout_err(label, out, ref, bf16, (14, 15))
+        errs["policy_vision_rollout"] = max(errs.get("policy_vision_rollout", 0.0), e)
+        log(f"{label}: frames, crash flags and t equal, max abs err {e}")
+    gen = torch.Generator().manual_seed(4)
+    for n, K, ground, bf16 in ((64, 2, True, False), (13, RACE_STACK, False, True)):
+        venv, cols, hist, _, _, _ = race_setup(dev, gen, n, K, 3, 3, bf16=False)
+        world, pos = race_edge_start(venv.default_world(dev), n, venv.rig,
+                                     venv.race.obstacle_period)
+        world = world.replace(has_ground=torch.tensor(ground, device=dev))
+        cols[:, 0:3] = torch.from_numpy(pos).to(dev)
+        cols[:, 3:6] = 0.0
+        cols[:, 10:13] = 0.0
+        cols[:, 6:10] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+        w = edge_weights(dev, bf16, 5 + venv.n_gates, K)
+        wcol, ocol = rk.race_world_cols(world), rk.obstacle_cols(world, 3)
+        out = rk.launch_race_vision_rollout(venv, cols, hist, wcol, ocol, w, 8, 5)
+        torch.cuda.synchronize()
+        ref = rk.race_vision_rollout_reference(venv, cols, hist, wcol, ocol, w, 8, 5,
+                                               forced_actions=out[2][..., :4] if bf16 else None)
+        label = (f"K8 edge worlds (N={n}, K={K} frames, 3 obstacles, "
+                 f"{'bf16' if bf16 else 'float32'}, ground {'on' if ground else 'off'})")
+        e = rollout_err(label, out, ref, bf16, (14, 15, 16, 19, 21))
+        errs["race_vision_rollout"] = max(errs.get("race_vision_rollout", 0.0), e)
+        log(f"{label}: frames, env ends and gate counters equal, max abs err {e}")
+    return errs
+
+
 def trainer_split(label: str, trainer, rollout: str = "kernel + bootstrap frame") -> None:
     """One trainer iteration split with CUDA events into the rollout (one
     kernel launch and the bootstrap frame, or T eager env steps) and the
@@ -720,11 +805,19 @@ def sass_mma_counts(sections: dict) -> dict:
 SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")  # an instruction
 REPORTED_KERNELS = re.compile(r"(env_rollout_kernel|rollout_kernel|chase_kernel|render_depth_kernel)"
                               r"(?:I((?:L[bi]\d+E)+)E)?E")
+ACTOR_KERNELS = re.compile(r"(policy_vision_rollout_kernel|race_vision_rollout_kernel)"
+                           r"I(f|13__nv_bfloat16)((?:L[bi]\d+E)+)E")
 
 
 def kernel_label(mangled: str):
     """``chase_kernel<4,0,0,1>`` for a mangled K3, K4, K5 or K6 instantiation
-    (its template arguments in order), else None."""
+    (its template arguments in order), ``policy_vision_rollout_kernel<bf16,
+    1,0,4>`` for K7 and K8 (weight type, bf16, instrumented, motors), else
+    None."""
+    m = ACTOR_KERNELS.search(mangled)
+    if m:
+        args = ["bf16" if m.group(2) != "f" else "f32"] + re.findall(r"L[bi](\d+)E", m.group(3))
+        return f"{m.group(1)}<{','.join(args)}>"
     m = REPORTED_KERNELS.search(mangled)
     if not m:
         return None
@@ -732,15 +825,9 @@ def kernel_label(mangled: str):
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
-def kernel_report(sections: dict) -> dict:
-    """ptxas' registers and spills and the SASS instruction counts (all but
-    NOP; MUFU, the special-function unit's; SHFL, the warp shuffles) of each
-    K3, K4, K5 and K6 instantiation, and its trigonometric range reductions
-    (the multiplies by 2/pi that start each inline ``sinf``/``cosf``: a sine
-    and a cosine of one argument fused into one ``sincosf`` share one).
-    Template arguments: K3's lanes and motors; K4's lanes, motors,
-    DomainRand, wind, instrumented; K6's motors, DomainRand, wind,
-    instrumented (motors 4: the quad's contact loop, 0: the generic one)."""
+def ptxas_report() -> dict:
+    """Kernel label -> ptxas' registers and spills, from this process's
+    build log (empty where the library was built before)."""
     ptxas, name = {}, None
     for ln in str(_build.build_info.get("log", "")).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -748,6 +835,19 @@ def kernel_report(sections: dict) -> dict:
             name = kernel_label(m.group(1))
         elif name and ("spill" in ln or "registers" in ln):
             ptxas[name] = (ptxas.get(name, "") + " " + ln.split(":", 1)[-1].strip()).strip()
+    return ptxas
+
+
+def kernel_report(sections: dict) -> dict:
+    """ptxas' registers and spills and the SASS instruction counts (all but
+    NOP; MUFU, the special-function unit's; SHFL, the warp shuffles) of each
+    K3, K4, K5, K6, K7 and K8 instantiation, and its trigonometric range reductions
+    (the multiplies by 2/pi that start each inline ``sinf``/``cosf``: a sine
+    and a cosine of one argument fused into one ``sincosf`` share one).
+    Template arguments: K3's lanes and motors; K4's lanes, motors,
+    DomainRand, wind, instrumented; K6's motors, DomainRand, wind,
+    instrumented (motors 4: the quad's contact loop, 0: the generic one)."""
+    ptxas = ptxas_report()
     report = {}
     for mangled, lines in sections.items():
         label = kernel_label(mangled)
@@ -804,9 +904,25 @@ def cublas_yardstick(dev, K: int, n_prop: int) -> float:
     return cuda_ms(products, 5)
 
 
+def k5_yardstick(cfg, consts, cols: torch.Tensor, wcol: torch.Tensor, rig) -> float:
+    """T = 32 times K5's ms (``launch_render_depth``, the kernel that
+    ``fused_render_depth`` launches) on one step of a K7 or K8 bank: the
+    cameras of its state rows (``consts``' mount and offset) over the same
+    render config and world columns (K5 renders row-major, the rollouts
+    patch-major: the same pixels). The per-pixel rate the card already
+    reaches on that scene, a yardstick for the rollout's render phase."""
+    st = list(cols.unbind(1))
+    cR, (cx, cy, cz) = vk.camera_rows(consts.mount, consts.rel, st)
+    zero = torch.zeros_like(cx)
+    cam = torch.stack([cx, cy, cz] + cR + [zero] * 4, dim=1).contiguous()
+    dcam = vk.device_dcam(rig, cols.device)
+    return K7_STEPS * cuda_ms(lambda: vk.launch_render_depth(cfg, dcam, cam, wcol), 50)
+
+
 def actor_phases(dev, gen, rig) -> None:
     """The step's phases inside K7 (the trainer's shape) and K8 (1 and 4
-    frames), each beside cuBLAS's time for the same products."""
+    frames), each beside cuBLAS's time for the same products and the K5
+    yardstick of its render (:func:`k5_yardstick`)."""
     envk, _, kcols, wbf, kcfg, kwcol = policy_setup(dev, gen, N_VISION, 1000, bf16=True)
     split = phase_split(f"K7 (N={N_VISION}, T={K7_STEPS}, bf16)",
                         lambda ns: pk.launch_policy_vision_rollout(envk, rig, kcols, kwcol, kcfg,
@@ -814,6 +930,10 @@ def actor_phases(dev, gen, rig) -> None:
                         N_VISION)
     log(f"K7 products: embed + fc {split['embed'] + split['fc']:.6f} ms a launch in the kernel; "
         f"cuBLAS bf16 yardstick {cublas_yardstick(dev, 1, 5):.6f} ms")
+    k5 = k5_yardstick(kcfg, pk.policy_constants(envk, rig), kcols, kwcol, rig)
+    log(f"K7 render: {split['render']:.6f} ms a launch; K5 yardstick on K7's scene "
+        f"({K7_STEPS} x K5 on the bank's cameras and worlds) {k5:.6f} ms, "
+        f"render / yardstick {split['render'] / k5:.3f}")
     for K in (1, RACE_STACK):
         venvr, rcols, rhist, rwbf, rwcol, rocol = race_setup(dev, gen, N_VISION, K, 0, 2000,
                                                              bf16=True)
@@ -823,6 +943,10 @@ def actor_phases(dev, gen, rig) -> None:
                                 phase_ns=ns), N_VISION)
         log(f"K8 products (K={K}): embed + fc {split['embed'] + split['fc']:.6f} ms a launch in "
             f"the kernel; cuBLAS bf16 yardstick {cublas_yardstick(dev, K, 11):.6f} ms")
+        k5 = k5_yardstick(rk.race_render_config(venvr), rk.race_constants(venvr), rcols, rwcol,
+                          venvr.rig)
+        log(f"K8 render (K={K}): {split['render']:.6f} ms a launch; K5 yardstick on K8's scene "
+            f"{k5:.6f} ms, render / yardstick {split['render'] / k5:.3f}")
 
 
 def build_report(t0: float) -> None:
@@ -3312,6 +3436,9 @@ def main() -> int:
         raise AssertionError("K8: non-finite outputs")
     log(f"K8 race_vision_rollout (bf16, N={N_VISION}, K={RACE_STACK} frames, T={K7_STEPS}, "
         f"teacher-forced, {k8_ends} env ends): frames and env ends equal, max abs err {eb}")
+    # (c) K7 and K8 on the render's edge worlds
+    for name, e in edge_world_checks(dev, rig).items():
+        errors[name] = max(errors[name], e)
 
     # ---- 14. race trainer main path, counters from 0 ------------------------------------
     log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" / "race_log"

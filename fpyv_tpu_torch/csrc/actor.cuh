@@ -6,11 +6,11 @@
 // file); the float32 instantiations run the CUDA-core actor below, summed in
 // the plain version's order, as the exact check.
 //
-// The CUDA-core actor: a block of 256 threads owns E envs and runs one patch
-// group (pool consecutive patches) at a time: the group's embeddings of the
-// E envs go to shared memory and thread h adds the group's 128 fc rows into
-// its E float32 accumulators of hidden unit h, so the (E, NP*128) fc input
-// never exists and the fc weights stream from L2 once a block and step.
+// The CUDA-core actor: the 256 actor threads of a block (which owns E envs)
+// run one patch group (pool consecutive patches) at a time: the group's
+// embeddings of the E envs go to shared memory and thread h adds the
+// group's 128 fc rows into its E float32 accumulators of hidden unit h, so
+// the (E, NP*128) fc input never exists and the fc weights stream from L2 once a block and step.
 // Any fc width: thread h also owns units h + 256, h + 512, ..., whose
 // accumulators live in h_s (E, hidden), which is free until the heads
 // (fc_group_wide, heads_wide; the kWide instantiations only). Its
@@ -36,6 +36,18 @@
 namespace fpyv {
 
 constexpr int kActorThreads = 256;
+// Threads of a K7 or K8 block: the actor's kActorThreads (warps 0-7) and as
+// many more that only render (csrc/render.cuh), 16 warps an SM for the
+// render; they wait at the block's barrier while the actor runs.
+constexpr int kRolloutThreads = 2 * kActorThreads;
+
+// The barrier of the actor's threads, named barrier 1 of kActorThreads:
+// the actor syncs without the render-only warps (a block of kActorThreads
+// threads syncs whole).
+__device__ __forceinline__ void actor_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kActorThreads) : "memory");
+}
+
 constexpr int kPatch = 64;  // levels of an 8x8 patch
 constexpr int kEmbed = 128;
 
@@ -135,7 +147,7 @@ __device__ __forceinline__ void heads_wide(const W* wf, const W* bfc, int hidden
 // fcin_s (128, E) receives the group's fc input, emb_s (E * pool, 128) holds
 // the embeddings when pool > 1; thread tid < hidden adds the group's fc rows
 // into acc, and those of its units tid + 256 j (j >= 1) into h_s (E,
-// hidden). Every thread calls it; it ends synchronised.
+// hidden). Every actor thread calls it; it ends synchronised.
 //
 // The embed: thread tid computes output o = tid % 128 of four rows (row r =
 // e * pool + j) at a time, r0, r0 + 2, r0 + 4, r0 + 6, so each weight it
@@ -187,7 +199,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
       }
     }
   }
-  __syncthreads();
+  actor_sync();
   clk.mark(kPhEmbed);
   if (pool > 1) {  // pooled mixer over the group's concatenated embeddings
     for (int idx = tid; idx < E * kEmbed; idx += kActorThreads) {
@@ -197,7 +209,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
       for (int i = 0; i < pool * kEmbed; ++i) a = a + x[i] * wload(wp + i * kEmbed + o);
       fcin_s[o * E + e] = fmaxf(a + wload(bp + o), 0.0f);
     }
-    __syncthreads();
+    actor_sync();
     clk.mark(kPhEmbed);
   }
   if (tid < hidden) {  // the group's 128 fc rows into hidden unit tid
@@ -210,7 +222,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
     }
   }
   if constexpr (kWide) fc_group_wide<E>(wf, hidden, g, fcin_s, h_s);
-  __syncthreads();
+  actor_sync();
   clk.mark(kPhFc);
 }
 
@@ -218,7 +230,7 @@ __device__ __forceinline__ void actor_group(const float* lut, const uint8_t* px,
 // e's values at prop_s + e * prop_stride), the bias and ReLU into h_s (E,
 // hidden), then the float32 heads into mm_s (E, 8): cols 0:4 the mean, 4
 // the value. Units tid + 256 j (j >= 1) take their sums from h_s and leave
-// their outputs there. Every thread calls it; it ends synchronised.
+// their outputs there. Every actor thread calls it; it ends synchronised.
 template <typename W, bool kBF16, int E, bool kWide, class Clock>
 __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidden, int row0,
                                             const float* prop_s, int prop_stride, int n_prop,
@@ -238,7 +250,7 @@ __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidde
   }
   if constexpr (kWide)
     heads_wide<W, kBF16, E>(wf, bfc, hidden, row0, prop_s, prop_stride, n_prop, h_s);
-  __syncthreads();
+  actor_sync();
   if (tid < E * 5) {
     const int e = tid / 5, col = tid - 5 * (tid / 5);
     const float* h = h_s + e * hidden;
@@ -246,7 +258,7 @@ __device__ __forceinline__ void actor_heads(const W* wf, const W* bfc, int hidde
     for (int j = 0; j < hidden; ++j) a = a + h[j] * wm[j * 8 + col];
     mm_s[e * 8 + col] = a + bm[col];
   }
-  __syncthreads();
+  actor_sync();
   clk.mark(kPhHeads);
 }
 
@@ -375,7 +387,7 @@ __device__ __forceinline__ void tc_load_we(const __nv_bfloat16* we, const TcTile
 }
 
 // The embed of a batch (levels in t.xe) into the fc input t.xf, through the
-// pooled mixer when pool > 1. Every thread calls it; it ends synchronised.
+// pooled mixer when pool > 1. Every actor thread calls it; it ends synchronised.
 template <int E>
 __device__ __forceinline__ void tc_embed(const TcTiles& t, const __nv_bfloat16* be,
                                          const __nv_bfloat16* wp, const __nv_bfloat16* bp) {
@@ -407,11 +419,11 @@ __device__ __forceinline__ void tc_embed(const TcTiles& t, const __nv_bfloat16* 
     out[8] = __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(d[2]) + bias_hi), 0.0f));
     out[ds + 8] = __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(d[3]) + bias_hi), 0.0f));
   }
-  __syncthreads();
+  actor_sync();
   if (t.pool > 1) {  // pooled mixer over each group's concatenated embeddings (CUDA cores)
     const int ngb = t.pb / t.pool, gk = t.pool * kEmbed;
     const int xfs = ngb * kEmbed + kRowPad;
-    for (int idx = threadIdx.x; idx < E * ngb * kEmbed; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < E * ngb * kEmbed; idx += kActorThreads) {
       const int o = idx & (kEmbed - 1), r = idx >> 7, gl = r % ngb, e = r / ngb;
       const __nv_bfloat16* x = t.xm + e * ds + gl * gk;
       float a = 0.0f;
@@ -420,7 +432,7 @@ __device__ __forceinline__ void tc_embed(const TcTiles& t, const __nv_bfloat16* 
       t.xf[e * xfs + gl * kEmbed + o] =
           __float2bfloat16_rn(fmaxf(rnd<true>(rnd<true>(a) + wload(bp + o)), 0.0f));
     }
-    __syncthreads();
+    actor_sync();
   }
 }
 
@@ -517,7 +529,7 @@ __device__ __forceinline__ void tc_fc(const TcTiles& t, const uint4* __restrict_
 // After the last batch: the fc sums into h_s (E, hidden) float32 (tiles
 // past the registers' are there already), then each thread tid < hidden
 // takes its hidden unit's E sums back into acc (for actor_heads). Every
-// thread calls it; it ends synchronised.
+// actor thread calls it; it ends synchronised.
 template <int E>
 __device__ __forceinline__ void tc_fc_gather(float acc2[2][4], int n_mt, int hidden,
                                              float* h_s, float acc[E]) {
@@ -534,12 +546,12 @@ __device__ __forceinline__ void tc_fc_gather(float acc2[2][4], int n_mt, int hid
       h_s[(2 * tq + 1) * hidden + h + 8] = acc2[m][3];
     }
   }
-  __syncthreads();
+  actor_sync();
   if (static_cast<int>(threadIdx.x) < hidden) {
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[e] = h_s[e * hidden + threadIdx.x];
   }
-  __syncthreads();
+  actor_sync();
 }
 
 }  // namespace fpyv

@@ -3,11 +3,13 @@
 //
 // Follows fpyv_tpu/ops/pallas_vision.py:_render_tiles and _encode_levels
 // operation by operation (built with --fmad=false, no fast math), so a
-// kernel's levels equal the plain PyTorch version's. render_t and the hit
-// functions are shared by K6 (the chase render of the target alone, over
-// the target's pixel box), K7 and K8 (the policy rollouts, which render the
-// full world inside their step); K5 (the batched render) runs render_t_pre
-// over a per-env table of the same invariants.
+// kernel's levels equal the plain PyTorch version's
+// (ops/vision_kernel.py::render_tiles). Each env's invariants are hoisted
+// into a table (render_invariant) that its pixels read: K5 (the batched
+// render) through render_t_pre, K7 and K8 (the policy rollouts, which
+// render the full world inside their step) through render_frames, several
+// pixels a thread; K6 (the chase render of the target alone, over the
+// target's pixel box) runs hit_sphere.
 //
 // Camera: cam[0..2] position, cam[3..11] the camera-to-world rotation, row
 // major. The pixel's camera-frame direction (dx, dy, dz) comes from the
@@ -15,6 +17,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace fpyv {
 
@@ -50,30 +54,6 @@ __device__ __forceinline__ float hit_sphere(const WorldRay& r, float a, float cx
   return (disc >= 0.0f && t > 0.0f && active) ? t : kBig;
 }
 
-// Open vertical tube with base z0 and height h: the near wall, else the far
-// wall where the near one misses the band (pallas_vision.py:215-220).
-__device__ __forceinline__ float hit_cylinder(const WorldRay& r, float cx, float cy, float z0,
-                                              float rad, float h, bool active) {
-  const float a2 = r.dx * r.dx + r.dy * r.dy;
-  const float safe_a = fabsf(a2) > 1e-20f ? a2 : 1e-20f;
-  const float ox = r.px - cx, oy = r.py - cy;
-  const float b = ox * r.dx + oy * r.dy;
-  const float c = ox * ox + oy * oy - rad * rad;
-  const float disc = b * b - a2 * c;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  bool hit_any = false;
-  float t_cyl = kBig;
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float t = (-b + (k == 0 ? -sq : sq)) / safe_a;
-    const float zhit = r.pz + t * r.dz;
-    const bool ok = disc >= 0.0f && t > 0.0f && zhit >= z0 && zhit <= z0 + h;
-    if (ok && !hit_any) t_cyl = t;
-    hit_any = hit_any || ok;
-  }
-  return (hit_any && active) ? t_cyl : kBig;
-}
-
 // Ground plane z = 0, optionally clipped to |x|, |y| <= extent.
 __device__ __forceinline__ float hit_ground(const WorldRay& r, bool has_ground, bool clip,
                                             float extent) {
@@ -85,40 +65,6 @@ __device__ __forceinline__ float hit_ground(const WorldRay& r, bool has_ground, 
     const float hy = r.py + t * r.dy;
     ok = ok && fabsf(hx) <= extent && fabsf(hy) <= extent;
   }
-  return ok ? t : kBig;
-}
-
-__device__ __forceinline__ float mask(bool b) { return b ? 1.0f : 0.0f; }
-
-// Gate frame: g = [pos(3) normal(3) ey(3) ez(3) size active shape]. The
-// shape dispatch stays the Pallas kernel's one-hot arithmetic
-// (pallas_vision.py:257-274): 0 square band, 1 ring, 2 upper arc + chord.
-__device__ __forceinline__ float hit_gate(const WorldRay& r, const float* g, float fw) {
-  const float gx = g[0], gy = g[1], gz = g[2];
-  const float ndotd = g[3] * r.dx + g[4] * r.dy + g[5] * r.dz;
-  const float ndot0 = g[3] * (gx - r.px) + g[4] * (gy - r.py) + g[5] * (gz - r.pz);
-  const float safe = fabsf(ndotd) > 1e-20f ? ndotd : 1e-20f;
-  const float t = ndot0 / safe;
-  const float hx = r.px + t * r.dx - gx;
-  const float hy = r.py + t * r.dy - gy;
-  const float hz = r.pz + t * r.dz - gz;
-  const float ly = g[6] * hx + g[7] * hy + g[8] * hz;
-  const float lz = g[9] * hx + g[10] * hy + g[11] * hz;
-  const float s = g[12];
-  const float half = s * 0.5f;
-  const float m_rect = mask(fabsf(fmaxf(fabsf(ly), fabsf(lz)) - half) <= fw);
-  const float rr = sqrtf(ly * ly + lz * lz);
-  const float m_circ = mask(fabsf(rr - half) <= fw);
-  const float cz = lz + half;
-  const float ra = sqrtf(ly * ly + cz * cz);
-  const float m_arc = mask(fabsf(ra - s) <= fw && cz >= -fw);
-  const float m_chord = mask(fabsf(cz) <= fw && fabsf(ly) <= s + fw);
-  const float m_half = fmaxf(m_arc, m_chord);
-  const float sel_circ = mask(g[14] == 1.0f);
-  const float sel_half = mask(g[14] == 2.0f);
-  const float m_frame =
-      sel_circ * m_circ + sel_half * m_half + (1.0f - sel_circ - sel_half) * m_rect;
-  const bool ok = t > 0.0f && m_frame > 0.5f && fabsf(ndotd) > 1e-20f && g[13] > 0.5f;
   return ok ? t : kBig;
 }
 
@@ -145,45 +91,14 @@ struct RenderConsts {
   float frame_width;
 };
 
-// Nearest t over the world columns w of one env (layout of
-// pallas_vision.py:_world_cols): spheres s*5 + [cx cy cz r active],
-// cylinders 5S + c*6 + [cx cy cz r h active], gates 5S + 6C + g*15 + [...],
-// ground last.
-__device__ __forceinline__ float render_t(const RenderConsts& rc, int S, int C, int G,
-                                          const WorldRay& r, const float* w) {
-  float t_min = kBig;
-  if (rc.spheres > 0.5f) {
-    const float a = ray_a(r);
-    for (int s = 0; s < S; ++s) {
-      const float* q = w + 5 * s;
-      t_min = fminf(t_min, hit_sphere(r, a, q[0], q[1], q[2], q[3], q[4] > 0.5f));
-    }
-  }
-  if (rc.cylinders > 0.5f) {
-    for (int c = 0; c < C; ++c) {
-      const float* q = w + 5 * S + 6 * c;
-      t_min = fminf(t_min, hit_cylinder(r, q[0], q[1], q[2], q[3], q[4], q[5] > 0.5f));
-    }
-  }
-  const float* gates = w + 5 * S + 6 * C;
-  if (rc.ground > 0.5f) {
-    t_min = fminf(t_min, hit_ground(r, gates[15 * G] > 0.5f, rc.clip_ground > 0.5f,
-                                    rc.ground_extent));
-  }
-  if (rc.gates > 0.5f) {
-    for (int g = 0; g < G; ++g) t_min = fminf(t_min, hit_gate(r, gates + 15 * g, rc.frame_width));
-  }
-  return t_min;
-}
-
 // ---------------------------------------------------------------------------
 // The batched render (K5) with each env's invariants hoisted: a block
-// computes, once per env, what render_t recomputes at every pixel, into a
-// per-env table (render_invariants), and each pixel reads it (render_t_pre).
-// The hoisted values are the same operations in the same order as in
-// hit_sphere, hit_cylinder and hit_gate, and a primitive that cannot hit
-// skips only arithmetic whose result its mask would discard, so the levels
-// equal render_t's bit for bit.
+// computes, once per env, what the plain version recomputes at every pixel,
+// into a per-env table (render_invariant), and each pixel reads it
+// (render_t_pre). The hoisted values are the same operations in the same
+// order as the plain version's sphere, cylinder and gate tests, and a
+// primitive that cannot hit skips only arithmetic whose result its mask
+// would discard, so the levels equal the plain version's bit for bit.
 // ---------------------------------------------------------------------------
 
 constexpr int kPreSphere = 5;    // ox, oy, oz, |o|^2 - r^2, active
@@ -249,8 +164,9 @@ __device__ __forceinline__ float hit_sphere_pre(const WorldRay& r, float a, cons
   return t > 0.0f ? t : kBig;
 }
 
-// hit_cylinder over a hoisted (ox, oy, c, z0, z0 + h, active), with the
-// pixel's a2 and safe_a: the far wall only where the near one misses.
+// An open vertical tube (pallas_vision.py:215-220) over a hoisted (ox, oy,
+// c, z0, z0 + h, active), with the pixel's a2 and safe_a: the near wall,
+// else the far wall where the near one misses the band.
 __device__ __forceinline__ float hit_cylinder_pre(const WorldRay& r, float a2, float safe_a,
                                                   const float* q) {
   if (!(q[5] > 0.5f)) return kBig;
@@ -267,10 +183,12 @@ __device__ __forceinline__ float hit_cylinder_pre(const WorldRay& r, float a2, f
   return kBig;
 }
 
-// hit_gate over its columns and hoisted ndot0: an inactive gate, a ray
+// A gate frame g = [pos(3) normal(3) ey(3) ez(3) size active shape] and
+// its hoisted ndot0 (pallas_vision.py:257-274): an inactive gate, a ray
 // parallel to its plane or a plane behind the camera returns before the
-// frame test, and only the gate's own shape is tested (the one-hot sum of
-// hit_gate equals the selected 0/1 mask).
+// frame test, and only the gate's own shape is tested (the Pallas kernel's
+// one-hot sum over 0 square band, 1 ring, 2 upper arc + chord equals the
+// selected 0/1 mask).
 __device__ __forceinline__ float hit_gate_pre(const WorldRay& r, const float* g, float fw) {
   if (!(g[13] > 0.5f)) return kBig;
   const float ndotd = g[3] * r.dx + g[4] * r.dy + g[5] * r.dz;
@@ -297,7 +215,8 @@ __device__ __forceinline__ float hit_gate_pre(const WorldRay& r, const float* g,
   return hit ? t : kBig;
 }
 
-// render_t over an env's invariant table pre (render_invariant).
+// The nearest t of one pixel's ray r over an env's invariant table pre
+// (render_invariant; world columns of pallas_vision.py:_world_cols).
 __device__ __forceinline__ float render_t_pre(const RenderConsts& rc, int S, int C, int G,
                                               const WorldRay& r, const float* pre) {
   float t_min = kBig;
@@ -322,6 +241,276 @@ __device__ __forceinline__ float render_t_pre(const RenderConsts& rc, int S, int
       t_min = fminf(t_min, hit_gate_pre(r, gates + kPreGate * g, rc.frame_width));
   }
   return t_min;
+}
+
+// ---------------------------------------------------------------------------
+// The render phase of the policy rollouts (K7, K8), redesigned for the H100.
+//
+// What bounds it: a block owns 8 envs (their fc weight stream sets that,
+// csrc/actor.cuh), so at the trainers' 1024 envs the bank is one block an
+// SM. A pixel's test is a chain of dependent IEEE divisions and square
+// roots (--fmad=false, no fast math): the SM idles on their latency unless
+// many pixels are in flight. The first port had one pixel a thread on
+// the actor's 8 warps, and its per-pixel test repeated each env's
+// invariants and took every primitive to its root before its mask
+// discarded it: 11.6 ms of K7's 15.8 ms launch, 3.4x the K5 kernel on the
+// same cameras and worlds (counted operations set its bound, ~0.9 ms).
+//
+// The layout: the block has 512 threads (kRolloutThreads: the actor's 256
+// and 256 that only render), 16 warps an SM for the render. At each step
+// it builds its envs' invariant tables (render_invariants_block:
+// render_invariant items strided over the threads, as K5's prologue), then
+// each thread renders P neighbouring pixels of one env at a time
+// (render_levels): their rays read as one vector load a component, each
+// primitive's cheap test (discriminant, plane side) for all P pixels in one
+// straight-line block, and its root, divisions and frame test only where
+// one of the P can hit, for all P at once, so P independent chains are in
+// flight. The ground's and a gate's division run only where the plane can
+// lie ahead (the sign test that t > 0 needs), the level's division only
+// below max_depth (the level is 0 at and past it). Each thread stores its P
+// levels as one word. A pixel's arithmetic is render_t_pre's, in the same
+// order, and where it is skipped its result would be discarded, so the
+// levels equal render_t_pre's and the plain version's bit for bit.
+// ---------------------------------------------------------------------------
+
+// The invariant tables of a block's ne envs: env e's at pre_s + e *
+// pre_cols(S, C, G), from its camera (cam_s + e * cam_stride) and world
+// columns (ws + e * wstride). Items stride over the block's threads; the
+// caller synchronises before and after.
+__device__ __forceinline__ void render_invariants_block(int S, int C, int G, int ne,
+                                                        const float* cam_s, int cam_stride,
+                                                        const float* ws, int wstride,
+                                                        float* pre_s) {
+  const int items = S + C + G + 1;
+  for (int k = threadIdx.x; k < ne * items; k += blockDim.x) {
+    const int e = k / items;
+    const float* c = cam_s + e * cam_stride;
+    render_invariant(k - e * items, S, C, G, c[0], c[1], c[2], ws + e * wstride,
+                     pre_s + e * pre_cols(S, C, G));
+  }
+}
+
+// P consecutive floats from d (16-byte aligned where P is a multiple of 4).
+template <int P>
+__device__ __forceinline__ void load_row(const float* __restrict__ d, float (&v)[P]) {
+  if constexpr (P % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < P; j += 4) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(d + j));
+      v[j] = w.x;
+      v[j + 1] = w.y;
+      v[j + 2] = w.z;
+      v[j + 3] = w.w;
+    }
+  } else if constexpr (P == 2) {
+    const float2 w = __ldg(reinterpret_cast<const float2*>(d));
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < P; ++j) v[j] = __ldg(d + j);
+  }
+}
+
+// The depth levels of P pixels of one env: camera-frame rays (cx, cy, cz)
+// from its camera cam and invariant table pre. render_t_pre, then
+// depth_level, pixel for pixel; see the note above for what is skipped.
+template <int P>
+__device__ __forceinline__ void render_levels(const RenderConsts& rc, int S, int C, int G,
+                                              const float* cam, const float* pre,
+                                              const float (&cx)[P], const float (&cy)[P],
+                                              const float (&cz)[P], uint32_t (&lev)[P]) {
+  const float px = cam[0], py = cam[1], pz = cam[2];
+  float dx[P], dy[P], dz[P], tm[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const WorldRay r = world_ray(cam, cx[j], cy[j], cz[j]);
+    dx[j] = r.dx;
+    dy[j] = r.dy;
+    dz[j] = r.dz;
+    tm[j] = kBig;
+  }
+  if (rc.spheres > 0.5f) {
+    float a[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) a[j] = dx[j] * dx[j] + dy[j] * dy[j] + dz[j] * dz[j];
+    for (int s = 0; s < S; ++s) {
+      const float* q = pre + kPreSphere * s;
+      if (!(q[4] > 0.5f)) continue;
+      float b[P], disc[P];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        b[j] = q[0] * dx[j] + q[1] * dy[j] + q[2] * dz[j];
+        disc[j] = b[j] * b[j] - a[j] * q[3];
+        any = any || disc[j] >= 0.0f;
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float sq = sqrtf(fmaxf(disc[j], 0.0f));
+        const float t0 = (-b[j] - sq) / a[j];
+        const float t = t0 > 0.0f ? t0 : (-b[j] + sq) / a[j];
+        if (disc[j] >= 0.0f && t > 0.0f) tm[j] = fminf(tm[j], t);
+      }
+    }
+  }
+  const float* cyl = pre + kPreSphere * S;
+  if (rc.cylinders > 0.5f) {
+    float a2[P], sa[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      a2[j] = dx[j] * dx[j] + dy[j] * dy[j];
+      sa[j] = fabsf(a2[j]) > 1e-20f ? a2[j] : 1e-20f;
+    }
+    for (int c = 0; c < C; ++c) {
+      const float* q = cyl + kPreCylinder * c;
+      if (!(q[5] > 0.5f)) continue;
+      float b[P], disc[P];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        b[j] = q[0] * dx[j] + q[1] * dy[j];
+        disc[j] = b[j] * b[j] - a2[j] * q[2];
+        any = any || disc[j] >= 0.0f;
+      }
+      if (!any) continue;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float sq = sqrtf(fmaxf(disc[j], 0.0f));
+        const float t0 = (-b[j] + -sq) / sa[j];  // near wall, then far wall
+        const float t1 = (-b[j] + sq) / sa[j];
+        const float z0 = pz + t0 * dz[j];
+        const float z1 = pz + t1 * dz[j];
+        const bool ok0 = t0 > 0.0f && z0 >= q[3] && z0 <= q[4];
+        const bool ok1 = t1 > 0.0f && z1 >= q[3] && z1 <= q[4];
+        if (disc[j] >= 0.0f && (ok0 || ok1)) tm[j] = fminf(tm[j], ok0 ? t0 : t1);
+      }
+    }
+  }
+  const float* gates = cyl + kPreCylinder * C;
+  if (rc.ground > 0.5f && gates[kPreGate * G] > 0.5f) {
+    // t = -pz / dz > 0 needs dz on the ground's side of the camera
+    const float mz = -pz;
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      any = any || (mz > 0.0f && dz[j] > 1e-20f) || (mz < 0.0f && dz[j] < -1e-20f);
+    if (any) {
+      const bool clip = rc.clip_ground > 0.5f;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float safe = fabsf(dz[j]) > 1e-20f ? dz[j] : 1e-20f;
+        const float t = mz / safe;
+        bool ok = t > 0.0f && fabsf(dz[j]) > 1e-20f;
+        if (clip) {
+          const float hx = px + t * dx[j];
+          const float hy = py + t * dy[j];
+          ok = ok && fabsf(hx) <= rc.ground_extent && fabsf(hy) <= rc.ground_extent;
+        }
+        if (ok) tm[j] = fminf(tm[j], t);
+      }
+    }
+  }
+  if (rc.gates > 0.5f) {
+    const float fw = rc.frame_width;
+    for (int g = 0; g < G; ++g) {
+      const float* q = gates + kPreGate * g;
+      if (!(q[13] > 0.5f)) continue;
+      // t = ndot0 / ndotd > 0 needs the plane ahead along the ray
+      const float n0 = q[15];
+      float nd[P];
+      bool ahead[P];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        nd[j] = q[3] * dx[j] + q[4] * dy[j] + q[5] * dz[j];
+        ahead[j] = (n0 > 0.0f && nd[j] > 1e-20f) || (n0 < 0.0f && nd[j] < -1e-20f);
+        any = any || ahead[j];
+      }
+      if (!any) continue;
+      const float s = q[12];
+      const float half = s * 0.5f;
+      const float shape = q[14];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float t = n0 / nd[j];
+        const float hx = px + t * dx[j] - q[0];
+        const float hy = py + t * dy[j] - q[1];
+        const float hz = pz + t * dz[j] - q[2];
+        const float ly = q[6] * hx + q[7] * hy + q[8] * hz;
+        const float lz = q[9] * hx + q[10] * hy + q[11] * hz;
+        bool hit;
+        if (shape == 1.0f) {
+          hit = fabsf(sqrtf(ly * ly + lz * lz) - half) <= fw;
+        } else if (shape == 2.0f) {
+          const float cz = lz + half;
+          hit = (fabsf(sqrtf(ly * ly + cz * cz) - s) <= fw && cz >= -fw) ||
+                (fabsf(cz) <= fw && fabsf(ly) <= s + fw);
+        } else {
+          hit = fabsf(fmaxf(fabsf(ly), fabsf(lz)) - half) <= fw;
+        }
+        if (ahead[j] && t > 0.0f && hit) tm[j] = fminf(tm[j], t);
+      }
+    }
+  }
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < P; ++j) any = any || tm[j] < rc.max_depth;
+#pragma unroll
+  for (int j = 0; j < P; ++j)  // at and past max_depth the level is 0
+    lev[j] = any ? static_cast<uint32_t>(depth_level(tm[j], rc.max_depth)) : 0u;
+}
+
+// P levels (each < 256) to dst as one little-endian word (P bytes, aligned
+// to P).
+template <int P>
+__device__ __forceinline__ void store_levels(uint8_t* dst, const uint32_t (&lev)[P]) {
+  if constexpr (P == 1) {
+    *dst = static_cast<uint8_t>(lev[0]);
+  } else if constexpr (P == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(lev[0] | (lev[1] << 8));
+  } else {
+    uint32_t w[P / 4];
+#pragma unroll
+    for (int i = 0; i < P / 4; ++i)
+      w[i] = lev[4 * i] | (lev[4 * i + 1] << 8) | (lev[4 * i + 2] << 16) | (lev[4 * i + 3] << 24);
+    if constexpr (P == 4) {
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+    } else if constexpr (P == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < P / 4; ++i) reinterpret_cast<uint32_t*>(dst)[i] = w[i];
+    }
+  }
+}
+
+// The render phase of K7 and K8: the frames of a block's ne envs, hw
+// pixels each in patch-major order (the rig's ray grid dcam (3, hw) in that
+// order), from their cameras (cam_s + e * cam_stride) and invariant tables
+// (render_invariants_block), P pixels a thread at a time, into frame_s (ne,
+// hw) in shared memory and, where out is not null, into out (ne, hw) in
+// device memory. hw is a multiple of 64; frame_s and out are 8-byte
+// aligned, dcam's rows 16-byte aligned.
+template <int P>
+__device__ __forceinline__ void render_frames(const RenderConsts& rc, int S, int C, int G, int ne,
+                                              const float* cam_s, int cam_stride,
+                                              const float* pre_s, const float* __restrict__ dcam,
+                                              int hw, uint8_t* frame_s, uint8_t* out) {
+  static_assert(P >= 1 && 64 % P == 0, "a thread's pixels stay inside one patch");
+  const int pcols = pre_cols(S, C, G);
+  for (int i = threadIdx.x; i < ne * hw / P; i += blockDim.x) {
+    const int p = i * P, e = p / hw, q = p - e * hw;
+    float cx[P], cy[P], cz[P];
+    load_row<P>(dcam + q, cx);
+    load_row<P>(dcam + hw + q, cy);
+    load_row<P>(dcam + 2 * hw + q, cz);
+    uint32_t lev[P];
+    render_levels<P>(rc, S, C, G, cam_s + e * cam_stride, pre_s + e * pcols, cx, cy, cz, lev);
+    store_levels<P>(frame_s + p, lev);
+    if (out) store_levels<P>(out + p, lev);
+  }
 }
 
 // Camera pose from the drone state s (position s[0..2], quaternion s[6..9];

@@ -11,9 +11,10 @@
 // barriers, then each thread reads its P rays from the grid dcam (3, HW) in
 // coalesced rows and tests them (render_t_pre): a primitive that misses
 // stops at its discriminant (or a gate at its plane), before the square
-// root and the divisions. Same operations in the same order as render_t, so
-// the levels are equal. The frame is written once. Bound on the H100: at
-// 96x72 and 1024 envs the frame is 28.3 MB written against ~9 float32
+// root and the divisions. Same operations in the same order as the plain
+// version (vision_kernel.render_tiles), so the levels are equal. The frame
+// is written once. Bound on the H100: at 96x72 and 1024 envs the frame is
+// 28.3 MB written against ~9 float32
 // operations per primitive and pixel that misses and 30-60 per hit, so a
 // world with a few primitives is bound by operations, an empty one by the
 // write. Nothing but the frame touches device memory.

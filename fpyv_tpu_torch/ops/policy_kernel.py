@@ -78,7 +78,10 @@ PP = PATCH * PATCH  # pixels per patch (the embed contraction)
 N_OUT = 8  # extra / aux columns
 INCLUDE = ("spheres", "cylinders", "ground", "gates")
 ENVS_PER_BLOCK = 8  # kEnvs in csrc/policy_kernels.cu and csrc/race_kernels.cu
-ACTOR_THREADS = 256  # kActorThreads in csrc/actor.cuh: a block's threads, one hidden unit each
+# kActorThreads in csrc/actor.cuh: the actor's threads, one hidden unit each (a
+# block has 512, kRolloutThreads, 256 of which only render; 256 in all in the
+# bf16 generic instantiation)
+ACTOR_THREADS = 256
 SHARED_LIMIT = 232448  # opt-in shared memory of one block on the H100
 MAX_BATCH = 12  # patches a barrier pass of the tensor-core actor, at most
 ROW_PAD = 8  # kRowPad in csrc/actor.cuh
@@ -241,16 +244,24 @@ def _aligned_floats(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def pre_cols(n_spheres: int, n_cylinders: int, n_gates: int) -> int:
+    """Floats of one env's invariant table of the render
+    (``csrc/render.cuh::pre_cols``): 5 a sphere, 6 a cylinder, 16 a gate and
+    the ground flag."""
+    return 5 * n_spheres + 6 * n_cylinders + 16 * n_gates + 1
+
+
 def policy_shared_bytes(hw: int, wcols: int, n_phys: int, hidden: int, pool: int,
-                        batch: int = 0) -> int:
+                        batch: int = 0, n_gates: int = 0) -> int:
     """Shared memory of one K7 block (``launch`` in
     ``csrc/policy_kernels.cu``): the level table, per-env camera, proprio,
-    heads, world columns and physics rows (``n_phys`` = 5S + 6C), the
-    hidden layer and the frames (one byte a pixel); ``batch`` 0 adds the
-    float32 actor's group buffers, else the bf16 tiles for batches of
-    ``batch`` patches."""
+    heads, world columns, physics rows (``n_phys`` = 5S + 6C) and the
+    render's invariant table (:func:`pre_cols`: ``n_phys`` + 16 ``n_gates``
+    + 1 floats), the hidden layer and the frames (one byte a pixel);
+    ``batch`` 0 adds the float32 actor's group buffers, else the bf16 tiles
+    for batches of ``batch`` patches."""
     e = ENVS_PER_BLOCK
-    head = 16 + 2 * N_OUT + wcols + n_phys
+    head = 16 + 2 * N_OUT + wcols + n_phys + (n_phys + 16 * n_gates + 1)
     if batch == 0:
         return 4 * (256 + e * (head + 128 + hidden + (pool * 128 if pool > 1 else 0))) + e * hw
     return 4 * _aligned_floats(256 + e * (head + hidden)) + tc_tile_bytes(PP, batch, pool) + e * hw
@@ -519,8 +530,8 @@ def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch
     if dt == torch.bfloat16:
         check_tc_weights(weights, n_patches // patch_pool * embed)
         batch = actor_batch(n_patches, patch_pool, lambda b: policy_shared_bytes(
-            hw, cfg.n_cols, n_phys, hidden, patch_pool, b))
-    shared = policy_shared_bytes(hw, cfg.n_cols, n_phys, hidden, patch_pool, batch)
+            hw, cfg.n_cols, n_phys, hidden, patch_pool, b, cfg.n_gates))
+    shared = policy_shared_bytes(hw, cfg.n_cols, n_phys, hidden, patch_pool, batch, cfg.n_gates)
     if (dt == torch.bfloat16 and not batch) or shared > SHARED_LIMIT:
         raise ValueError(f"K7 needs {shared} B of shared memory a block, above the "
                          f"{SHARED_LIMIT} B a block may use")

@@ -69,6 +69,7 @@ from fpyv_tpu_torch.ops.policy_kernel import (
     patch_major_ray_grid,
     prepatch_pixels,
     policy_forward_reference,
+    pre_cols,
     tc_tile_bytes,
 )
 from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
@@ -174,15 +175,16 @@ def race_shared_bytes(hw: int, frame_stack: int, n_obstacles: int, n_gates: int,
                       pool: int, batch: int = 0) -> int:
     """Shared memory of one K8 block (``shared_bytes`` in
     ``csrc/race_kernels.cu``): the level table, per-env camera, proprio,
-    heads, flush flag, world columns and obstacle rows, the hidden layer and
-    the current frames (one byte a pixel). ``batch`` 0 is the float32
-    layout: one fc group's input, the pooled embeddings and one patch
-    group's stacks. Else the bf16 layout: the tensor-core tiles for batches
+    heads, flush flag, world columns, obstacle rows and the render's
+    invariant table, the hidden layer and the current frames (one byte a
+    pixel). ``batch`` 0 is the float32 layout: one fc group's input, the
+    pooled embeddings and one patch group's stacks. Else the bf16 layout: the tensor-core tiles for batches
     of ``batch`` patches, whose levels tile holds the stacks. The K-1 older
     frames stay in device memory either way."""
     wcols = 5 * n_obstacles + 15 * n_gates + 1
     E = ENVS_PER_BLOCK
-    head = 16 + N_EXTRA + N_AUX + 1 + wcols + 5 * n_obstacles
+    head = (16 + N_EXTRA + N_AUX + 1 + wcols + 5 * n_obstacles
+            + pre_cols(n_obstacles, 0, n_gates))
     if batch == 0:
         floats = 256 + E * (head + 128 + hidden + (pool * 128 if pool > 1 else 0))
         return floats * 4 + E * hw + E * pool * frame_stack * PP

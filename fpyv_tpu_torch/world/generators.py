@@ -26,6 +26,7 @@ import torch
 
 from fpyv_tpu_torch.config import SimulatorConfig
 from fpyv_tpu_torch.device import resolve_device
+from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
 from fpyv_tpu_torch.physics.world import GATE_SHAPES, empty_world
 
 
@@ -286,3 +287,145 @@ def contact_start(n: int, seed: int):
     vel = rng.uniform(-0.3, 0.3, (n, 3))
     ypr = rng.uniform(-15.0, 15.0, (n, 3))
     return pos.astype(np.float32), vel.astype(np.float32), ypr.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Render edge cases, for the policy rollouts' checks (K7, K8): worlds and
+# camera poses where a primitive cannot hit (inactive, behind the camera, a
+# plane through the camera), where the camera sits inside a sphere or an
+# open tube, and where the rays run along a tube's axis
+# ---------------------------------------------------------------------------
+
+EDGE_CASES = ("inside_sphere", "inactive", "cylinder_band", "down_axis", "gate_edge_behind",
+              "on_ground", "gate_shapes", "open_view")
+RACE_EDGE_CASES = ("inside_obstacle", "obstacle_arrives", "gate_edge_on", "gate_behind")
+
+
+def _facing(normal) -> np.ndarray:
+    """A gate rotation whose first column (the gate's normal) is ``normal``."""
+    n = np.asarray(normal, np.float64) / np.linalg.norm(normal)
+    up = np.array([0.0, 0.0, 1.0]) if abs(n[2]) < 0.9 else np.array([1.0, 0.0, 0.0])
+    ey = np.cross(up, n)
+    ey /= np.linalg.norm(ey)
+    return np.stack([n, ey, np.cross(n, ey)], axis=1)
+
+
+def render_edge_bank(n: int, rig, dtype=torch.float32, device=None):
+    """A batched world of ``n`` envs (2 spheres, 2 cylinders, 2 gates,
+    ground) and each env's drone position (n, 3) and quaternion (n, 4)
+    (float32 numpy), env e being :data:`EDGE_CASES` [e % 8] for the camera
+    of ``rig``:
+
+    0. the camera inside sphere 0 (the target);
+    1. an inactive sphere and an inactive cylinder in view;
+    2. a cylinder whose height band holds the camera, and an open tube
+       around the camera;
+    3. the camera looking straight down two coaxial tubes, above their tops;
+    4. a gate edge-on to the camera (its plane holds the camera exactly, so
+       its ndot0 is 0) and a ring behind the camera, facing it;
+    5. the camera on the ground plane (z = 0 exactly: no ray meets it);
+    6. a ring and a half-circle gate in view;
+    7. an open view of a gate, a cylinder and the spheres.
+
+    Sphere 0 stays active (the reward's target) and in view but in case 0."""
+    mount = np.asarray(rig.mount_rotation, np.float64)
+    rel = np.asarray(rig.rel_position, np.float64)
+    view = mount[:, 2]  # the optical axis at a level body
+    fwd = np.array([1.0, 0.0, 0.0])
+    sc, sr, sa = np.zeros((n, 2, 3)), np.ones((n, 2)), np.zeros((n, 2), bool)
+    cc, cr = np.zeros((n, 2, 3)), np.full((n, 2), 0.5)
+    ch, ca = np.ones((n, 2)), np.zeros((n, 2), bool)
+    gp, gR = np.zeros((n, 2, 3)), np.tile(np.eye(3), (n, 2, 1, 1))
+    gs, ga, gsh = np.full((n, 2), 2.0), np.zeros((n, 2), bool), np.zeros((n, 2), np.int32)
+    pos, quat = np.zeros((n, 3)), np.tile([1.0, 0.0, 0.0, 0.0], (n, 1))
+    for e in range(n):
+        case = EDGE_CASES[e % len(EDGE_CASES)]
+        p = np.array([0.0, 0.0, 0.0 if case == "on_ground" else 2.0])
+        if case == "down_axis":  # 125 degrees about y: the 35-degree uptilt points down
+            half = np.deg2rad(125.0) / 2
+            quat[e] = [np.cos(half), 0.0, np.sin(half), 0.0]
+            p = np.array([0.0, 0.0, 3.0])
+        pos[e] = p
+        c = p + quat_to_rotmat(torch.as_tensor(quat[e])).numpy() @ rel  # the camera
+        sc[e, 0], sr[e, 0], sa[e, 0] = c + 7 * fwd + [0.0, 1.5, 0.0], 1.0, True
+        if case == "inside_sphere":
+            sc[e, 0], sr[e, 0] = c, 1.5
+            sc[e, 1], sr[e, 1], sa[e, 1] = c + 5 * fwd, 0.8, True
+        elif case == "inactive":
+            sc[e, 1], sr[e, 1] = c + 4 * view, 1.0
+            cc[e, 1], cr[e, 1], ch[e, 1] = [c[0] + 3, c[1] - 0.3, 0.0], 0.5, 5.0
+            cc[e, 0], cr[e, 0], ch[e, 0], ca[e, 0] = [c[0] + 5, c[1] + 2, 0.0], 0.4, 4.0, True
+        elif case == "cylinder_band":
+            cc[e, 0], cr[e, 0], ch[e, 0], ca[e, 0] = [c[0] + 3, c[1] + 0.5, 0.0], 0.6, 10.0, True
+            cc[e, 1], cr[e, 1], ch[e, 1], ca[e, 1] = [c[0], c[1], 0.0], 2.5, 2.5, True
+        elif case == "down_axis":
+            cc[e, 0], cr[e, 0], ch[e, 0], ca[e, 0] = [c[0], c[1], 0.0], 0.8, 1.0, True
+            cc[e, 1], cr[e, 1], ch[e, 1], ca[e, 1] = [c[0], c[1], 0.0], 1.5, 2.0, True
+        elif case == "gate_edge_behind":
+            gp[e, 0], gR[e, 0], ga[e, 0] = [c[0] + 4, c[1], c[2] + 0.5], _facing([0, 1, 0]), True
+            gp[e, 1], gR[e, 1], ga[e, 1], gsh[e, 1] = c - 3 * view, _facing(view), True, 1
+        elif case == "on_ground":
+            cc[e, 0], cr[e, 0], ch[e, 0], ca[e, 0] = [c[0] + 4, c[1], 0.0], 0.5, 3.0, True
+        elif case == "gate_shapes":
+            gp[e, 0], ga[e, 0], gsh[e, 0] = c + 5 * fwd, True, 1
+            gp[e, 1], gs[e, 1], ga[e, 1], gsh[e, 1] = c + 6 * fwd + [0.0, 2.5, -0.5], 1.5, True, 2
+        else:  # open_view
+            gp[e, 0], ga[e, 0] = c + 6 * fwd + [0.0, -2.0, 0.0], True
+            cc[e, 0], cr[e, 0], ch[e, 0], ca[e, 0] = [c[0] + 4, c[1] + 1.5, 0.0], 0.5, 3.0, True
+            sc[e, 1], sr[e, 1], sa[e, 1] = c + 5 * view, 0.7, True
+    dev = resolve_device(device)
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    base = empty_world(2, 2, 2, dtype=dtype, device=dev)
+    world = base.replace(
+        sphere_center=t(sc), sphere_radius=t(sr), sphere_active=t(sa, torch.bool),
+        sphere_path_center=t(sc), sphere_path_radius=t(np.zeros((n, 2))),
+        sphere_path_res=t(np.ones((n, 2)), torch.int32),
+        sphere_path_count=t(np.zeros((n, 2)), torch.int32),
+        sphere_has_path=t(np.zeros((n, 2)), torch.bool),
+        cyl_center=t(cc), cyl_radius=t(cr), cyl_height=t(ch), cyl_active=t(ca, torch.bool),
+        gate_pos=t(gp), gate_rotmat=t(gR), gate_size=t(gs), gate_active=t(ga, torch.bool),
+        gate_shape=t(gsh, torch.int32), has_ground=t(np.ones(n), torch.bool))
+    return world, pos.astype(np.float32), quat.astype(np.float32)
+
+
+def race_edge_start(world, n: int, rig, obstacle_period: int):
+    """The race track ``world`` (its gates 1 and 2 moved) and ``n`` drone
+    positions (n, 3), level and facing +x (quaternion 1, 0, 0, 0), for a
+    race at episode time 0: env e is :data:`RACE_EDGE_CASES` [e % 4] for the
+    camera of ``rig``:
+
+    0. the camera at obstacle 0's centre (inside it);
+    1. the camera where obstacle 0 will be two steps on, on its orbit;
+    2. gate 1 edge-on to the camera (its plane holds the camera exactly);
+    3. gate 2 behind the camera, facing it.
+
+    Obstacle 0 orbits the track's centre at the track radius, from count 0
+    with ``obstacle_period`` points a revolution (``MultiRaceEnv``)."""
+    rel = np.asarray(rig.rel_position, np.float64)
+    view = np.asarray(rig.mount_rotation, np.float64)[:, 2]
+    centre = world.sphere_path_center[0].double().cpu().numpy()
+    radius = float(world.sphere_path_radius[0])
+    pos = np.zeros((n, 3))
+    for e in range(n):
+        case = RACE_EDGE_CASES[e % len(RACE_EDGE_CASES)]
+        if case in ("inside_obstacle", "obstacle_arrives"):
+            theta = 2 * np.pi * (0 if case == "inside_obstacle" else 2) / obstacle_period
+            pos[e] = centre + radius * np.array([np.cos(theta), np.sin(theta), 0.0]) - rel
+        else:
+            pos[e] = [0.0, 2.0 * (e % len(RACE_EDGE_CASES)), 2.0]
+    pos = pos.astype(np.float32)
+    # at a level body the camera is pos + rel: gate 1 in the plane y = c.y
+    # of env 2's camera, gate 2 three metres behind env 3's
+    c2 = pos[2 % n] + rel.astype(np.float32)
+    c3 = pos[3 % n] + rel.astype(np.float32)
+    gate_pos = world.gate_pos.clone()
+    gate_rot = world.gate_rotmat.clone()
+    kw = dict(dtype=gate_pos.dtype, device=gate_pos.device)
+    gate_pos[1] = torch.as_tensor([c2[0] + 4.0, c2[1], c2[2] + 0.5], **kw)
+    gate_rot[1] = torch.as_tensor(_facing([0.0, 1.0, 0.0]), **kw)
+    gate_pos[2] = torch.as_tensor(c3 - 3.0 * view, **kw)
+    gate_rot[2] = torch.as_tensor(_facing(view), **kw)
+    return world.replace(gate_pos=gate_pos, gate_rotmat=gate_rot), pos

@@ -54,7 +54,11 @@ block, one thread an env) equal to their plain versions bit for bit, K6
 with 6 and 8 at its tolerances, K7 and K8 with 384-, 520- and 200-wide fc
 layers (a hexacopter's env) as the 256-wide cases: float32 equal to the
 plain version's frames and flags within its tolerances, bf16
-teacher-forced.
+teacher-forced. K7 and K8 on edge worlds (a camera inside a sphere, an
+obstacle or an open tube, on the ground plane or in a gate's plane;
+inactive primitives; rays down a tube's axis; a gate behind the camera; the
+ground clipped, left out of the render or off) at 64 envs and at 13 (a
+last block of 5) as the cases above.
 """
 
 import numpy as np
@@ -734,6 +738,97 @@ def test_cuda_train_vision_race_launches_k8(cuda_device):
     assert _build.launch_counts["race_vision_rollout"] == 3
     assert _build.launch_counts["render_depth"] >= 3
     assert np.isfinite(res.mean_reward_last)
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8 on edge worlds (world.generators.render_edge_bank and
+# race_edge_start): where the render's early exits decide pixels, and a last
+# block of 5 envs (13 envs)
+# ---------------------------------------------------------------------------
+
+NO_GROUND = ("spheres", "cylinders", "gates")
+
+
+def _edge_net(device, bf16, proprio=5, K=1):
+    from fpyv_tpu_torch.models.policy import PixelActorCritic
+
+    net = PixelActorCritic(action_dim=4, n_patches=108, proprio_dim=proprio, torso="patch",
+                           prepatched=True, compute_dtype=torch.bfloat16 if bf16 else None,
+                           frame_stack=K, device=device)
+    net.init_params(torch.Generator().manual_seed(3))
+    with torch.no_grad():  # a std that samples, and a mean head that steers
+        net.log_std.fill_(-0.3)
+        net.pi_mean.weight.mul_(30.0)
+    return pk.build_policy_weights(net, torch.bfloat16 if bf16 else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extent,include,n,bf16", [
+    pytest.param(None, pk.INCLUDE, 13, False, id="ground-13-f32"),
+    pytest.param(4.0, pk.INCLUDE, 64, False, id="clipped-64-f32"),
+    pytest.param(None, NO_GROUND, 64, False, id="no_ground-64-f32"),
+    pytest.param(None, pk.INCLUDE, 64, True, id="ground-64-bf16"),
+    pytest.param(4.0, pk.INCLUDE, 13, True, id="clipped-13-bf16")])
+def test_cuda_k7_edge_worlds(cuda_device, extent, include, n, bf16):
+    from fpyv_tpu_torch.world.generators import render_edge_bank
+
+    env = AcroEnv(params=DroneParams(att_mode="quat"), max_episode_steps=3)
+    rig = default_vision_rig()
+    worlds, pos, quat = render_edge_bank(n, rig, device=cuda_device)
+    cols = torch.zeros(n, pk.ROWS, device=cuda_device)
+    cols[:, 0:3] = torch.from_numpy(pos).to(cuda_device)
+    cols[:, 6:10] = torch.from_numpy(quat).to(cuda_device)
+    w = _edge_net(cuda_device, bf16)
+    cfg = vk.RenderConfig.for_world(worlds, 25.0, include, extent)
+    wcol = pk.policy_world_cols(worlds, n)
+    out = pk.launch_policy_vision_rollout(env, rig, cols, wcol, cfg, w, 8, 5)
+    torch.cuda.synchronize()
+    ref = pk.policy_vision_rollout_reference(env, rig, cols, wcol, cfg, w, 8, 5,
+                                             forced_actions=out[2][..., :4] if bf16 else None)
+    frames, extra, aux, state = out
+    assert (frames[0, 0] > 0).all()  # premise: env 0's camera inside sphere 0
+    assert torch.equal(frames, ref[0]) and torch.equal(aux[..., 5], ref[2][..., 5])
+    assert torch.equal(state[:, 14:16], ref[3][:, 14:16])
+    mean_tol, value_tol = _heads_tol(bf16)
+    torch.testing.assert_close(extra, ref[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux[..., :4], ref[2][..., :4], atol=mean_tol, rtol=0)
+    torch.testing.assert_close(aux[..., 4], ref[2][..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux[..., 6], ref[2][..., 6], atol=value_tol, rtol=0)
+    torch.testing.assert_close(state, ref[3], atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ground,K,n,bf16", [
+    pytest.param(True, 2, 13, False, id="ground-K2-13-f32"),
+    pytest.param(False, 3, 64, False, id="no_ground-K3-64-f32"),
+    pytest.param(True, 4, 64, True, id="ground-K4-64-bf16"),
+    pytest.param(False, 1, 13, True, id="no_ground-K1-13-bf16")])
+def test_cuda_k8_edge_worlds(cuda_device, ground, K, n, bf16):
+    from fpyv_tpu_torch.world.generators import race_edge_start
+
+    venv, world, cols, hist, _ = _race_setup(cuda_device, n, K, 3, 3, False)
+    world, pos = race_edge_start(world, n, venv.rig, venv.race.obstacle_period)
+    world = world.replace(has_ground=torch.tensor(ground, device=cuda_device))
+    cols[:, 0:3], cols[:, 3:6], cols[:, 10:13] = torch.from_numpy(pos).to(cuda_device), 0.0, 0.0
+    cols[:, 6:10] = torch.tensor([1.0, 0.0, 0.0, 0.0], device=cuda_device)
+    w = _edge_net(cuda_device, bf16, proprio=11, K=K)
+    wcol, ocol = _race_inputs(venv, world)
+    out = rk.launch_race_vision_rollout(venv, cols, hist, wcol, ocol, w, 8, 5)
+    torch.cuda.synchronize()
+    ref = rk.race_vision_rollout_reference(venv, cols, hist, wcol, ocol, w, 8, 5,
+                                           forced_actions=out[2][..., :4] if bf16 else None)
+    frames, extra, aux, state = out
+    # premise: env 0's camera starts inside obstacle 0, which fills its view
+    assert (frames[0, 0].reshape(108, K, 64)[:, -1] > 0).all()
+    assert torch.equal(frames, ref[0]) and torch.equal(aux[..., 5], ref[2][..., 5])
+    for c in (14, 15, 16, 19, 21):
+        assert torch.equal(state[:, c], ref[3][:, c]), c
+    mean_tol, value_tol = _heads_tol(bf16)
+    torch.testing.assert_close(extra, ref[1], atol=1e-6, rtol=0)
+    torch.testing.assert_close(aux[..., :4], ref[2][..., :4], atol=mean_tol, rtol=0)
+    torch.testing.assert_close(aux[..., 4], ref[2][..., 4], atol=1e-5, rtol=0)
+    torch.testing.assert_close(aux[..., 6], ref[2][..., 6], atol=value_tol, rtol=0)
+    torch.testing.assert_close(state, ref[3], atol=1e-3, rtol=0)
 
 
 @pytest.mark.cuda

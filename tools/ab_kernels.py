@@ -1,7 +1,7 @@
 """Times K2 to K8 of one checkout of the PyTorch/CUDA port on one
 NVIDIA GPU, for a parent-against-change comparison with one timer.
 
-    python3 tools/ab_kernels.py [ROOT]
+    python3 tools/ab_kernels.py [ROOT] [--only k7,k8]
 
 ROOT (default: this checkout) is the checkout whose ``fpyv_tpu_torch`` is
 imported, built and timed; the timer, ``chip_smoke.cuda_ms``, and this
@@ -32,8 +32,18 @@ steady-state bank (8192 chase steps from that reset), and ``bench.py``'s
 chase K-slope (K = 512 -> 2048, host clock). K7: the pixel trainer's
 shape (1024 envs, 96x72, T = 32, bf16, the 256-wide fc) and K7 in float32
 at 64 envs, T = 16; K8: the race trainer's (1024 envs, 4 frames, T = 32,
-bf16). Prints one JSON line; each entry's checksum (a sum over its output)
-shows both checkouts computed the same.
+bf16), each with the phase split of its instrumented launch (ms a launch,
+``policy_kernel.phase_split_ms``: the render phase among them) and a
+checksum of its frames beside that of its aux rows. ``--only`` keeps the
+named entries (k2, k3, k4, k5, k6, chase, k7, k8, t7, t8). t7 and t8 are
+the K7 and K8 trainers' iterations at ``bench.py``'s recipes (1024 envs,
+T = 32; K8's 4 frames, gate size 5), split with CUDA events into the
+rollout (one launch and the bootstrap frame) and the whole iteration,
+best of 5 after a warm-up. ``ptxas`` holds K7's and
+K8's registers and spills where this run built the library. Prints one
+JSON line;
+each entry's checksum (a sum over its output) shows both checkouts
+computed the same.
 """
 
 from __future__ import annotations
@@ -49,8 +59,18 @@ HERE = Path(__file__).resolve().parents[1]
 
 
 def main() -> int:
-    root = Path(sys.argv[1]).resolve() if len(sys.argv) > 1 else HERE
+    args = sys.argv[1:]
+    only = None
+    if "--only" in args:
+        i = args.index("--only")
+        only = set(args[i + 1].split(","))
+        del args[i:i + 2]
+    root = Path(args[0]).resolve() if args else HERE
     sys.path.insert(0, str(root))
+
+    def want(name: str) -> bool:
+        return only is None or name in only
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -76,6 +96,7 @@ def main() -> int:
     dev = torch.device("cuda")
     n = smoke.N_VISION
     _build.library()
+    ptxas = {k: v for k, v in smoke.ptxas_report().items() if "vision_rollout" in k}
 
     def kernel_ms(fn, reps: int, name: str) -> float:
         fn()
@@ -93,7 +114,7 @@ def main() -> int:
 
     res = {"root": str(root), "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()}
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip(), "ptxas": ptxas}
     gen = torch.Generator().manual_seed(0)
     env = AcroEnv(params=DroneParams(att_mode="quat"))
     rig = default_vision_rig()
@@ -113,11 +134,13 @@ def main() -> int:
     def k2():
         return sk.launch_drone_step(env.params, s15, a4, sph)
 
-    res["k2"] = {"cuda_ms": smoke.cuda_ms(k2, 200), "kernel_ms": kernel_ms(k2, 200, "kernel"),
-                 "checksum": float(k2().double().sum().item())}
+    if want("k2"):
+        res["k2"] = {"cuda_ms": smoke.cuda_ms(k2, 200), "kernel_ms": kernel_ms(k2, 200, "kernel"),
+                     "checksum": float(k2().double().sum().item())}
 
     # K3 at the acro main path's shape, on both worlds
-    for label, w, cyl in (("default", world, None), ("params", pworld, pcyl)):
+    k3_worlds = (("default", world, None), ("params", pworld, pcyl)) if want("k3") else ()
+    for label, w, cyl in k3_worlds:
         st, _ = vector_reset(env, gen, na, w)
         s15, sph = sk.state_to_matrix(st.drone), sk.sphere_matrix(w)
 
@@ -133,11 +156,14 @@ def main() -> int:
     st, _ = vector_reset(env, gen, na, world)
     wm0 = ek.env_world_matrix(world)
     runs = {"fresh": (env, ek.env_state_to_matrix(st), wm0, None)}
-    sb, wb, _ = ek.fused_env_rollout(env, st, hover, world, 1_000_000, seed=7)
-    runs["steady"] = (env, ek.env_state_to_matrix(sb), ek.env_world_matrix(wb), None)
-    st, _ = vector_reset(env_dr, gen, na, pworld)
-    runs["params_dr_wind"] = (env_dr, ek.env_state_to_matrix(st), ek.env_world_matrix(pworld),
-                              pcyl)
+    if want("k4"):
+        sb, wb, _ = ek.fused_env_rollout(env, st, hover, world, 1_000_000, seed=7)
+        runs["steady"] = (env, ek.env_state_to_matrix(sb), ek.env_world_matrix(wb), None)
+        st, _ = vector_reset(env_dr, gen, na, pworld)
+        runs["params_dr_wind"] = (env_dr, ek.env_state_to_matrix(st), ek.env_world_matrix(pworld),
+                                  pcyl)
+    else:
+        runs = {}
     for label, (e, s24, wm, cyl) in runs.items():
         def k4():
             return ek.launch_env_rollout(e, s24, a4, wm, 64, seed=0, cyl_mat=cyl)
@@ -148,84 +174,124 @@ def main() -> int:
                               "resets": resets,
                               "checksum": float(k4()[1].double().sum().item())}
     # K4 on the occupancy probe's largest bank: 1M envs, default world, fresh
-    nb = 1 << 20
-    st, _ = vector_reset(env, gen, nb, world)
-    sb, ab = ek.env_state_to_matrix(st), sk.action_matrix(hover[:1].expand(nb, 4))
+    if want("k4"):
+        nb = 1 << 20
+        st, _ = vector_reset(env, gen, nb, world)
+        sb, ab = ek.env_state_to_matrix(st), sk.action_matrix(hover[:1].expand(nb, 4))
 
-    def k4_big():
-        return ek.launch_env_rollout(env, sb, ab, wm0, 64, seed=0)
+        def k4_big():
+            return ek.launch_env_rollout(env, sb, ab, wm0, 64, seed=0)
 
-    res["k4_1M_envs"] = {"cuda_ms": smoke.cuda_ms(k4_big, 5),
-                         "kernel_ms": kernel_ms(k4_big, 5, "env_rollout_kernel"),
-                         "checksum": float(k4_big()[1].double().sum().item())}
+        res["k4_1M_envs"] = {"cuda_ms": smoke.cuda_ms(k4_big, 5),
+                             "kernel_ms": kernel_ms(k4_big, 5, "env_rollout_kernel"),
+                             "checksum": float(k4_big()[1].double().sum().item())}
 
     # K5 at the vision env's shape
-    venv = VisionAcroEnv(acro=env, renderer="raycast_pallas", target_only=False)
-    vstate, _ = venv.reset_batched(gen, pworld, None, n)
-    cam_pos, cam_R = venv._camera(vstate)
-    cfg = vk.RenderConfig.for_world(pworld, venv.max_depth)
-    dcam = torch.from_numpy(vk.flat_dcam(rig)).to(dev)
-    cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld)
+    if want("k5"):
+        venv = VisionAcroEnv(acro=env, renderer="raycast_pallas", target_only=False)
+        vstate, _ = venv.reset_batched(gen, pworld, None, n)
+        cam_pos, cam_R = venv._camera(vstate)
+        cfg = vk.RenderConfig.for_world(pworld, venv.max_depth)
+        dcam = torch.from_numpy(vk.flat_dcam(rig)).to(dev)
+        cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(pworld)
 
-    def k5():
-        return vk.launch_render_depth(cfg, dcam, cam, wcol)
+        def k5():
+            return vk.launch_render_depth(cfg, dcam, cam, wcol)
 
-    res["k5"] = {"cuda_ms": smoke.cuda_ms(k5, 200),
-                 "kernel_ms": kernel_ms(k5, 200, "render_depth_kernel"),
-                 "checksum": float(k5().double().sum().item())}
+        res["k5"] = {"cuda_ms": smoke.cuda_ms(k5, 200),
+                     "kernel_ms": kernel_ms(k5, 200, "render_depth_kernel"),
+                     "checksum": float(k5().double().sum().item())}
 
     # K6 from a fresh reset and on a steady-state bank
-    st, _ = vector_reset(env, gen, n, world)
-    banks = {"fresh": (vk.chase_state_matrix(st), ek.env_world_matrix(world))}
-    st, w, _, _, _ = vk.fused_vision_env_rollout(env, st, world, 8192)
-    banks["steady"] = (vk.chase_state_matrix(st), ek.env_world_matrix(w))
-    for label, (s28, wm) in banks.items():
-        def k6():
-            return vk.launch_vision_env_rollout(env, s28, wm, 64, rig)
+    if want("k6"):
+        st, _ = vector_reset(env, gen, n, world)
+        banks = {"fresh": (vk.chase_state_matrix(st), ek.env_world_matrix(world))}
+        st, w, _, _, _ = vk.fused_vision_env_rollout(env, st, world, 8192)
+        banks["steady"] = (vk.chase_state_matrix(st), ek.env_world_matrix(w))
+        for label, (s28, wm) in banks.items():
+            def k6():
+                return vk.launch_vision_env_rollout(env, s28, wm, 64, rig)
 
-        res[f"k6_{label}"] = {"cuda_ms": smoke.cuda_ms(k6, 20),
-                              "kernel_ms": kernel_ms(k6, 20, "chase_kernel"),
-                              "checksum": float(k6()[1].double().sum().item())}
+            res[f"k6_{label}"] = {"cuda_ms": smoke.cuda_ms(k6, 20),
+                                  "kernel_ms": kernel_ms(k6, 20, "chase_kernel"),
+                                  "checksum": float(k6()[1].double().sum().item())}
 
     # bench.py::measure_vision's K-slope on the chase main path
-    st, _ = vector_reset(env, gen, n, world)
+    if want("chase"):
+        st, _ = vector_reset(env, gen, n, world)
 
-    def chase(k: int, seed: int) -> float:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = vk.fused_vision_env_rollout(env, st, world, k, seed=seed)
-        out[2].sum().item()  # completion on the host is part of the time
-        return time.perf_counter() - t
+        def chase(k: int, seed: int) -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = vk.fused_vision_env_rollout(env, st, world, k, seed=seed)
+            out[2].sum().item()  # completion on the host is part of the time
+            return time.perf_counter() - t
 
-    slope = {}
-    for kk in (512, 2048):
-        chase(kk, 7)
-        slope[kk] = min(chase(kk, 8 + r) for r in range(3))
-    res["chase_k_slope"] = n * (2048 - 512) / (slope[2048] - slope[512])
+        slope = {}
+        for kk in (512, 2048):
+            chase(kk, 7)
+            slope[kk] = min(chase(kk, 8 + r) for r in range(3))
+        res["chase_k_slope"] = n * (2048 - 512) / (slope[2048] - slope[512])
 
     # K7 and K8 at the trainers' shapes (bf16), K7 in float32 at phase 11's
     from fpyv_tpu_torch.ops import policy_kernel as pk
     from fpyv_tpu_torch.ops import race_kernel as rk
 
-    for label, nk, steps, bf16 in (("k7", n, smoke.K7_STEPS, True), ("k7_f32", 64, 16, False)):
-        e7, _, cols, w, cfg, wcol = smoke.policy_setup(dev, gen, nk, 1000, bf16=bf16)
+    def rollout_entry(launch, reps: int, name: str, nk: int, probe: bool) -> dict:
+        out = launch(None)
+        entry = {"cuda_ms": smoke.cuda_ms(lambda: launch(None), reps),
+                 "kernel_ms": kernel_ms(lambda: launch(None), reps, name),
+                 "checksum": float(out[2].double().sum().item()),
+                 "frames_checksum": float(out[0].double().sum().item())}
+        if probe:  # the instrumented instantiation's phases (bf16 weights)
+            ns = torch.zeros(pk.N_PHASES, dtype=torch.int64, device=dev)
+            launch(ns)
+            ns.zero_()
+            launch(ns)
+            entry["phases_ms"] = pk.phase_split_ms(ns, nk)
+        return entry
 
-        def k7():
-            return pk.launch_policy_vision_rollout(e7, rig, cols, wcol, cfg, w, steps, 9)
+    if want("k7"):
+        for label, nk, steps, bf16 in (("k7", n, smoke.K7_STEPS, True),
+                                       ("k7_f32", 64, 16, False)):
+            e7, _, cols, w, cfg, wcol = smoke.policy_setup(dev, gen, nk, 1000, bf16=bf16)
+            res[label] = rollout_entry(
+                lambda ns: pk.launch_policy_vision_rollout(e7, rig, cols, wcol, cfg, w, steps, 9,
+                                                           phase_ns=ns),
+                5, "policy_vision_rollout_kernel", nk, bf16)
+    if want("k8"):
+        venv, rcols, rhist, rw, rwcol, rocol = smoke.race_setup(dev, gen, n, smoke.RACE_STACK,
+                                                                0, 2000, bf16=True)
+        res["k8"] = rollout_entry(
+            lambda ns: rk.launch_race_vision_rollout(venv, rcols, rhist, rwcol, rocol, rw,
+                                                     smoke.K7_STEPS, 9, phase_ns=ns),
+            5, "race_vision_rollout_kernel", n, True)
+    # the K7 and K8 trainers' iteration at bench.py's recipes, split with CUDA
+    # events into the rollout (one launch and the bootstrap frame) and the rest
+    from fpyv_tpu_torch.apps.train import make_vision_race_trainer, make_vision_trainer
 
-        res[label] = {"cuda_ms": smoke.cuda_ms(k7, 5),
-                      "kernel_ms": kernel_ms(k7, 5, "policy_vision_rollout_kernel"),
-                      "checksum": float(k7()[2].double().sum().item())}
-    venv, rcols, rhist, rw, rwcol, rocol = smoke.race_setup(dev, gen, n, smoke.RACE_STACK, 0,
-                                                            2000, bf16=True)
-
-    def k8():
-        return rk.launch_race_vision_rollout(venv, rcols, rhist, rwcol, rocol, rw,
-                                             smoke.K7_STEPS, 9)
-
-    res["k8"] = {"cuda_ms": smoke.cuda_ms(k8, 5),
-                 "kernel_ms": kernel_ms(k8, 5, "race_vision_rollout_kernel"),
-                 "checksum": float(k8()[2].double().sum().item())}
+    makers = {"t7": lambda: make_vision_trainer(num_envs=n),
+              "t8": lambda: make_vision_race_trainer(num_envs=n, frame_stack=smoke.RACE_STACK,
+                                                     gate_size=5.0)}
+    for label, make in makers.items():
+        if not want(label):
+            continue
+        trainer = make()
+        tstate, _ = trainer.train_iteration(trainer.state)  # warm-up
+        split = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            trainer.rollout_fn(tstate)
+            ev[1].record()
+            ev[2].record()
+            tstate, _ = trainer.train_iteration(tstate)
+            ev[3].record()
+            torch.cuda.synchronize()
+            split.append((ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3])))
+        res[label] = {"rollout_ms": min(r for r, _ in split),
+                      "iteration_ms": min(i for _, i in split),
+                      "all": [[round(a, 6), round(b, 6)] for a, b in split]}
     print(json.dumps(res))
     return 0
 
