@@ -111,7 +111,7 @@ from fpyv_tpu_torch.rl.ppo import (
 from fpyv_tpu_torch.rl.sac import SacConfig, make_sac
 from fpyv_tpu_torch.utils.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from fpyv_tpu_torch.utils.metrics import MetricsLogger
-from fpyv_tpu_torch.utils.profiling import Throughput
+from fpyv_tpu_torch.utils.profiling import Throughput, span
 from fpyv_tpu_torch.world.randomize import curriculum_worlds
 
 
@@ -135,7 +135,9 @@ def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, 
     and last rewards are the info ``reward_key``'s. ``log_row(it)``
     (optional) picks the iterations the metrics log keeps (every one by
     default). Over a ``mesh`` (``num_envs`` the global count) rank 0 alone
-    logs, and each rank checkpoints its shard."""
+    logs, and each rank checkpoints its shard. Under ``torch.profiler``
+    (``utils.profiling.trace``) each chunk is a ``train.chunk`` span and
+    its read-back a ``train.readback`` span."""
     lead = mesh is None or mesh.rank == 0
     logger = MetricsLogger(log_dir if lead else None, print_every=print_every if lead else 0)
     shard = None if mesh is None else (mesh.rank, mesh.size)
@@ -148,9 +150,11 @@ def _train_loop(state, train_iteration, *, num_envs, num_steps, num_iterations, 
         n = min(scan_chunk, end - it)
         if chunk_hook is not None:
             state = chunk_hook(state, it)
-        state, infos = scan_train(train_iteration, state, n)
+        with span("train.chunk"):
+            state, infos = scan_train(train_iteration, state, n)
         keys = list(infos)
-        host = torch.stack([infos[k].to(torch.float32) for k in keys]).cpu().numpy()
+        with span("train.readback"):
+            host = torch.stack([infos[k].to(torch.float32) for k in keys]).cpu().numpy()
         rewards = host[keys.index(reward_key)].astype(np.float64)
         if first_chunk:
             first_reward = float(rewards[0])

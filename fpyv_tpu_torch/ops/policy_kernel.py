@@ -70,6 +70,7 @@ from fpyv_tpu_torch.ops.vision_kernel import (
     world_cols,
 )
 from fpyv_tpu_torch.physics.world import World
+from fpyv_tpu_torch.utils.profiling import span
 from fpyv_tpu_torch.vision.camera import CameraRig, camera_pose, pixel_ray_grid
 
 ROWS = 18
@@ -640,6 +641,10 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
       value with one batched (T*N) forward of ``net`` (the epoch-0 ratio is
       then exactly 1); otherwise the kernel's own are used.
     - the PPO ``env_state`` is the raw (N, 18) state matrix.
+
+    Under ``torch.profiler`` a ``rollout_fn`` call is a ``rollout`` span
+    with K8's children (:func:`~fpyv_tpu_torch.ops.race_kernel.make_kernel_race_ppo_parts`),
+    ``rollout.boot`` being ``obs_from_cols``.
     """
     from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
 
@@ -674,27 +679,36 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
     def make_rollout_fn(num_steps: int, compute_dtype=torch.bfloat16,
                         exact_logprob: bool = True):
         def rollout_fn(state):
+            with span("rollout"):
+                return rollout(state)
+
+        def rollout(state):
             seed = int(torch.randint(0, 2**31 - 1, (), generator=state.generator,
                                      device=state.generator.device))
-            weights = build_policy_weights(state.params, compute_dtype)
-            frames, extra, aux, cols_out = fused_policy_vision_rollout(
-                env, rig, state.env_state, worlds, weights, num_steps, seed, venv.max_depth,
-                ground_extent=venv.ground_extent, frame_width=venv.frame_width,
-                patch_pool=net.patch_pool)
+            with span("rollout.weights"):
+                weights = build_policy_weights(state.params, compute_dtype)
+            with span("rollout.launch"):
+                frames, extra, aux, cols_out = fused_policy_vision_rollout(
+                    env, rig, state.env_state, worlds, weights, num_steps, seed,
+                    venv.max_depth, ground_extent=venv.ground_extent,
+                    frame_width=venv.frame_width, patch_pool=net.patch_pool)
             obs = {"pixels": frames, "proprio": extra[..., :5]}
             action = aux[..., 0:4]
             T, N = frames.shape[0], frames.shape[1]
             if exact_logprob:
-                flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
-                mean, log_std, value = apply_fn(state.params, flat)
-                log_prob = gaussian_log_prob(mean, log_std, action.reshape(-1, 4)).reshape(T, N)
-                value = value.reshape(T, N)
+                with span("rollout.logprob"):
+                    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
+                    mean, log_std, value = apply_fn(state.params, flat)
+                    log_prob = gaussian_log_prob(mean, log_std,
+                                                 action.reshape(-1, 4)).reshape(T, N)
+                    value = value.reshape(T, N)
             else:
                 value, log_prob = aux[..., 6], aux[..., 7]
             # terminations only: GAE bootstraps across time-limit truncations
             traj = Transition(obs=obs, action=action, log_prob=log_prob, value=value,
                               reward=aux[..., 4], done=aux[..., 5] > 0.5)
-            return cols_out, obs_from_cols(cols_out), traj
+            with span("rollout.boot"):
+                return cols_out, obs_from_cols(cols_out), traj
 
         return rollout_fn
 

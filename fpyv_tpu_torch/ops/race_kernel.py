@@ -89,6 +89,7 @@ from fpyv_tpu_torch.ops.vision_kernel import (
     world_cols,
 )
 from fpyv_tpu_torch.physics.world import World
+from fpyv_tpu_torch.utils.profiling import span
 from fpyv_tpu_torch.vision.camera import camera_pose
 
 RROWS = 22
@@ -498,6 +499,11 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
       ``state.generator``; ``exact_logprob`` recomputes log_prob and value
       with one batched forward of ``net``, else the kernel's own are used.
     - ``race_metrics(carry)``: mean gates passed and gates per 100 steps.
+
+    Under ``torch.profiler`` a ``rollout_fn`` call is a ``rollout`` span
+    holding ``rollout.weights``, ``rollout.launch`` (the fused wrapper: its
+    checks, constants, their copies and the launch), ``rollout.logprob``
+    (with ``exact_logprob``) and ``rollout.boot`` (``obs_from_carry``).
     """
     from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
 
@@ -556,20 +562,29 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
     def make_rollout_fn(num_steps: int, compute_dtype=torch.bfloat16,
                         exact_logprob: bool = True):
         def rollout_fn(state):
+            with span("rollout"):
+                return rollout(state)
+
+        def rollout(state):
             seed = int(torch.randint(0, 2**31 - 1, (), generator=state.generator,
                                      device=state.generator.device))
-            weights = build_policy_weights(state.params, compute_dtype)
+            with span("rollout.weights"):
+                weights = build_policy_weights(state.params, compute_dtype)
             cols, hist = state.env_state
-            frames, extra, aux, cols_out = fused_race_vision_rollout(
-                venv, cols, hist, world, weights, num_steps, seed, patch_pool=net.patch_pool)
+            with span("rollout.launch"):
+                frames, extra, aux, cols_out = fused_race_vision_rollout(
+                    venv, cols, hist, world, weights, num_steps, seed,
+                    patch_pool=net.patch_pool)
             obs = {"pixels": frames, "proprio": extra[..., :5 + G]}
             action = aux[..., 0:4]
             T, N = frames.shape[0], frames.shape[1]
             if exact_logprob:
-                flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
-                mean, log_std, value = apply_fn(state.params, flat)
-                log_prob = gaussian_log_prob(mean, log_std, action.reshape(-1, 4)).reshape(T, N)
-                value = value.reshape(T, N)
+                with span("rollout.logprob"):
+                    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
+                    mean, log_std, value = apply_fn(state.params, flat)
+                    log_prob = gaussian_log_prob(mean, log_std,
+                                                 action.reshape(-1, 4)).reshape(T, N)
+                    value = value.reshape(T, N)
             else:
                 value, log_prob = aux[..., 6], aux[..., 7]
             # the env's end is the agent's: bootstrapping across a respawn
@@ -578,7 +593,8 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
                               reward=aux[..., 4], done=aux[..., 5] > 0.5)
             new_hist = frames[-1].reshape(N, NP, K, PP)[:, :, 1:].reshape(N, NP * (K - 1) * PP)
             carry = (cols_out, new_hist)
-            return carry, obs_from_carry(carry), traj
+            with span("rollout.boot"):
+                return carry, obs_from_carry(carry), traj
 
         return rollout_fn
 

@@ -29,6 +29,14 @@ learner replays whole env sequences from the iteration's first hidden.
 minibatch's gradients, with one all-reduce, before the clip; the
 rollouts take a ``part`` (this rank's rows of the bank) and draw the
 action noise for the whole bank (:mod:`fpyv_tpu_torch.parallel.train`).
+
+Spans (:func:`fpyv_tpu_torch.utils.profiling.span`, recorded under
+``torch.profiler`` only): each ``train_iteration`` is a ``ppo.iteration``
+holding ``ppo.rollout``, ``ppo.gae`` (the bootstrap value, GAE and the
+flatten), a ``ppo.shuffle`` an epoch, a ``ppo.minibatch`` a minibatch
+(``ppo.loss``: forward and terms; ``ppo.backward``: the gradients, their
+all-reduce under ``axis_name`` included; ``ppo.clip``; ``ppo.adam``) and
+``ppo.info``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from fpyv_tpu_torch.device import divisor
 from fpyv_tpu_torch.envs.base import Part
 from fpyv_tpu_torch.rl.gae import compute_gae
+from fpyv_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -216,18 +225,32 @@ def _numerics(net):
 
 
 def _update(net, opt, loss, config: PpoConfig) -> None:
-    opt.zero_grad(set_to_none=True)
-    with _numerics(net):
-        loss.backward()
-    if config.axis_name is not None:
-        # JAX pmeans the gradients before optax's clip; the import waits
-        # for the first call, since parallel.train imports this module
-        from fpyv_tpu_torch.parallel.mesh import axis_mesh, pmean_
+    with span("ppo.backward"):
+        opt.zero_grad(set_to_none=True)
+        with _numerics(net):
+            loss.backward()
+        if config.axis_name is not None:
+            # JAX pmeans the gradients before optax's clip; the import waits
+            # for the first call, since parallel.train imports this module
+            from fpyv_tpu_torch.parallel.mesh import axis_mesh, pmean_
 
-        pmean_([p.grad for p in net.parameters() if p.grad is not None],
-               axis_mesh(config.axis_name))
-    clip_by_global_norm_(net.parameters(), config.max_grad_norm)
-    opt.step()
+            pmean_([p.grad for p in net.parameters() if p.grad is not None],
+                   axis_mesh(config.axis_name))
+    with span("ppo.clip"):
+        clip_by_global_norm_(net.parameters(), config.max_grad_norm)
+    with span("ppo.adam"):
+        opt.step()
+
+
+def _minibatch(net, opt, config: PpoConfig, loss_fn, losses, metrics) -> None:
+    """One minibatch's update: ``loss_fn() -> (loss, terms)`` under
+    ``ppo.loss``, then :func:`_update`; the loss and terms are appended."""
+    with span("ppo.loss"):
+        loss, m = loss_fn()
+    _update(net, opt, loss, config)
+    losses.append(loss.detach())
+    for k, v in m.items():
+        metrics.setdefault(k, []).append(v.detach())
 
 
 def _ppo_terms(config: PpoConfig, batch: "Transition", log_prob, value, entropy_log_std,
@@ -323,19 +346,25 @@ def make_ppo(
         return _ppo_terms(config, batch, log_prob, value, log_std, advantages, targets)
 
     def train_iteration(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
+        with span("ppo.iteration"):
+            return iterate(state)
+
+    def iterate(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
         net, opt, gen = state.params, state.opt_state, state.generator
-        with torch.no_grad():
-            env_state, last_obs, traj = rollout(state)
-            _, _, last_value = apply_fn(net, last_obs)
-            advantages, targets = compute_gae(traj.reward, traj.value, traj.done, last_value,
-                                              config.gamma, config.gae_lambda)
 
         def flat(x):
             return x.reshape((-1,) + tuple(x.shape[2:]))
 
-        batch = Transition(**{f.name: _tree_map(flat, getattr(traj, f.name))
-                              for f in dataclasses.fields(Transition)})
-        advantages, targets = flat(advantages), flat(targets)
+        with torch.no_grad():
+            with span("ppo.rollout"):
+                env_state, last_obs, traj = rollout(state)
+            with span("ppo.gae"):
+                _, _, last_value = apply_fn(net, last_obs)
+                advantages, targets = compute_gae(traj.reward, traj.value, traj.done,
+                                                  last_value, config.gamma, config.gae_lambda)
+                batch = Transition(**{f.name: _tree_map(flat, getattr(traj, f.name))
+                                      for f in dataclasses.fields(Transition)})
+                advantages, targets = flat(advantages), flat(targets)
         batch_size = config.num_steps * _leading(last_obs)
         mb_size = batch_size // config.num_minibatches
         block = max(1, config.shuffle_block)
@@ -346,28 +375,29 @@ def make_ppo(
 
         losses, metrics = [], {}
         for _ in range(config.update_epochs):
-            perm = permutation(n_blocks, gen, device)
+            with span("ppo.shuffle"):
+                perm = permutation(n_blocks, gen, device)
 
-            def shuffle(x):
-                xb = x.reshape((n_blocks, block) + tuple(x.shape[1:]))
-                return xb[perm].reshape((batch_size,) + tuple(x.shape[1:]))
+                def shuffle(x):
+                    xb = x.reshape((n_blocks, block) + tuple(x.shape[1:]))
+                    return xb[perm].reshape((batch_size,) + tuple(x.shape[1:]))
 
-            shuffled = Transition(**{f.name: _tree_map(shuffle, getattr(batch, f.name))
-                                     for f in dataclasses.fields(Transition)})
-            adv_sh, tgt_sh = shuffle(advantages), shuffle(targets)
+                shuffled = Transition(**{f.name: _tree_map(shuffle, getattr(batch, f.name))
+                                         for f in dataclasses.fields(Transition)})
+                adv_sh, tgt_sh = shuffle(advantages), shuffle(targets)
             for idx in range(config.num_minibatches):
-                sl = slice(idx * mb_size, (idx + 1) * mb_size)
-                mb = Transition(**{f.name: _tree_map(lambda x: x[sl], getattr(shuffled, f.name))
-                                   for f in dataclasses.fields(Transition)})
-                loss, m = _loss(net, mb, adv_sh[sl], tgt_sh[sl])
-                _update(net, opt, loss, config)
-                losses.append(loss.detach())
-                for k, v in m.items():
-                    metrics.setdefault(k, []).append(v.detach())
+                with span("ppo.minibatch"):
+                    sl = slice(idx * mb_size, (idx + 1) * mb_size)
+                    mb = Transition(**{f.name: _tree_map(lambda x: x[sl],
+                                                         getattr(shuffled, f.name))
+                                       for f in dataclasses.fields(Transition)})
+                    _minibatch(net, opt, config,
+                               lambda: _loss(net, mb, adv_sh[sl], tgt_sh[sl]), losses, metrics)
 
         new_state = state.replace(env_state=env_state, last_obs=last_obs,
                                   update_count=state.update_count + 1)
-        return new_state, _info(losses, metrics, traj, metrics_fn, env_state)
+        with span("ppo.info"):
+            return new_state, _info(losses, metrics, traj, metrics_fn, env_state)
 
     return init, train_iteration
 
@@ -448,13 +478,19 @@ def make_recurrent_ppo(
                           log_stds[0], advantages, targets)
 
     def train_iteration(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
+        with span("ppo.iteration"):
+            return iterate(state)
+
+    def iterate(state: PpoState) -> Tuple[PpoState, Dict[str, torch.Tensor]]:
         net, opt, gen = state.params, state.opt_state, state.generator
         h0 = state.env_state[1]  # the hidden at the rollout's first step
         with torch.no_grad():
-            (env_state, hidden), last_obs, traj = rollout(state)
-            _, _, last_value, _ = apply_fn(net, last_obs, hidden)
-            advantages, targets = compute_gae(traj.reward, traj.value, traj.done, last_value,
-                                              config.gamma, config.gae_lambda)
+            with span("ppo.rollout"):
+                (env_state, hidden), last_obs, traj = rollout(state)
+            with span("ppo.gae"):
+                _, _, last_value, _ = apply_fn(net, last_obs, hidden)
+                advantages, targets = compute_gae(traj.reward, traj.value, traj.done,
+                                                  last_value, config.gamma, config.gae_lambda)
 
         num_envs = traj.reward.shape[1]
         mb_envs = num_envs // config.num_minibatches
@@ -470,24 +506,24 @@ def make_recurrent_ppo(
 
         losses, metrics = [], {}
         for _ in range(config.update_epochs):
-            perm = permutation(n_blocks, gen, device)
+            with span("ppo.shuffle"):
+                perm = permutation(n_blocks, gen, device)
             for idx in range(config.num_minibatches):
-                bidx = perm[idx * blocks_per_mb:(idx + 1) * blocks_per_mb]
-                mb = Transition(**{f.name: _tree_map(lambda x: take(x, bidx),
-                                                     getattr(traj, f.name))
-                                   for f in dataclasses.fields(Transition)})
-                h0_mb = h0.reshape((n_blocks, block) + tuple(h0.shape[1:]))[bidx].reshape(
-                    (mb_envs,) + tuple(h0.shape[1:]))
-                loss, m = _seq_loss(net, mb, h0_mb, take(advantages, bidx),
-                                    take(targets, bidx))
-                _update(net, opt, loss, config)
-                losses.append(loss.detach())
-                for k, v in m.items():
-                    metrics.setdefault(k, []).append(v.detach())
+                with span("ppo.minibatch"):
+                    bidx = perm[idx * blocks_per_mb:(idx + 1) * blocks_per_mb]
+                    mb = Transition(**{f.name: _tree_map(lambda x: take(x, bidx),
+                                                         getattr(traj, f.name))
+                                       for f in dataclasses.fields(Transition)})
+                    h0_mb = h0.reshape((n_blocks, block) + tuple(h0.shape[1:]))[bidx].reshape(
+                        (mb_envs,) + tuple(h0.shape[1:]))
+                    _minibatch(net, opt, config,
+                               lambda: _seq_loss(net, mb, h0_mb, take(advantages, bidx),
+                                                 take(targets, bidx)), losses, metrics)
 
         new_state = state.replace(env_state=(env_state, hidden), last_obs=last_obs,
                                   update_count=state.update_count + 1)
-        return new_state, _info(losses, metrics, traj, metrics_fn, env_state)
+        with span("ppo.info"):
+            return new_state, _info(losses, metrics, traj, metrics_fn, env_state)
 
     return init, train_iteration
 

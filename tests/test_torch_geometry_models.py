@@ -34,7 +34,7 @@ from fpyv_tpu_torch import interop
 from fpyv_tpu_torch.models import nn
 from fpyv_tpu_torch.models.terrain import TerrainNet, terrain_heightmap
 from fpyv_tpu_torch.physics.racer import RacerParams, racer_reset, racer_step
-from fpyv_tpu_torch.utils.profiling import measure_steps_per_second, trace
+from fpyv_tpu_torch.utils.profiling import trace
 from fpyv_tpu_torch.vision import geometry as geo
 from tests.test_racer_and_io import oracle_racer_steps
 
@@ -295,5 +295,3 @@ def test_trace_writes_a_trace_and_measure_rate(tmp_path):
     assert files and files[0].stat().st_size > 0
     with trace(None):
         pass
-    rate, state = measure_steps_per_second(lambda s: s + 1, torch.zeros(1), 10, 4)
-    assert rate > 0 and state.item() == 2.0

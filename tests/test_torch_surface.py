@@ -3,8 +3,8 @@
 Pallas kernel modules map to the CUDA kernels' modules, ``PALLAS``), every
 public top-level name of each JAX module resolves in its counterpart and
 every name an ``__init__`` of JAX's re-exports is re-exported by the
-port's (exceptions listed in ``RENAMED`` and ``TPU_ONLY`` with their
-reasons), and every module of the port imports. Read from the sources
+port's (exceptions listed in ``RENAMED``, ``TPU_ONLY`` and ``DROPPED``
+with their reasons), and every module of the port imports. Read from the sources
 with ``ast``: no JAX module is imported here.
 """
 
@@ -39,6 +39,9 @@ RENAMED = {
 # the TPU's tile constants: the CUDA kernels lay out one env a thread (or
 # four lanes an env), with no (8, N/8) sublane tiles
 TPU_ONLY = {"ops/pallas_step.py": {"SUBLANES"}, "ops/pallas_vision.py": {"E_BLK"}}
+# JAX names the port removed: a one-call steps/s meter that nothing of the
+# port read (the trainers' ``Throughput`` and the benchmark time their rates)
+DROPPED = {"utils/profiling.py": {"measure_steps_per_second"}}
 
 
 def _jax_modules():
@@ -80,8 +83,9 @@ def test_every_public_name_resolves(rel):
     itself (not merely reachable as a submodule someone else imported)."""
     defined, reexported = _bound_names(JAX_PKG / rel)
     module = importlib.import_module(_port_module(rel))
-    renamed, tpu_only = RENAMED.get(rel, {}), TPU_ONLY.get(rel, set())
-    missing = sorted(n for n in defined - tpu_only
+    renamed = RENAMED.get(rel, {})
+    left_out = TPU_ONLY.get(rel, set()) | DROPPED.get(rel, set())
+    missing = sorted(n for n in defined - left_out
                      if not hasattr(module, renamed.get(n, n)))
     if rel.endswith("__init__.py"):
         port_defined, port_reexported = _bound_names(PORT_PKG / rel)
@@ -99,6 +103,10 @@ def test_the_tables_name_real_names():
             assert jax_name in defined and callable(getattr(module, port_name)), jax_name
     for rel, names in TPU_ONLY.items():
         assert names <= _bound_names(JAX_PKG / rel)[0]
+    for rel, names in DROPPED.items():
+        assert names <= _bound_names(JAX_PKG / rel)[0]
+        module = importlib.import_module(_port_module(rel))
+        assert not any(hasattr(module, n) for n in names)
 
 
 def test_every_port_module_imports_without_a_build_or_a_cycle():
