@@ -65,8 +65,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fpyv_tpu_torch.device import divisor
-
 # Flax's lecun_normal draws a normal truncated at +-2 std, scaled so the
 # truncated variable has the asked std (jax.nn.initializers.variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -286,6 +284,11 @@ class PixelActorCritic(nn.Module):
         self.pi_mean = nn.Linear(width, action_dim, **kw)
         self.v_out = nn.Linear(width, 1, **kw)
         self.log_std = nn.Parameter(torch.full((action_dim,), float(log_std_init), **kw))
+        # uint8 levels are divided by this float32 255 on the net's device: a
+        # true division (the kernels'; CUDA multiplies by the reciprocal of
+        # a Python scalar), made here once, so a forward copies nothing from
+        # the host and can be captured in a CUDA graph; not in the state dict
+        self.register_buffer("level_scale", torch.tensor(255.0, **kw), persistent=False)
 
     # Flax names the pool layer "patch_pool" and the cell "gru", the config
     # fields' names here
@@ -368,7 +371,7 @@ class PixelActorCritic(nn.Module):
         dt = self.compute_dtype
         if pixels.dtype == torch.uint8:
             # via float32 true division, as the kernel's policy input
-            pixels = pixels.to(torch.float32) / divisor(255.0, pixels)
+            pixels = pixels.to(torch.float32) / self.level_scale
         if self.torso == "conv":
             if pixels.ndim < 3 or proprio.ndim + 1 >= pixels.ndim:
                 pixels = pixels[..., None, :, :]  # one frame: K = 1 channel

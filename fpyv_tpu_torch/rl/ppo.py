@@ -37,6 +37,22 @@ flatten), a ``ppo.shuffle`` an epoch, a ``ppo.minibatch`` a minibatch
 (``ppo.loss``: forward and terms; ``ppo.backward``: the gradients, their
 all-reduce under ``axis_name`` included; ``ppo.clip``; ``ppo.adam``) and
 ``ppo.info``.
+
+CUDA graphs (:class:`_Graphs`): where the parameters are on CUDA, the
+optimizer is the capturable ``torch.optim.Adam`` that :func:`make_optimizer`
+gives there, and no mesh axis averages the gradients, ``make_ppo`` captures
+each minibatch position's update (the same :func:`_minibatch`: forward, PPO
+terms, backward, clip, Adam) once as a CUDA graph and replays it, one launch
+a minibatch in place of some two hundred and no host sync. The first
+iteration, and the first after what the update touches changed, run eagerly
+on a side stream (the warm-up, which also makes Adam's state); the next one
+captures. A replayed minibatch is a ``ppo.replay`` span, a
+capture a ``ppo.capture`` holding the captured spans; ``ppo.loss``,
+``ppo.backward``, ``ppo.clip`` and ``ppo.adam`` open only in eager
+minibatches and in a capture. Everywhere else (the CPU, ``AdamBf16Mu``,
+``axis_name``, :func:`make_recurrent_ppo`) the update runs eagerly; under
+``axis_name`` on CUDA with the same capturable Adam, so that a rank of a
+mesh steps as one process does.
 """
 
 from __future__ import annotations
@@ -44,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -121,10 +138,12 @@ def gaussian_entropy(log_std):
     return torch.sum(log_std + _HALF_LOG_2PIE, dim=-1)
 
 
-def _tree_map(fn, x):
+def _tree_map(fn, x, *rest):
+    """``fn`` over the leaves of ``x`` (a tensor or a dict of them), each
+    with the same leaf of every tree in ``rest``."""
     if isinstance(x, dict):
-        return {k: fn(v) for k, v in x.items()}
-    return fn(x)
+        return {k: fn(v, *(r[k] for r in rest)) for k, v in x.items()}
+    return fn(x, *rest)
 
 
 def _leading(x) -> int:
@@ -188,11 +207,32 @@ class AdamBf16Mu(torch.optim.Optimizer):
             st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
 
 
-def make_optimizer(params: torch.nn.Module, config: PpoConfig) -> torch.optim.Optimizer:
-    """optax's ``adam(lr, eps=1e-5, mu_dtype=...)`` for ``config``."""
+def make_optimizer(params: torch.nn.Module, config: PpoConfig,
+                   capturable: bool = False) -> torch.optim.Optimizer:
+    """optax's ``adam(lr, eps=1e-5, mu_dtype=...)`` for ``config``. With
+    ``capturable`` and the parameters on CUDA, ``torch.optim.Adam`` keeps its
+    step count on the device and takes its bias corrections there, so that
+    its step can be captured in a CUDA graph (``make_ppo``'s learners);
+    ``AdamBf16Mu`` is never capturable."""
     if config.adam_mu_dtype == "bf16":
         return AdamBf16Mu(params.parameters(), lr=config.learning_rate, eps=1e-5)
-    return torch.optim.Adam(params.parameters(), lr=config.learning_rate, eps=1e-5)
+    capturable = capturable and all(p.is_cuda for p in params.parameters())
+    opt = torch.optim.Adam(params.parameters(), lr=config.learning_rate, eps=1e-5,
+                           capturable=capturable)
+
+    def keep_capturable(optimizer):
+        # a loaded state carries its writer's flag; keep this one's, and its
+        # step counts where it keeps them (the device, else the CPU)
+        for group in optimizer.param_groups:
+            group["capturable"] = capturable
+            for p in group["params"]:
+                st = optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(device=p.device if capturable else "cpu",
+                                               dtype=torch.float32)
+
+    opt.register_load_state_dict_post_hook(keep_capturable)
+    return opt
 
 
 def action_noise(mean: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -224,6 +264,10 @@ def _numerics(net):
     return scope() if scope is not None else contextlib.nullcontext()
 
 
+# torch.optim's warning on a capturable optimizer stepped outside a capture
+_UNCAPTURED = "This instance was constructed with capturable=True"
+
+
 def _update(net, opt, loss, config: PpoConfig) -> None:
     with span("ppo.backward"):
         opt.zero_grad(set_to_none=True)
@@ -238,7 +282,9 @@ def _update(net, opt, loss, config: PpoConfig) -> None:
                    axis_mesh(config.axis_name))
     with span("ppo.clip"):
         clip_by_global_norm_(net.parameters(), config.max_grad_norm)
-    with span("ppo.adam"):
+    with span("ppo.adam"), warnings.catch_warnings():
+        # a capturable Adam steps eagerly in a graph's warm-up and on a mesh
+        warnings.filterwarnings("ignore", message=_UNCAPTURED)
         opt.step()
 
 
@@ -251,6 +297,110 @@ def _minibatch(net, opt, config: PpoConfig, loss_fn, losses, metrics) -> None:
     losses.append(loss.detach())
     for k, v in m.items():
         metrics.setdefault(k, []).append(v.detach())
+
+
+def _graphable(net, opt, config: PpoConfig) -> bool:
+    """Whether :class:`_Graphs` can run this learner's update: the
+    parameters on CUDA, the capturable ``torch.optim.Adam`` (a subclass may
+    step on the host), no mesh axis (the all-reduce stays eager)."""
+    return (config.axis_name is None and type(opt) is torch.optim.Adam
+            and all(g["capturable"] for g in opt.param_groups)
+            and all(p.is_cuda for p in net.parameters()))
+
+
+def _graph_key(net, opt):
+    """What a captured update reads and writes in place, and the functions
+    it ran: when any of it changes (``opt.load_state_dict``, another net,
+    another learning rate, a replaced ``_update``), the graphs are stale."""
+    params = tuple((id(p), p.data_ptr()) for p in net.parameters())
+    moments = tuple((id(v), v.data_ptr()) for st in opt.state.values() for v in st.values()
+                    if torch.is_tensor(v))
+    groups = tuple(tuple((k, v) for k, v in g.items() if k != "params")
+                   for g in opt.param_groups)
+    return id(opt), params, moments, groups, _minibatch, _update, _ppo_terms
+
+
+class _Graphs:
+    """``make_ppo``'s minibatch updates as CUDA graphs, one a minibatch
+    position in one memory pool, captured together and replayed.
+
+    The epoch's shuffle fills the static inputs that :meth:`start` returns
+    (a full batch, laid out as the eager shuffle's output), and each
+    position's graph reads its rows there. A minibatch replays only where
+    :func:`_graph_key` reads what the previous iteration left at this batch
+    shape and device: so the first iteration, and the first after a change
+    (``opt.load_state_dict``, another net or optimizer), run eagerly on a
+    side stream (the warm-up, which also makes Adam's state), and the next
+    captures the graphs again. The loss and terms are cloned out of the
+    graph after each replay."""
+
+    def __init__(self):
+        self.stream = None  # the warm-up's and the captures' stream
+        self.inputs = None  # (Transition, advantages, targets)
+        self.left = None  # the key the last iteration left
+        self.graphs = []  # (graph, loss, terms) a minibatch position
+
+    def start(self, batch: Transition, advantages, targets):
+        """Opens an iteration: its static inputs."""
+        new = _leaves(batch) + [advantages, targets]
+        old = [] if self.inputs is None else _leaves(self.inputs[0]) + list(self.inputs[1:])
+        if [(t.shape, t.dtype, t.device) for t in new] != [
+                (t.shape, t.dtype, t.device) for t in old]:
+            self.stream = torch.cuda.Stream(advantages.device)
+            self.inputs = (_map_transition(_empty, batch), _empty(advantages),
+                           _empty(targets))
+            self.left = None
+        return self.inputs
+
+    def finish(self, net, opt) -> None:
+        """Closes an iteration."""
+        self.left = _graph_key(net, opt)
+
+    def minibatch(self, idx: int, loss_fns, net, opt, config: PpoConfig, losses,
+                  metrics) -> None:
+        """Position ``idx``'s update (``loss_fns(i)`` is position i's loss
+        function), its loss and terms appended as :func:`_minibatch`'s."""
+        if _graph_key(net, opt) == self.left:
+            if not self.graphs:
+                with span("ppo.capture"):
+                    self._capture(net, opt, config, loss_fns)
+            graph, loss, terms = self.graphs[idx]
+            with span("ppo.replay"):
+                graph.replay()
+            losses.append(loss.clone())
+            for k, v in terms.items():
+                metrics.setdefault(k, []).append(v.clone())
+            return
+        self.graphs = []
+        main = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            _minibatch(net, opt, config, loss_fns(idx), losses, metrics)
+        main.wait_stream(self.stream)
+
+    def _capture(self, net, opt, config: PpoConfig, loss_fns) -> None:
+        pool = torch.cuda.graph_pool_handle()
+        for i in range(config.num_minibatches):
+            graph, losses, metrics = torch.cuda.CUDAGraph(), [], {}
+            with torch.cuda.graph(graph, pool=pool, stream=self.stream):
+                _minibatch(net, opt, config, loss_fns(i), losses, metrics)
+            self.graphs.append((graph, losses[0], {k: v[0] for k, v in metrics.items()}))
+
+
+def _empty(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _map_transition(fn, *ts: Transition) -> Transition:
+    """``fn`` over the leaves of Transitions of one layout, leaf by leaf."""
+    return Transition(**{f.name: _tree_map(fn, *(getattr(t, f.name) for t in ts))
+                         for f in dataclasses.fields(Transition)})
+
+
+def _leaves(t: Transition) -> list:
+    out = []
+    _map_transition(out.append, t)
+    return out
 
 
 def _ppo_terms(config: PpoConfig, batch: "Transition", log_prob, value, entropy_log_std,
@@ -334,11 +484,14 @@ def make_ppo(
     """
 
     rollout = make_step_rollout(apply_fn, env_step, config) if rollout_fn is None else rollout_fn
+    graphs = _Graphs()  # the update's CUDA graphs, where they run
 
     def init(params: torch.nn.Module, env_state, obs0, generator: torch.Generator) -> PpoState:
-        return PpoState(params=params, opt_state=make_optimizer(params, config),
-                        env_state=env_state, last_obs=obs0, generator=generator,
-                        update_count=0)
+        # capturable on CUDA under a mesh axis too, which stays eager: one
+        # process and one rank of a mesh step Adam alike
+        opt = make_optimizer(params, config, capturable=True)
+        return PpoState(params=params, opt_state=opt, env_state=env_state, last_obs=obs0,
+                        generator=generator, update_count=0)
 
     def _loss(params, batch: Transition, advantages, targets):
         mean, log_std, value = apply_fn(params, batch.obs)
@@ -372,27 +525,40 @@ def make_ppo(
             block = 1  # exact row shuffle for odd shapes
         n_blocks = batch_size // block
         device = advantages.device
+        graphed = graphs if _graphable(net, opt, config) else None
+        if graphed is not None:
+            into, adv_into, tgt_into = graphed.start(batch, advantages, targets)
+
+        def shuffle(x, out=None):
+            xb = x.reshape((n_blocks, block) + tuple(x.shape[1:]))
+            if out is None:
+                return xb[perm].reshape((batch_size,) + tuple(x.shape[1:]))
+            torch.index_select(xb, 0, perm, out=out.view(xb.shape))
+            return out
+
+        def loss_fn(idx):
+            sl = slice(idx * mb_size, (idx + 1) * mb_size)
+            mb = _map_transition(lambda x: x[sl], shuffled)
+            return lambda: _loss(net, mb, adv_sh[sl], tgt_sh[sl])
 
         losses, metrics = [], {}
         for _ in range(config.update_epochs):
             with span("ppo.shuffle"):
                 perm = permutation(n_blocks, gen, device)
-
-                def shuffle(x):
-                    xb = x.reshape((n_blocks, block) + tuple(x.shape[1:]))
-                    return xb[perm].reshape((batch_size,) + tuple(x.shape[1:]))
-
-                shuffled = Transition(**{f.name: _tree_map(shuffle, getattr(batch, f.name))
-                                         for f in dataclasses.fields(Transition)})
-                adv_sh, tgt_sh = shuffle(advantages), shuffle(targets)
+                if graphed is None:
+                    shuffled = _map_transition(shuffle, batch)
+                    adv_sh, tgt_sh = shuffle(advantages), shuffle(targets)
+                else:  # into the graphs' static inputs
+                    shuffled = _map_transition(shuffle, batch, into)
+                    adv_sh, tgt_sh = shuffle(advantages, adv_into), shuffle(targets, tgt_into)
             for idx in range(config.num_minibatches):
                 with span("ppo.minibatch"):
-                    sl = slice(idx * mb_size, (idx + 1) * mb_size)
-                    mb = Transition(**{f.name: _tree_map(lambda x: x[sl],
-                                                         getattr(shuffled, f.name))
-                                       for f in dataclasses.fields(Transition)})
-                    _minibatch(net, opt, config,
-                               lambda: _loss(net, mb, adv_sh[sl], tgt_sh[sl]), losses, metrics)
+                    if graphed is None:
+                        _minibatch(net, opt, config, loss_fn(idx), losses, metrics)
+                    else:
+                        graphed.minibatch(idx, loss_fn, net, opt, config, losses, metrics)
+        if graphed is not None:
+            graphed.finish(net, opt)
 
         new_state = state.replace(env_state=env_state, last_obs=last_obs,
                                   update_count=state.update_count + 1)
