@@ -54,6 +54,7 @@ from fpyv_tpu_torch.ops.step_kernel import (
 )
 from fpyv_tpu_torch.physics.drone import DomainRand
 from fpyv_tpu_torch.physics.world import World
+from fpyv_tpu_torch.utils.profiling import span
 
 ENV_EXTRA_ROWS = 9
 ENV_ROWS = STATE_ROWS + ENV_EXTRA_ROWS
@@ -467,15 +468,23 @@ def fused_env_rollout(env: AcroEnv, state: AcroState, action: torch.Tensor, worl
                       n_steps: int, seed: int = 0) -> Tuple[AcroState, World, torch.Tensor]:
     """K full env steps in one launch; ``action`` (N, 4) applied every step.
     Returns (state, world with the target counters advanced by n_steps,
-    per-env reward sum)."""
-    if not env_supported(env, world):
-        raise ValueError("the fused env needs att_mode='quat', float32 and ground")
-    state_mat = env_state_to_matrix(state)
-    world_mat = env_world_matrix(world)
-    cyl_mat = cylinder_matrix(world) if world_has_cylinders(world) else None
-    out, rsum = env_rollout_matrix(env, state_mat, action_matrix(action), world_mat,
-                                   n_steps, seed, cyl_mat)
-    new_world = world.replace(
-        sphere_path_count=world.sphere_path_count
-        + n_steps * world.sphere_has_path.to(torch.int32))
-    return matrix_to_env_state(out, state), new_world, rsum
+    per-env reward sum). Under ``torch.profiler`` a call is the span
+    ``megaloop`` around ``megaloop.pack`` (the checks and the state, world,
+    cylinder and action matrices), ``megaloop.launch`` and
+    ``megaloop.unpack`` (the state and the world's counter)."""
+    with span("megaloop"):
+        with span("megaloop.pack"):
+            if not env_supported(env, world):
+                raise ValueError("the fused env needs att_mode='quat', float32 and ground")
+            state_mat = env_state_to_matrix(state)
+            world_mat = env_world_matrix(world)
+            cyl_mat = cylinder_matrix(world) if world_has_cylinders(world) else None
+            action_mat = action_matrix(action)
+        with span("megaloop.launch"):
+            out, rsum = env_rollout_matrix(env, state_mat, action_mat, world_mat, n_steps, seed,
+                                           cyl_mat)
+        with span("megaloop.unpack"):
+            new_world = world.replace(
+                sphere_path_count=world.sphere_path_count
+                + n_steps * world.sphere_has_path.to(torch.int32))
+            return matrix_to_env_state(out, state), new_world, rsum
