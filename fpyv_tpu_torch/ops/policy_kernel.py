@@ -69,6 +69,7 @@ from fpyv_tpu_torch.ops.vision_kernel import (
     render_tiles,
     world_cols,
 )
+from fpyv_tpu_torch.physics.drone import DroneParams
 from fpyv_tpu_torch.physics.world import World
 from fpyv_tpu_torch.utils.profiling import span
 from fpyv_tpu_torch.vision.camera import CameraRig, camera_pose, pixel_ray_grid
@@ -108,6 +109,15 @@ def patch_major_ray_grid(rig: CameraRig) -> np.ndarray:
     d = d.reshape(3, H // PATCH, PATCH, W // PATCH, PATCH)
     d = np.moveaxis(d, 2, 3)  # (3, H/8, W/8, 8, 8)
     return np.ascontiguousarray(d.reshape(3, -1))
+
+
+@functools.lru_cache(maxsize=16)
+def device_patch_dcam(rig: CameraRig, device: torch.device) -> torch.Tensor:
+    """:func:`patch_major_ray_grid` on ``device``, made once per rig and
+    device (as :func:`~fpyv_tpu_torch.ops.vision_kernel.device_dcam`): a K7
+    or K8 launch then neither rebuilds the grid nor waits on a
+    host-to-device copy (read only)."""
+    return torch.from_numpy(patch_major_ray_grid(rig)).to(device)
 
 
 def prepatch_pixels(img: torch.Tensor) -> torch.Tensor:
@@ -197,17 +207,19 @@ def build_policy_weights(net, compute_dtype: Optional[torch.dtype] = torch.bfloa
                          wf_tc=wf_tc)
 
 
-def _fragment_index() -> Tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=8)
+def _fragment_index(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(row, col) of a 16x16 A tile held by lane l as its values j = 0..7
     in ``mma.sync.m16n8k16``: registers a0..a3 hold (g, 2t), (g + 8, 2t),
     (g, 2t + 8), (g + 8, 2t + 8) and the next column each, g = l // 4,
-    t = l % 4."""
+    t = l % 4. Made once per device, so building the weights waits on no
+    host-to-device copy (read only)."""
     lane = torch.arange(32)
     g, t = lane // 4, lane % 4
     rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], dim=1)
     cols = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9, 2 * t + 8,
                         2 * t + 9], dim=1)
-    return rows, cols
+    return rows.to(device), cols.to(device)
 
 
 def fragment_order_fc(w: torch.Tensor) -> torch.Tensor:
@@ -218,16 +230,16 @@ def fragment_order_fc(w: torch.Tensor) -> torch.Tensor:
     if ki % 16 or h % 16:
         raise ValueError(f"fc rows ({ki}, {h}) must be multiples of 16")
     a = w.reshape(ki // 16, 16, h // 16, 16).permute(2, 0, 3, 1)  # (m, k, hidden, input)
-    rows, cols = _fragment_index()
-    return a[:, :, rows.to(w.device), cols.to(w.device)].contiguous()
+    rows, cols = _fragment_index(w.device)
+    return a[:, :, rows, cols].contiguous()
 
 
 def fc_from_fragment_order(f: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`fragment_order_fc`."""
     mt, kt = f.shape[:2]
-    rows, cols = _fragment_index()
+    rows, cols = _fragment_index(f.device)
     a = torch.zeros(mt, kt, 16, 16, dtype=f.dtype, device=f.device)
-    a[:, :, rows.to(f.device), cols.to(f.device)] = f
+    a[:, :, rows, cols] = f
     return a.permute(1, 3, 0, 2).reshape(kt * 16, mt * 16)
 
 
@@ -326,6 +338,17 @@ def policy_constants(env: AcroEnv, rig: CameraRig) -> PolicyConstants:
         log_2pi2=_f32(2.0 * math.log(2.0 * math.pi)),
         mount=tuple(_f32(x) for x in np.asarray(rig.mount_rotation).reshape(-1)),
         rel=tuple(_f32(x) for x in rig.rel_position))
+
+
+@functools.lru_cache(maxsize=16)
+def proprio_divisors(params: DroneParams, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The bootstrap proprio's divisors ``max_rates``, 30 and ``max_force``
+    as float32 tensors on ``device`` (what
+    :func:`~fpyv_tpu_torch.device.divisor` gives, so the division stays a
+    true division), made once per drone and device: the K7/K8 bootstrap
+    frame then waits on no host-to-device copy (read only)."""
+    return tuple(torch.tensor(float(x), dtype=torch.float32, device=device)
+                 for x in (params.max_rates, 30.0, params.thrust_curve.max_force))
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +454,7 @@ def policy_vision_rollout_reference(env: AcroEnv, rig: CameraRig, state_cols: to
     dev = state_cols.device
     n = state_cols.shape[0]
     lane = lane_ids(n, seed, dev)
-    dcam = torch.from_numpy(patch_major_ray_grid(rig)).to(dev)
+    dcam = device_patch_dcam(rig, dev)
     S, C = cfg.n_spheres, cfg.n_cylinders
     wc = list(wcol.unbind(1))
     spheres = [tuple(wc[s * 5 + j] for j in range(5)) for s in range(S)]
@@ -540,7 +563,7 @@ def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch
     kc = step_constants_array(env.params)
     pc = policy_constants(env, rig).as_array()
     rc = cfg.as_array()
-    dcam = torch.from_numpy(patch_major_ray_grid(rig)).to(device)
+    dcam = device_patch_dcam(rig, device)
     frames = torch.empty(n_steps, n, hw, dtype=torch.uint8, device=device)
     extra = torch.empty(n_steps, n, N_OUT, dtype=torch.float32, device=device)
     aux = torch.empty_like(extra)
@@ -604,17 +627,26 @@ def fused_policy_vision_rollout(
     ground_extent: Optional[float] = None,
     frame_width: float = 0.08,
     patch_pool: int = 1,
+    prepared: Optional[Tuple[RenderConfig, torch.Tensor]] = None,
 ):
     """K policy-driven env steps in one launch on CUDA tensors, the plain
     version on CPU tensors. The compute type is the weights' (bf16 or
     float32). Returns (frames (K, N, H*W) uint8, extra (K, N, 8), aux
-    (K, N, 8), state (N, 18))."""
-    if not policy_rollout_supported(env, worlds):
-        raise ValueError("the kernel rollout needs a quat, float32 env without DR or wind, "
-                         "over ground")
-    n = state_cols.shape[0]
-    cfg = RenderConfig.for_world(worlds, max_depth, include, ground_extent, frame_width)
-    wcol = policy_world_cols(worlds, n)
+    (K, N, 8), state (N, 18)).
+
+    ``prepared`` is the render configuration and (N, n_cols) world columns
+    of ``worlds`` made by a caller that has checked them already
+    (:func:`make_kernel_vision_ppo_parts`, whose worlds are fixed); without
+    it the worlds are checked here, which reads ``has_ground`` back from the
+    device, and both are made."""
+    if prepared is None:
+        if not policy_rollout_supported(env, worlds):
+            raise ValueError("the kernel rollout needs a quat, float32 env without DR or "
+                             "wind, over ground")
+        prepared = (RenderConfig.for_world(worlds, max_depth, include, ground_extent,
+                                           frame_width),
+                    policy_world_cols(worlds, state_cols.shape[0]))
+    cfg, wcol = prepared
     if state_cols.device.type == "cpu":
         return policy_vision_rollout_reference(env, rig, state_cols, wcol, cfg, weights, n_steps,
                                                seed, patch_pool)
@@ -645,6 +677,11 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
     Under ``torch.profiler`` a ``rollout_fn`` call is a ``rollout`` span
     with K8's children (:func:`~fpyv_tpu_torch.ops.race_kernel.make_kernel_race_ppo_parts`),
     ``rollout.boot`` being ``obs_from_cols``.
+
+    The worlds are fixed, so they are checked, and their render
+    configuration and world columns made, once here and handed to each
+    launch; with the cached ray grid, mount and divisors a steady-state
+    call copies nothing to the card and reads nothing back.
     """
     from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
 
@@ -655,6 +692,9 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
     if net.torso != "patch" or not net.prepatched:
         raise ValueError("the kernel rollout pairs with PixelActorCritic(torso='patch', "
                          "prepatched=True)")
+    prepared = (RenderConfig.for_world(worlds, venv.max_depth, INCLUDE, venv.ground_extent,
+                                       venv.frame_width),
+                policy_world_cols(worlds, num_envs))
 
     def apply_fn(params, obs):
         px = obs["pixels"]
@@ -670,10 +710,9 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
                                  include=INCLUDE, ground_extent=venv.ground_extent,
                                  frame_width=venv.frame_width)
         levels = torch.round(img * 255.0).to(torch.uint8)
-        proprio = torch.cat([cols[:, 10:13] / divisor(float(env.params.max_rates), cols),
-                             cols[:, 17:18] / divisor(30.0, cols),
-                             cols[:, 13:14] / divisor(float(env.params.thrust_curve.max_force),
-                                                       cols)], dim=1)
+        d_rates, d_30, d_force = proprio_divisors(env.params, cols.device)
+        proprio = torch.cat([cols[:, 10:13] / d_rates, cols[:, 17:18] / d_30,
+                             cols[:, 13:14] / d_force], dim=1)
         return {"pixels": prepatch_pixels(levels), "proprio": proprio}
 
     def make_rollout_fn(num_steps: int, compute_dtype=torch.bfloat16,
@@ -691,7 +730,8 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
                 frames, extra, aux, cols_out = fused_policy_vision_rollout(
                     env, rig, state.env_state, worlds, weights, num_steps, seed,
                     venv.max_depth, ground_extent=venv.ground_extent,
-                    frame_width=venv.frame_width, patch_pool=net.patch_pool)
+                    frame_width=venv.frame_width, patch_pool=net.patch_pool,
+                    prepared=prepared)
             obs = {"pixels": frames, "proprio": extra[..., :5]}
             action = aux[..., 0:4]
             T, N = frames.shape[0], frames.shape[1]

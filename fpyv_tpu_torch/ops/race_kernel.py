@@ -51,7 +51,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from fpyv_tpu_torch.device import divisor
 from fpyv_tpu_torch.envs.vision_race import per_camera_world
 from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops.env_kernel import _TWO_PI, lane_ids, normal_pair
@@ -66,10 +65,11 @@ from fpyv_tpu_torch.ops.policy_kernel import (
     build_policy_weights,
     check_phase_ns,
     check_tc_weights,
-    patch_major_ray_grid,
+    device_patch_dcam,
     prepatch_pixels,
     policy_forward_reference,
     pre_cols,
+    proprio_divisors,
     tc_tile_bytes,
 )
 from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
@@ -289,7 +289,7 @@ def race_vision_rollout_reference(venv, state_cols: torch.Tensor, hist: torch.Te
     if 5 + G > N_EXTRA:
         raise ValueError(f"the proprio block 5 + {G} exceeds its {N_EXTRA} columns")
     lane = lane_ids(n, seed, dev)
-    dcam = torch.from_numpy(patch_major_ray_grid(venv.rig)).to(dev)
+    dcam = device_patch_dcam(venv.rig, dev)
     gates = wcol[0, :15 * G].reshape(G, 15)
     wgates = wcol.expand(n, -1)
     std = [float(v) for v in weights.std[0].tolist()]
@@ -433,7 +433,7 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
     kc = step_constants_array(race.params)
     rcon = race_constants(venv).as_array()
     rc = race_render_config(venv).as_array()
-    dcam = torch.from_numpy(patch_major_ray_grid(rig)).to(device)
+    dcam = device_patch_dcam(rig, device)
     frames = torch.empty(n_steps, n, NP * K * PP, dtype=torch.uint8, device=device)
     extra = torch.empty(n_steps, n, N_EXTRA, dtype=torch.float32, device=device)
     aux = torch.empty(n_steps, n, N_AUX, dtype=torch.float32, device=device)
@@ -504,6 +504,9 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
     holding ``rollout.weights``, ``rollout.launch`` (the fused wrapper: its
     checks, constants, their copies and the launch), ``rollout.logprob``
     (with ``exact_logprob``) and ``rollout.boot`` (``obs_from_carry``).
+    The ray grid, the camera mount, the fragment index and the proprio's
+    divisors are made once per rig and device, so a steady-state call
+    copies nothing to the card and reads nothing back.
     """
     from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
 
@@ -537,10 +540,9 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
         onehot = torch.nn.functional.one_hot(cols[:, 16].long(), G).to(torch.float32)
         if not venv.gate_onehot:
             onehot = torch.zeros_like(onehot)
-        proprio = torch.cat([cols[:, 10:13] / divisor(float(race.params.max_rates), cols),
-                             cols[:, 18:19] / divisor(30.0, cols),
-                             cols[:, 13:14] / divisor(float(race.params.thrust_curve.max_force),
-                                                       cols), onehot], dim=1)
+        d_rates, d_30, d_force = proprio_divisors(race.params, cols.device)
+        proprio = torch.cat([cols[:, 10:13] / d_rates, cols[:, 18:19] / d_30,
+                             cols[:, 13:14] / d_force, onehot], dim=1)
         return cur, proprio
 
     def obs_from_carry(carry):

@@ -19,6 +19,7 @@ the kernel wrappers fold them into float32 launch constants.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -93,11 +94,19 @@ def pixel_ray_grid(rig: CameraRig) -> np.ndarray:
     return np.stack([dx, dy, dz]).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def device_mount(rig: CameraRig, device: torch.device,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rig's ``rel_position`` (3,) and ``mount_rotation`` (3, 3) as
+    ``dtype`` tensors on ``device``, made once per rig, device and dtype: a
+    pose then waits on no host-to-device copy (read only, shared)."""
+    kw = dict(dtype=dtype, device=device)
+    return torch.as_tensor(rig.rel_position, **kw), torch.as_tensor(rig.mount_rotation, **kw)
+
+
 def camera_pose(rig: CameraRig, drone_pos: torch.Tensor, drone_R: torch.Tensor):
     """(cam_pos, cam_R) from the drone pose. Parity: components.py:501-503."""
-    kw = dict(dtype=drone_pos.dtype, device=drone_pos.device)
-    rel_p = torch.as_tensor(rig.rel_position, **kw)
-    rel_R = torch.as_tensor(rig.mount_rotation, **kw)
+    rel_p, rel_R = device_mount(rig, drone_pos.device, drone_pos.dtype)
     return drone_pos + rot.mat3_vec(drone_R, rel_p), rot.mat3_mul(drone_R, rel_R)
 
 
