@@ -1024,10 +1024,12 @@ def start_box(env, world, rig, s28):
 
 def render_data_ops(cfg, dcam, cam, wcol) -> int:
     """Counted operations of K5's frame on this data (csrc/render.cuh,
-    render_t_pre): per pixel the world ray, the level and the per-pixel
+    render_levels): per pixel the world ray, the level and the per-pixel
     terms; per primitive and pixel a miss (inactive, disc < 0, a gate plane
     behind or parallel) ends early, a hit pays its full test. The pairs that
-    reach the root are counted from the plain version's arithmetic."""
+    reach the root are counted from the plain version's arithmetic. The
+    kernel ends a miss early only where all of a thread's pixels miss, so
+    this is the least its frame takes."""
     S, C, G = cfg.n_spheres, cfg.n_cylinders, cfg.n_gates
     n, hw = cam.shape[0], dcam.shape[1]
     wc = wcol.expand(n, -1)
@@ -3039,7 +3041,7 @@ def main() -> int:
             ("gate track (shapes 0, 1, 2) + cylinders, 8 envs, 640x480", gate_world, 8,
              CameraRig(resolution=(640, 480))),
             (f"params.yaml world, 64 envs, 33x17 (H*W not a multiple of the "
-             f"512-pixel tile)", pworld, 64,
+             f"1024-pixel tile)", pworld, 64,
              CameraRig(resolution=(33, 17)))):
         sub, _ = vector_reset(env, gen, n, w)
         cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(sub)

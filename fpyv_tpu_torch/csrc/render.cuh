@@ -5,10 +5,11 @@
 // operation by operation (built with --fmad=false, no fast math), so a
 // kernel's levels equal the plain PyTorch version's
 // (ops/vision_kernel.py::render_tiles). Each env's invariants are hoisted
-// into a table (render_invariant) that its pixels read: K5 (the batched
-// render) through render_t_pre, K7 and K8 (the policy rollouts, which
-// render the full world inside their step) through render_frames, several
-// pixels a thread; K6 (the chase render of the target alone, over the
+// into a table (render_invariant) that its pixels read through one
+// per-pixel render, render_levels, several pixels a thread: K5 (the batched
+// render) stores the levels / 255, K7 and K8 (the policy rollouts, which
+// render the full world inside their step) the uint8 levels
+// (render_frames). K6 (the chase render of the target alone, over the
 // target's pixel box) runs hit_sphere.
 //
 // Camera: cam[0..2] position, cam[3..11] the camera-to-world rotation, row
@@ -54,32 +55,12 @@ __device__ __forceinline__ float hit_sphere(const WorldRay& r, float a, float cx
   return (disc >= 0.0f && t > 0.0f && active) ? t : kBig;
 }
 
-// Ground plane z = 0, optionally clipped to |x|, |y| <= extent.
-__device__ __forceinline__ float hit_ground(const WorldRay& r, bool has_ground, bool clip,
-                                            float extent) {
-  const float safe = fabsf(r.dz) > 1e-20f ? r.dz : 1e-20f;
-  const float t = -r.pz / safe;
-  bool ok = t > 0.0f && fabsf(r.dz) > 1e-20f && has_ground;
-  if (clip) {
-    const float hx = r.px + t * r.dx;
-    const float hy = r.py + t * r.dy;
-    ok = ok && fabsf(hx) <= extent && fabsf(hy) <= extent;
-  }
-  return ok ? t : kBig;
-}
-
 // The uint8 depth level floor(255 (1 - t / max)), clipped to [0, 255], as
 // an integer-valued float (pallas_policy.py:267-269).
 __device__ __forceinline__ float depth_level(float t, float max_depth) {
   const float tc = fminf(t, max_depth);
   const float lev = floorf(255.0f * (1.0f - tc / max_depth));
   return fminf(fmaxf(lev, 0.0f), 255.0f);
-}
-
-// Depth level as a float in [0, 1]: floor(255 (1 - t / max)) / 255, with the
-// clip of _encode_levels.
-__device__ __forceinline__ float encode_level(float t, float max_depth) {
-  return depth_level(t, max_depth) * (1.0f / 255.0f);
 }
 
 // Field order must match RenderConfig.as_array() in ops/vision_kernel.py.
@@ -92,13 +73,11 @@ struct RenderConsts {
 };
 
 // ---------------------------------------------------------------------------
-// The batched render (K5) with each env's invariants hoisted: a block
-// computes, once per env, what the plain version recomputes at every pixel,
-// into a per-env table (render_invariant), and each pixel reads it
-// (render_t_pre). The hoisted values are the same operations in the same
-// order as the plain version's sphere, cylinder and gate tests, and a
-// primitive that cannot hit skips only arithmetic whose result its mask
-// would discard, so the levels equal the plain version's bit for bit.
+// Each env's invariants, hoisted: computed once per env, what the plain
+// version recomputes at every pixel, into a per-env table (render_invariant)
+// that each of the env's pixels reads (render_levels). The hoisted values
+// are the same operations in the same order as the plain version's sphere,
+// cylinder and gate tests.
 // ---------------------------------------------------------------------------
 
 constexpr int kPreSphere = 5;    // ox, oy, oz, |o|^2 - r^2, active
@@ -151,126 +130,38 @@ __device__ __forceinline__ void render_invariant(int k, int S, int C, int G, flo
   }
 }
 
-// hit_sphere over a hoisted (ox, oy, oz, c, active): a miss (disc < 0) or
-// an inactive sphere returns before the root and its divisions.
-__device__ __forceinline__ float hit_sphere_pre(const WorldRay& r, float a, const float* q) {
-  if (!(q[4] > 0.5f)) return kBig;
-  const float b = q[0] * r.dx + q[1] * r.dy + q[2] * r.dz;
-  const float disc = b * b - a * q[3];
-  if (!(disc >= 0.0f)) return kBig;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  float t = (-b - sq) / a;
-  if (!(t > 0.0f)) t = (-b + sq) / a;
-  return t > 0.0f ? t : kBig;
-}
-
-// An open vertical tube (pallas_vision.py:215-220) over a hoisted (ox, oy,
-// c, z0, z0 + h, active), with the pixel's a2 and safe_a: the near wall,
-// else the far wall where the near one misses the band.
-__device__ __forceinline__ float hit_cylinder_pre(const WorldRay& r, float a2, float safe_a,
-                                                  const float* q) {
-  if (!(q[5] > 0.5f)) return kBig;
-  const float b = q[0] * r.dx + q[1] * r.dy;
-  const float disc = b * b - a2 * q[2];
-  if (!(disc >= 0.0f)) return kBig;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float t = (-b + (k == 0 ? -sq : sq)) / safe_a;
-    const float zhit = r.pz + t * r.dz;
-    if (t > 0.0f && zhit >= q[3] && zhit <= q[4]) return t;
-  }
-  return kBig;
-}
-
-// A gate frame g = [pos(3) normal(3) ey(3) ez(3) size active shape] and
-// its hoisted ndot0 (pallas_vision.py:257-274): an inactive gate, a ray
-// parallel to its plane or a plane behind the camera returns before the
-// frame test, and only the gate's own shape is tested (the Pallas kernel's
-// one-hot sum over 0 square band, 1 ring, 2 upper arc + chord equals the
-// selected 0/1 mask).
-__device__ __forceinline__ float hit_gate_pre(const WorldRay& r, const float* g, float fw) {
-  if (!(g[13] > 0.5f)) return kBig;
-  const float ndotd = g[3] * r.dx + g[4] * r.dy + g[5] * r.dz;
-  if (!(fabsf(ndotd) > 1e-20f)) return kBig;
-  const float t = g[15] / ndotd;
-  if (!(t > 0.0f)) return kBig;
-  const float hx = r.px + t * r.dx - g[0];
-  const float hy = r.py + t * r.dy - g[1];
-  const float hz = r.pz + t * r.dz - g[2];
-  const float ly = g[6] * hx + g[7] * hy + g[8] * hz;
-  const float lz = g[9] * hx + g[10] * hy + g[11] * hz;
-  const float s = g[12];
-  const float half = s * 0.5f;
-  bool hit;
-  if (g[14] == 1.0f) {
-    hit = fabsf(sqrtf(ly * ly + lz * lz) - half) <= fw;
-  } else if (g[14] == 2.0f) {
-    const float cz = lz + half;
-    hit = (fabsf(sqrtf(ly * ly + cz * cz) - s) <= fw && cz >= -fw) ||
-          (fabsf(cz) <= fw && fabsf(ly) <= s + fw);
-  } else {
-    hit = fabsf(fmaxf(fabsf(ly), fabsf(lz)) - half) <= fw;
-  }
-  return hit ? t : kBig;
-}
-
-// The nearest t of one pixel's ray r over an env's invariant table pre
-// (render_invariant; world columns of pallas_vision.py:_world_cols).
-__device__ __forceinline__ float render_t_pre(const RenderConsts& rc, int S, int C, int G,
-                                              const WorldRay& r, const float* pre) {
-  float t_min = kBig;
-  if (rc.spheres > 0.5f) {
-    const float a = ray_a(r);
-    for (int s = 0; s < S; ++s) t_min = fminf(t_min, hit_sphere_pre(r, a, pre + kPreSphere * s));
-  }
-  const float* cyl = pre + kPreSphere * S;
-  if (rc.cylinders > 0.5f) {
-    const float a2 = r.dx * r.dx + r.dy * r.dy;
-    const float safe_a = fabsf(a2) > 1e-20f ? a2 : 1e-20f;
-    for (int c = 0; c < C; ++c)
-      t_min = fminf(t_min, hit_cylinder_pre(r, a2, safe_a, cyl + kPreCylinder * c));
-  }
-  const float* gates = cyl + kPreCylinder * C;
-  if (rc.ground > 0.5f) {
-    t_min = fminf(t_min, hit_ground(r, gates[kPreGate * G] > 0.5f, rc.clip_ground > 0.5f,
-                                    rc.ground_extent));
-  }
-  if (rc.gates > 0.5f) {
-    for (int g = 0; g < G; ++g)
-      t_min = fminf(t_min, hit_gate_pre(r, gates + kPreGate * g, rc.frame_width));
-  }
-  return t_min;
-}
-
 // ---------------------------------------------------------------------------
-// The render phase of the policy rollouts (K7, K8), redesigned for the H100.
+// The per-pixel render (render_levels) of K5 and of the policy rollouts'
+// render phase (K7, K8), designed for the H100.
 //
-// What bounds it: a block owns 8 envs (their fc weight stream sets that,
+// What bounds it: a pixel's test is a chain of dependent IEEE divisions and
+// square roots (--fmad=false, no fast math), and the SM idles on their
+// latency unless many pixels are in flight. So a thread renders P pixels of
+// one env at a time: each primitive's cheap test (discriminant, plane side)
+// for all P pixels in one straight-line block, and the rest only where one
+// of the P can hit, so P independent chains are in flight. There a sphere's
+// or a cylinder's root runs for each pixel whose discriminant allows it,
+// the far root only where the near one misses (computing both for all P,
+// then selecting, made K5 1.25x slower on the H100, PERF.md), and a gate's
+// frame test for all P at once. The ground's and a gate's division run
+// only where the plane can lie ahead (the sign test that t > 0 needs), the
+// level's division only below max_depth (the level is 0 at and past it). A
+// pixel's arithmetic is the plain version's, in the same order, and where
+// it is skipped its result would be discarded, so the levels equal the
+// plain version's bit for bit.
+//
+// In K7 and K8 a block owns 8 envs (their fc weight stream sets that,
 // csrc/actor.cuh), so at the trainers' 1024 envs the bank is one block an
-// SM. A pixel's test is a chain of dependent IEEE divisions and square
-// roots (--fmad=false, no fast math): the SM idles on their latency unless
-// many pixels are in flight. The first port had one pixel a thread on
-// the actor's 8 warps, and its per-pixel test repeated each env's
-// invariants and took every primitive to its root before its mask
-// discarded it: 11.6 ms of K7's 15.8 ms launch, 3.4x the K5 kernel on the
-// same cameras and worlds (counted operations set its bound, ~0.9 ms).
-//
-// The layout: the block has 512 threads (kRolloutThreads: the actor's 256
-// and 256 that only render), 16 warps an SM for the render. At each step
-// it builds its envs' invariant tables (render_invariants_block:
-// render_invariant items strided over the threads, as K5's prologue), then
-// each thread renders P neighbouring pixels of one env at a time
-// (render_levels): their rays read as one vector load a component, each
-// primitive's cheap test (discriminant, plane side) for all P pixels in one
-// straight-line block, and its root, divisions and frame test only where
-// one of the P can hit, for all P at once, so P independent chains are in
-// flight. The ground's and a gate's division run only where the plane can
-// lie ahead (the sign test that t > 0 needs), the level's division only
-// below max_depth (the level is 0 at and past it). Each thread stores its P
-// levels as one word. A pixel's arithmetic is render_t_pre's, in the same
-// order, and where it is skipped its result would be discarded, so the
-// levels equal render_t_pre's and the plain version's bit for bit.
+// SM. A port with one pixel a thread on the actor's 8 warps, whose
+// per-pixel test repeated each env's invariants and took every primitive to
+// its root before its mask discarded it, spent 11.6 ms of K7's 15.8 ms
+// launch there (counted operations set its bound, ~0.9 ms). So the block
+// has 512 threads (kRolloutThreads: the actor's 256 and 256 that only
+// render), 16 warps an SM for the render. At each step it builds its envs'
+// invariant tables (render_invariants_block: render_invariant items strided
+// over the threads, as K5's prologue), then each thread renders P
+// neighbouring pixels of one env at a time (render_frames): their rays read
+// as one vector load a component, their P levels stored as one word.
 // ---------------------------------------------------------------------------
 
 // The invariant tables of a block's ne envs: env e's at pre_s + e *
@@ -313,7 +204,7 @@ __device__ __forceinline__ void load_row(const float* __restrict__ d, float (&v)
 }
 
 // The depth levels of P pixels of one env: camera-frame rays (cx, cy, cz)
-// from its camera cam and invariant table pre. render_t_pre, then
+// from its camera cam and invariant table pre. The nearest hit's
 // depth_level, pixel for pixel; see the note above for what is skipped.
 template <int P>
 __device__ __forceinline__ void render_levels(const RenderConsts& rc, int S, int C, int G,
@@ -348,10 +239,11 @@ __device__ __forceinline__ void render_levels(const RenderConsts& rc, int S, int
       if (!any) continue;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
+        if (!(disc[j] >= 0.0f)) continue;
         const float sq = sqrtf(fmaxf(disc[j], 0.0f));
-        const float t0 = (-b[j] - sq) / a[j];
-        const float t = t0 > 0.0f ? t0 : (-b[j] + sq) / a[j];
-        if (disc[j] >= 0.0f && t > 0.0f) tm[j] = fminf(tm[j], t);
+        float t = (-b[j] - sq) / a[j];
+        if (!(t > 0.0f)) t = (-b[j] + sq) / a[j];
+        if (t > 0.0f) tm[j] = fminf(tm[j], t);
       }
     }
   }
@@ -377,14 +269,15 @@ __device__ __forceinline__ void render_levels(const RenderConsts& rc, int S, int
       if (!any) continue;
 #pragma unroll
       for (int j = 0; j < P; ++j) {
+        if (!(disc[j] >= 0.0f)) continue;
         const float sq = sqrtf(fmaxf(disc[j], 0.0f));
-        const float t0 = (-b[j] + -sq) / sa[j];  // near wall, then far wall
-        const float t1 = (-b[j] + sq) / sa[j];
-        const float z0 = pz + t0 * dz[j];
-        const float z1 = pz + t1 * dz[j];
-        const bool ok0 = t0 > 0.0f && z0 >= q[3] && z0 <= q[4];
-        const bool ok1 = t1 > 0.0f && z1 >= q[3] && z1 <= q[4];
-        if (disc[j] >= 0.0f && (ok0 || ok1)) tm[j] = fminf(tm[j], ok0 ? t0 : t1);
+        float t = (-b[j] + -sq) / sa[j];  // the near wall, else the far wall
+        float z = pz + t * dz[j];
+        if (!(t > 0.0f && z >= q[3] && z <= q[4])) {
+          t = (-b[j] + sq) / sa[j];
+          z = pz + t * dz[j];
+        }
+        if (t > 0.0f && z >= q[3] && z <= q[4]) tm[j] = fminf(tm[j], t);
       }
     }
   }
@@ -440,6 +333,8 @@ __device__ __forceinline__ void render_levels(const RenderConsts& rc, int S, int
         const float hz = pz + t * dz[j] - q[2];
         const float ly = q[6] * hx + q[7] * hy + q[8] * hz;
         const float lz = q[9] * hx + q[10] * hy + q[11] * hz;
+        // the gate's own shape only (0 square band, 1 ring, 2 upper arc +
+        // chord): the Pallas kernel's one-hot sum over the three equals it
         bool hit;
         if (shape == 1.0f) {
           hit = fabsf(sqrtf(ly * ly + lz * lz) - half) <= fw;

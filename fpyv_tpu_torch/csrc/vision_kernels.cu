@@ -3,21 +3,22 @@
 // K5 replaces fpyv_tpu/ops/pallas_vision.py:_render_kernel
 // (pallas_render_depth): nearest-hit depth over spheres, cylinders, the
 // ground and shaped gates, quantised to floor(255 (1 - t / max)) / 255.
-// A (ceil(HW / 512), N) grid of 256-thread blocks, 2 pixels a thread
-// (kRenderPerThread: the fastest of 1 to 4 on the H100, PERF.md).
-// Each block copies its env's camera and builds the env's invariant table
+// A (ceil(HW / 1024), N) grid of 256-thread blocks, 4 pixels a thread
+// (kRenderPerThread: the fastest of 1, 2 and 4 on the H100, PERF.md). Each
+// block copies its env's camera and builds the env's invariant table
 // (render.cuh::render_invariant: a sphere's o = cam - c and |o|^2 - r^2, a
 // cylinder's ox, oy and c, a gate's ndot0) in one prologue with two
 // barriers, then each thread reads its P rays from the grid dcam (3, HW) in
-// coalesced rows and tests them (render_t_pre): a primitive that misses
+// coalesced rows and renders them through K7 and K8's per-pixel render
+// (render.cuh::render_levels): a primitive that none of the P rays can hit
 // stops at its discriminant (or a gate at its plane), before the square
 // root and the divisions. Same operations in the same order as the plain
 // version (vision_kernel.render_tiles), so the levels are equal. The frame
-// is written once. Bound on the H100: at 96x72 and 1024 envs the frame is
-// 28.3 MB written against ~9 float32
-// operations per primitive and pixel that misses and 30-60 per hit, so a
-// world with a few primitives is bound by operations, an empty one by the
-// write. Nothing but the frame touches device memory.
+// is written once, each level / 255. Bound on the H100: at 96x72 and 1024
+// envs the frame is 28.3 MB written against ~9 float32 operations per
+// primitive and pixel that misses and 30-60 per hit, so a world with a few
+// primitives is bound by operations, an empty one by the write. Nothing but
+// the frame touches device memory.
 //
 // K6 replaces pallas_vision.py:_chase_kernel (pallas_vision_env_rollout):
 // per step, render the chased target (sphere 0) alone, take the mask
@@ -86,7 +87,7 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int kRenderBlock = 256;
-constexpr int kRenderPerThread = 2;
+constexpr int kRenderPerThread = 4;
 constexpr int kCamCols = 16;
 
 // P pixels a thread: pixel j of thread x of block b is b * 256P + 256j + x,
@@ -120,14 +121,13 @@ __global__ void __launch_bounds__(kRenderBlock)
     for (int k = threadIdx.x; k < items; k += kRenderBlock)
       fpyv::render_invariant(k, S, C, G, ce[0], ce[1], ce[2], we, pre);
     __syncthreads();
+    uint32_t lev[P];  // a lane past hw renders a zero ray, never stored
+    fpyv::render_levels<P>(rc, S, C, G, cs, pre, dx, dy, dz, lev);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
       const int p = base + j * kRenderBlock;
-      if (p < hw) {
-        const WorldRay r = fpyv::world_ray(cs, dx[j], dy[j], dz[j]);
-        const float t = fpyv::render_t_pre(rc, S, C, G, r, pre);
-        out[static_cast<size_t>(e) * hw + p] = fpyv::encode_level(t, rc.max_depth);
-      }
+      if (p < hw)
+        out[static_cast<size_t>(e) * hw + p] = static_cast<float>(lev[j]) * (1.0f / 255.0f);
     }
   }
 }

@@ -507,6 +507,55 @@ def policy_vision_rollout_reference(env: AcroEnv, rig: CameraRig, state_cols: to
 # ---------------------------------------------------------------------------
 
 
+def _check_actor_launch(name: str, state_cols: torch.Tensor, weights: PolicyWeights,
+                        rig: CameraRig, frame_stack: int, n_proprio: int, patch_pool: int,
+                        n_steps: int, n_motors: int, phase_ns: Optional[torch.Tensor],
+                        shared_bytes, **inputs) -> Tuple[int, Optional[int]]:
+    """The checks K7 and K8 share before a launch (``name``: the kernel's
+    launch counter): a CUDA device, the weights' dtype, device and layout,
+    the kernel's other float32 ``inputs``, the rig's 8x8 patches,
+    ``patch_pool``, an embed of ``frame_stack`` * 64 levels to 128, the fc's
+    rows (the pooled patches' and ``n_proprio``), ``n_steps``, the
+    instrumented launch, and the block's shared memory, ``shared_bytes(batch)``
+    being the kernel's own sizing. Returns the bf16 actor's batch (0 in
+    float32) and the phase array's pointer (None: a plain launch)."""
+    device = state_cols.device
+    if device.type != "cuda":
+        raise ValueError(f"{name} launches on a CUDA device, got {device}")
+    dt = weights.we.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"policy weights must be float32 or bfloat16, got {dt}")
+    check_cuda_inputs(device, state=state_cols, **inputs, wm=weights.wm, bm=weights.bm,
+                      std=weights.std)
+    for wname in ("we", "be", "wp", "bp", "wf", "bf"):
+        t = getattr(weights, wname)
+        if t.device != device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"weight {wname} must be a contiguous {dt} tensor on {device}")
+    W, H = rig.resolution
+    n_patches = W * H // PP
+    if W % PATCH or H % PATCH:
+        raise ValueError(f"the rig's {W}x{H} must split into 8x8 patches")
+    if patch_pool < 1 or n_patches % patch_pool:
+        raise ValueError(f"patch_pool={patch_pool} must divide {n_patches} patches")
+    embed, hidden = weights.we.shape[1], weights.wf.shape[1]
+    fc_rows = n_patches // patch_pool * embed
+    if (weights.we.shape[0] != frame_stack * PP or embed != 128
+            or weights.wf.shape[0] < fc_rows + n_proprio):
+        raise ValueError(f"the kernel takes a {frame_stack}*64-wide embed of 128")
+    if n_steps < 1:
+        raise ValueError("n_steps must be >= 1")
+    timing = check_phase_ns(phase_ns, device, dt, n_motors, hidden)
+    batch = 0
+    if dt == torch.bfloat16:
+        check_tc_weights(weights, fc_rows)
+        batch = actor_batch(n_patches, patch_pool, shared_bytes)
+    shared = shared_bytes(batch)
+    if (dt == torch.bfloat16 and not batch) or shared > SHARED_LIMIT:
+        raise ValueError(f"{name} needs {shared} B of shared memory a block, above the "
+                         f"{SHARED_LIMIT} B a block may use")
+    return batch, timing
+
+
 def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch.Tensor,
                                  wcol: torch.Tensor, cfg: RenderConfig, weights: PolicyWeights,
                                  n_steps: int, seed: int, patch_pool: int = 1,
@@ -516,49 +565,20 @@ def launch_policy_vision_rollout(env: AcroEnv, rig: CameraRig, state_cols: torch
     device, bf16 weights only) launches the instrumented instantiation, which
     adds each block's nanoseconds per step phase into it
     (:func:`phase_split_ms`)."""
-    device = state_cols.device
-    if device.type != "cuda":
-        raise ValueError(f"policy_vision_rollout launches on a CUDA device, got {device}")
+    W, H = rig.resolution
+    n, hw, hidden = state_cols.shape[0], W * H, weights.wf.shape[1]
+    n_phys = 5 * cfg.n_spheres + 6 * cfg.n_cylinders
+    batch, timing = _check_actor_launch(
+        "policy_vision_rollout", state_cols, weights, rig, 1, 5, patch_pool, n_steps,
+        env.params.n_motors, phase_ns, lambda b: policy_shared_bytes(
+            hw, cfg.n_cols, n_phys, hidden, patch_pool, b, cfg.n_gates), world_cols=wcol)
     if not _env_supported(env):
         raise ValueError("the kernel rollout needs a quat, float32 env without DR or wind")
-    dt = weights.we.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"policy weights must be float32 or bfloat16, got {dt}")
-    check_cuda_inputs(device, state=state_cols, world_cols=wcol, wm=weights.wm, bm=weights.bm,
-                      std=weights.std)
-    for name in ("we", "be", "wp", "bp", "wf", "bf"):
-        t = getattr(weights, name)
-        if t.device != device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"weight {name} must be a contiguous {dt} tensor on {device}")
-    n = state_cols.shape[0]
-    W, H = rig.resolution
-    hw = W * H
-    n_patches = hw // PP
     if state_cols.shape != (n, ROWS) or wcol.shape != (n, cfg.n_cols):
         raise ValueError(f"state / world columns must be (N, {ROWS}) / (N, {cfg.n_cols})")
-    if W % PATCH or H % PATCH:
-        raise ValueError(f"the rig's {W}x{H} must split into 8x8 patches")
-    if patch_pool < 1 or n_patches % patch_pool:
-        raise ValueError(f"patch_pool={patch_pool} must divide {n_patches} patches")
-    embed, hidden = weights.we.shape[1], weights.wf.shape[1]
-    if (weights.we.shape[0] != PP or embed != 128
-            or weights.wf.shape[0] < n_patches // patch_pool * embed + 5):
-        raise ValueError("the kernel takes 8x8 patches and an embed of 128")
     if cfg.n_spheres < 1:
         raise ValueError("the reward needs sphere 0")
-    if n_steps < 1:
-        raise ValueError("n_steps must be >= 1")
-    timing = check_phase_ns(phase_ns, device, dt, env.params.n_motors, hidden)
-    n_phys = 5 * cfg.n_spheres + 6 * cfg.n_cylinders
-    batch = 0
-    if dt == torch.bfloat16:
-        check_tc_weights(weights, n_patches // patch_pool * embed)
-        batch = actor_batch(n_patches, patch_pool, lambda b: policy_shared_bytes(
-            hw, cfg.n_cols, n_phys, hidden, patch_pool, b, cfg.n_gates))
-    shared = policy_shared_bytes(hw, cfg.n_cols, n_phys, hidden, patch_pool, batch, cfg.n_gates)
-    if (dt == torch.bfloat16 and not batch) or shared > SHARED_LIMIT:
-        raise ValueError(f"K7 needs {shared} B of shared memory a block, above the "
-                         f"{SHARED_LIMIT} B a block may use")
+    device, dt = state_cols.device, weights.we.dtype
     lib = _build.library()
     kc = step_constants_array(env.params)
     pc = policy_constants(env, rig).as_array()
@@ -659,6 +679,67 @@ def fused_policy_vision_rollout(
 # ---------------------------------------------------------------------------
 
 
+def _boot_levels(rig: CameraRig, cols: torch.Tensor, world: World, **render) -> torch.Tensor:
+    """K5's frame of the state matrix ``cols`` (position 0:3, quaternion
+    6:10) as patch-major uint8 levels (N, NP*64), the order of the frames
+    K7 and K8 emit; ``render`` goes to
+    :func:`~fpyv_tpu_torch.ops.vision_kernel.fused_render_depth`."""
+    cam_pos, cam_R = camera_pose(rig, cols[:, 0:3], quat_to_rotmat(cols[:, 6:10]))
+    img = fused_render_depth(rig, cam_pos, cam_R, world, **render)
+    return prepatch_pixels(torch.round(img * 255.0).to(torch.uint8))
+
+
+def _kernel_rollout_fn(launch, boot, apply_fn, n_proprio: int, num_steps: int,
+                       compute_dtype=torch.bfloat16, exact_logprob: bool = True):
+    """``rollout_fn(state) -> (carry, last_obs, traj)`` of a kernel-rollout
+    PPO trainer (K7, K8): the kernel's seed drawn from ``state.generator``,
+    the weights built from ``state.params`` in ``compute_dtype``, then
+    ``launch(state, weights, num_steps, seed) -> (frames, extra, aux,
+    carry)``, one kernel launch. The trajectory is the frames, the first
+    ``n_proprio`` extra columns and the aux columns [action (4), reward,
+    done, value, log_prob]; ``exact_logprob`` recomputes log_prob and value
+    with one batched (T*N) forward of ``apply_fn`` (the epoch-0 ratio is
+    then exactly 1). ``boot(carry)`` is the GAE bootstrap observation.
+
+    Under ``torch.profiler`` a call is a ``rollout`` span holding
+    ``rollout.weights``, ``rollout.launch``, ``rollout.logprob`` (with
+    ``exact_logprob``) and ``rollout.boot``."""
+    from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
+
+    def rollout(state):
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=state.generator,
+                                 device=state.generator.device))
+        with span("rollout.weights"):
+            weights = build_policy_weights(state.params, compute_dtype)
+        with span("rollout.launch"):
+            frames, extra, aux, carry = launch(state, weights, num_steps, seed)
+        obs = {"pixels": frames, "proprio": extra[..., :n_proprio]}
+        action = aux[..., 0:4]
+        T, N = frames.shape[0], frames.shape[1]
+        if exact_logprob:
+            with span("rollout.logprob"):
+                flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
+                mean, log_std, value = apply_fn(state.params, flat)
+                log_prob = gaussian_log_prob(mean, log_std, action.reshape(-1, 4)).reshape(T, N)
+                value = value.reshape(T, N)
+        else:
+            value, log_prob = aux[..., 6], aux[..., 7]
+        # aux column 5 is the end GAE does not bootstrap across: K7's crash
+        # (it bootstraps across time-limit truncations), K8's crash or time
+        # limit (the agent's end: bootstrapping across a respawn would
+        # corrupt GAE)
+        traj = Transition(obs=obs, action=action, log_prob=log_prob, value=value,
+                          reward=aux[..., 4], done=aux[..., 5] > 0.5)
+        with span("rollout.boot"):
+            return carry, boot(carry), traj
+
+    def rollout_fn(state):
+        with span("rollout"):
+            return rollout(state)
+
+    return rollout_fn
+
+
 def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
     """(apply_fn, make_rollout_fn, obs_from_cols) of the kernel-rollout
     vision PPO trainer (``apps.train.train_vision``, rollout "kernel").
@@ -668,23 +749,16 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
       ``PixelActorCritic``.
     - ``make_rollout_fn(num_steps, compute_dtype, exact_logprob)`` gives
       ``rollout_fn(state) -> (env_state, last_obs, traj)``: K steps in one
-      launch (:func:`fused_policy_vision_rollout`), the kernel's seed drawn
-      from ``state.generator``. ``exact_logprob`` recomputes log_prob and
-      value with one batched (T*N) forward of ``net`` (the epoch-0 ratio is
-      then exactly 1); otherwise the kernel's own are used.
+      launch (:func:`fused_policy_vision_rollout`), as
+      :func:`_kernel_rollout_fn` sets out, spans included, ``rollout.boot``
+      being ``obs_from_cols``.
     - the PPO ``env_state`` is the raw (N, 18) state matrix.
-
-    Under ``torch.profiler`` a ``rollout_fn`` call is a ``rollout`` span
-    with K8's children (:func:`~fpyv_tpu_torch.ops.race_kernel.make_kernel_race_ppo_parts`),
-    ``rollout.boot`` being ``obs_from_cols``.
 
     The worlds are fixed, so they are checked, and their render
     configuration and world columns made, once here and handed to each
     launch; with the cached ray grid, mount and divisors a steady-state
     call copies nothing to the card and reads nothing back.
     """
-    from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
-
     env, rig = venv.acro, venv.rig
     if not policy_rollout_supported(env, worlds):
         raise ValueError("the kernel rollout needs a quat, float32 env without DR or wind, "
@@ -705,51 +779,18 @@ def make_kernel_vision_ppo_parts(venv, worlds: World, net, num_envs: int):
         """The observation of a state matrix (the GAE bootstrap obs, the one
         frame an iteration the kernel does not emit): K5's frame as uint8
         levels, the proprio by true division."""
-        cam_pos, cam_R = camera_pose(rig, cols[:, 0:3], quat_to_rotmat(cols[:, 6:10]))
-        img = fused_render_depth(rig, cam_pos, cam_R, worlds, max_depth=venv.max_depth,
-                                 include=INCLUDE, ground_extent=venv.ground_extent,
-                                 frame_width=venv.frame_width)
-        levels = torch.round(img * 255.0).to(torch.uint8)
+        levels = _boot_levels(rig, cols, worlds, max_depth=venv.max_depth, include=INCLUDE,
+                              ground_extent=venv.ground_extent, frame_width=venv.frame_width)
         d_rates, d_30, d_force = proprio_divisors(env.params, cols.device)
         proprio = torch.cat([cols[:, 10:13] / d_rates, cols[:, 17:18] / d_30,
                              cols[:, 13:14] / d_force], dim=1)
-        return {"pixels": prepatch_pixels(levels), "proprio": proprio}
+        return {"pixels": levels, "proprio": proprio}
 
-    def make_rollout_fn(num_steps: int, compute_dtype=torch.bfloat16,
-                        exact_logprob: bool = True):
-        def rollout_fn(state):
-            with span("rollout"):
-                return rollout(state)
+    def launch(state, weights, num_steps, seed):
+        return fused_policy_vision_rollout(
+            env, rig, state.env_state, worlds, weights, num_steps, seed, venv.max_depth,
+            ground_extent=venv.ground_extent, frame_width=venv.frame_width,
+            patch_pool=net.patch_pool, prepared=prepared)
 
-        def rollout(state):
-            seed = int(torch.randint(0, 2**31 - 1, (), generator=state.generator,
-                                     device=state.generator.device))
-            with span("rollout.weights"):
-                weights = build_policy_weights(state.params, compute_dtype)
-            with span("rollout.launch"):
-                frames, extra, aux, cols_out = fused_policy_vision_rollout(
-                    env, rig, state.env_state, worlds, weights, num_steps, seed,
-                    venv.max_depth, ground_extent=venv.ground_extent,
-                    frame_width=venv.frame_width, patch_pool=net.patch_pool,
-                    prepared=prepared)
-            obs = {"pixels": frames, "proprio": extra[..., :5]}
-            action = aux[..., 0:4]
-            T, N = frames.shape[0], frames.shape[1]
-            if exact_logprob:
-                with span("rollout.logprob"):
-                    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
-                    mean, log_std, value = apply_fn(state.params, flat)
-                    log_prob = gaussian_log_prob(mean, log_std,
-                                                 action.reshape(-1, 4)).reshape(T, N)
-                    value = value.reshape(T, N)
-            else:
-                value, log_prob = aux[..., 6], aux[..., 7]
-            # terminations only: GAE bootstraps across time-limit truncations
-            traj = Transition(obs=obs, action=action, log_prob=log_prob, value=value,
-                              reward=aux[..., 4], done=aux[..., 5] > 0.5)
-            with span("rollout.boot"):
-                return cols_out, obs_from_cols(cols_out), traj
-
-        return rollout_fn
-
+    make_rollout_fn = functools.partial(_kernel_rollout_fn, launch, obs_from_cols, apply_fn, 5)
     return apply_fn, make_rollout_fn, obs_from_cols

@@ -56,26 +56,22 @@ from fpyv_tpu_torch.ops import _build
 from fpyv_tpu_torch.ops.env_kernel import _TWO_PI, lane_ids, normal_pair
 from fpyv_tpu_torch.ops.policy_kernel import (
     ENVS_PER_BLOCK,
-    PATCH,
     PP,
-    SHARED_LIMIT,
+    SHARED_LIMIT,  # noqa: F401
     PolicyWeights,
     _aligned_floats,
+    _boot_levels,
+    _check_actor_launch,
+    _kernel_rollout_fn,
     actor_batch,
-    build_policy_weights,
-    check_phase_ns,
-    check_tc_weights,
     device_patch_dcam,
-    prepatch_pixels,
     policy_forward_reference,
     pre_cols,
     proprio_divisors,
     tc_tile_bytes,
 )
-from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
 from fpyv_tpu_torch.ops.step_kernel import (
     _f32,
-    check_cuda_inputs,
     step_components,
     step_constants,
     step_constants_array,
@@ -84,13 +80,10 @@ from fpyv_tpu_torch.ops.vision_kernel import (
     RenderConfig,
     camera_rows,
     depth_levels,
-    fused_render_depth,
     render_tiles,
     world_cols,
 )
 from fpyv_tpu_torch.physics.world import World
-from fpyv_tpu_torch.utils.profiling import span
-from fpyv_tpu_torch.vision.camera import camera_pose
 
 RROWS = 22
 N_EXTRA = 16  # the proprio block [rates (3), accel_z, thrust, one-hot (G)] and its zero pad
@@ -382,26 +375,17 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
     """K8 on the card; returns what :func:`race_vision_rollout_reference`
     returns. ``phase_ns`` launches the instrumented instantiation, as in
     :func:`~fpyv_tpu_torch.ops.policy_kernel.launch_policy_vision_rollout`."""
-    device = state_cols.device
-    if device.type != "cuda":
-        raise ValueError(f"race_vision_rollout launches on a CUDA device, got {device}")
-    _check_supported(venv)
-    dt = weights.we.dtype
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"policy weights must be float32 or bfloat16, got {dt}")
-    check_cuda_inputs(device, state=state_cols, world_cols=wcol, obstacle_cols=ocol,
-                      wm=weights.wm, bm=weights.bm, std=weights.std)
-    for name in ("we", "be", "wp", "bp", "wf", "bf"):
-        t = getattr(weights, name)
-        if t.device != device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"weight {name} must be a contiguous {dt} tensor on {device}")
     race, rig = venv.race, venv.rig
     n = state_cols.shape[0]
     W, H = rig.resolution
-    hw = W * H
+    hw, hidden = W * H, weights.wf.shape[1]
     NP, K, S, G = hw // PP, venv.frame_stack, race.n_obstacles, race.n_gates
-    if W % PATCH or H % PATCH:
-        raise ValueError(f"the rig's {W}x{H} must split into 8x8 patches")
+    batch, timing = _check_actor_launch(
+        "race_vision_rollout", state_cols, weights, rig, K, 5 + G, patch_pool, n_steps,
+        race.params.n_motors, phase_ns, lambda b: race_shared_bytes(
+            hw, K, S, G, hidden, patch_pool, b), world_cols=wcol, obstacle_cols=ocol)
+    _check_supported(venv)
+    device, dt = state_cols.device, weights.we.dtype
     if state_cols.shape != (n, RROWS) or wcol.shape != (1, 15 * G + 1):
         raise ValueError(f"state / world columns must be (N, {RROWS}) / (1, {15 * G + 1})")
     if ocol.shape != (1, max(S, 1) * OCOLS):
@@ -410,25 +394,8 @@ def launch_race_vision_rollout(venv, state_cols: torch.Tensor, hist: torch.Tenso
             or hist.shape != (n, NP * (K - 1) * PP)):
         raise ValueError(f"the history must be a contiguous (N, {NP * (K - 1) * PP}) uint8 "
                          f"tensor on {device}")
-    if patch_pool < 1 or NP % patch_pool:
-        raise ValueError(f"patch_pool={patch_pool} must divide {NP} patches")
-    embed, hidden = weights.we.shape[1], weights.wf.shape[1]
-    if (weights.we.shape[0] != K * PP or embed != 128
-            or weights.wf.shape[0] < NP // patch_pool * embed + 5 + G):
-        raise ValueError(f"the kernel takes a {K}*64-wide embed of 128")
     if 5 + G > N_EXTRA:
         raise ValueError(f"the proprio block 5 + {G} exceeds its {N_EXTRA} columns")
-    batch = 0
-    if dt == torch.bfloat16:
-        check_tc_weights(weights, NP // patch_pool * embed)
-        batch = race_actor_batch(hw, K, S, G, hidden, patch_pool)
-    shared = race_shared_bytes(hw, K, S, G, hidden, patch_pool, batch)
-    if (dt == torch.bfloat16 and not batch) or shared > SHARED_LIMIT:
-        raise ValueError(f"K8 needs {shared} B of shared memory a block, above the "
-                         f"{SHARED_LIMIT} B a block may use")
-    if n_steps < 1:
-        raise ValueError("n_steps must be >= 1")
-    timing = check_phase_ns(phase_ns, device, dt, race.params.n_motors, hidden)
     lib = _build.library()
     kc = step_constants_array(race.params)
     rcon = race_constants(venv).as_array()
@@ -495,21 +462,16 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
       first frame repeated.
     - ``make_rollout_fn(num_steps, compute_dtype, exact_logprob)`` gives
       ``rollout_fn(state) -> (carry, last_obs, traj)``: T steps in one
-      launch (:func:`fused_race_vision_rollout`), the seed drawn from
-      ``state.generator``; ``exact_logprob`` recomputes log_prob and value
-      with one batched forward of ``net``, else the kernel's own are used.
+      launch (:func:`fused_race_vision_rollout`), as
+      :func:`~fpyv_tpu_torch.ops.policy_kernel._kernel_rollout_fn` sets out,
+      spans included, ``rollout.boot`` being ``obs_from_carry``.
     - ``race_metrics(carry)``: mean gates passed and gates per 100 steps.
 
-    Under ``torch.profiler`` a ``rollout_fn`` call is a ``rollout`` span
-    holding ``rollout.weights``, ``rollout.launch`` (the fused wrapper: its
-    checks, constants, their copies and the launch), ``rollout.logprob``
-    (with ``exact_logprob``) and ``rollout.boot`` (``obs_from_carry``).
-    The ray grid, the camera mount, the fragment index and the proprio's
-    divisors are made once per rig and device, so a steady-state call
-    copies nothing to the card and reads nothing back.
+    ``rollout.launch`` holds the fused wrapper: its checks, constants, their
+    copies and the launch. The ray grid, the camera mount, the fragment index
+    and the proprio's divisors are made once per rig and device, so a
+    steady-state call copies nothing to the card and reads nothing back.
     """
-    from fpyv_tpu_torch.rl.ppo import Transition, gaussian_log_prob
-
     _check_supported(venv)
     race, rig = venv.race, venv.rig
     W, H = rig.resolution
@@ -527,16 +489,14 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
     def render_obs(cols):
         """K5's frame of the state matrix (obstacles at episode time t) as
         patch-major uint8 levels (N, NP, 1, 64), and the proprio."""
-        cam_pos, cam_R = camera_pose(rig, cols[:, 0:3], quat_to_rotmat(cols[:, 6:10]))
         rworld, include = world, ("gates", "ground")
         if race.n_obstacles:
             centers = race._obstacles_at(world, cols[:, 15].to(torch.int32))
             rworld = per_camera_world(world, centers, world.sphere_radius.to(torch.float32)
                                       .expand(centers.shape[:-1]))
             include = ("spheres", "gates", "ground")
-        img = fused_render_depth(rig, cam_pos, cam_R, rworld, max_depth=venv.max_depth,
-                                 include=include, frame_width=venv.frame_width)
-        cur = prepatch_pixels(torch.round(img * 255.0).to(torch.uint8)).reshape(-1, NP, 1, PP)
+        cur = _boot_levels(rig, cols, rworld, max_depth=venv.max_depth, include=include,
+                           frame_width=venv.frame_width).reshape(-1, NP, 1, PP)
         onehot = torch.nn.functional.one_hot(cols[:, 16].long(), G).to(torch.float32)
         if not venv.gate_onehot:
             onehot = torch.zeros_like(onehot)
@@ -561,44 +521,13 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
         cols[:, 21] = 0.0  # the history is the first frame already: no flush
         return cols, hist
 
-    def make_rollout_fn(num_steps: int, compute_dtype=torch.bfloat16,
-                        exact_logprob: bool = True):
-        def rollout_fn(state):
-            with span("rollout"):
-                return rollout(state)
-
-        def rollout(state):
-            seed = int(torch.randint(0, 2**31 - 1, (), generator=state.generator,
-                                     device=state.generator.device))
-            with span("rollout.weights"):
-                weights = build_policy_weights(state.params, compute_dtype)
-            cols, hist = state.env_state
-            with span("rollout.launch"):
-                frames, extra, aux, cols_out = fused_race_vision_rollout(
-                    venv, cols, hist, world, weights, num_steps, seed,
-                    patch_pool=net.patch_pool)
-            obs = {"pixels": frames, "proprio": extra[..., :5 + G]}
-            action = aux[..., 0:4]
-            T, N = frames.shape[0], frames.shape[1]
-            if exact_logprob:
-                with span("rollout.logprob"):
-                    flat = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in obs.items()}
-                    mean, log_std, value = apply_fn(state.params, flat)
-                    log_prob = gaussian_log_prob(mean, log_std,
-                                                 action.reshape(-1, 4)).reshape(T, N)
-                    value = value.reshape(T, N)
-            else:
-                value, log_prob = aux[..., 6], aux[..., 7]
-            # the env's end is the agent's: bootstrapping across a respawn
-            # would corrupt GAE
-            traj = Transition(obs=obs, action=action, log_prob=log_prob, value=value,
-                              reward=aux[..., 4], done=aux[..., 5] > 0.5)
-            new_hist = frames[-1].reshape(N, NP, K, PP)[:, :, 1:].reshape(N, NP * (K - 1) * PP)
-            carry = (cols_out, new_hist)
-            with span("rollout.boot"):
-                return carry, obs_from_carry(carry), traj
-
-        return rollout_fn
+    def launch(state, weights, num_steps, seed):
+        cols, hist = state.env_state
+        frames, extra, aux, cols_out = fused_race_vision_rollout(
+            venv, cols, hist, world, weights, num_steps, seed, patch_pool=net.patch_pool)
+        N = frames.shape[1]
+        new_hist = frames[-1].reshape(N, NP, K, PP)[:, :, 1:].reshape(N, NP * (K - 1) * PP)
+        return frames, extra, aux, (cols_out, new_hist)
 
     def race_metrics(carry):
         cols = carry[0]
@@ -607,4 +536,6 @@ def make_kernel_race_ppo_parts(venv, world: World, net, num_envs: int):
         return {"mean_gates_passed": gates.mean(),
                 "gates_per_100_steps": (gates / t).mean() * 100.0}
 
+    make_rollout_fn = functools.partial(_kernel_rollout_fn, launch, obs_from_carry, apply_fn,
+                                        5 + G)
     return apply_fn, make_rollout_fn, obs_from_carry, init_carry, race_metrics

@@ -14,7 +14,7 @@ one step, 1e-4 after 64 chained steps, 1e-3 on 64-step reward sums. The step
 counter t, and with it every reset decision, is equal exactly; K3 and K4,
 whose lanes share an env and add its contact terms in the plain order, equal
 their plain versions bit for bit (max abs error 0.0). K5's depth
-levels are equal. K6 (the chase) holds pos 1e-4, velocity and attitude 1e-3
+levels are equal, on the render edge worlds too. K6 (the chase) holds pos 1e-4, velocity and attitude 1e-3
 and reward sums 2e-3 after K = 64 steps (tests/test_pallas_vision.py's
 tolerances); its t, crash and contact counts are equal. K7 (the policy
 rollout) in float32 sums its products in the plain version's order: frames,
@@ -327,14 +327,30 @@ def _random_world(device, n, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("world,res", [("params", (96, 72)), ("batched", (96, 72)),
-                                       ("params", (640, 480))])
+                                       ("params", (640, 480)), ("edge", (96, 72)),
+                                       ("edge", (33, 17)), ("edge", (640, 480)),
+                                       ("edge_clipped", (96, 72)), ("edge_no_ground", (33, 17))])
 def test_cuda_k5_matches_plain(cuda_device, world, res):
+    """K5's levels equal the plain render's, on the edge worlds too
+    (``render_edge_bank``, as K7's edge cases: where the per-pixel render's
+    early exits decide pixels), the ground clipped or left out."""
     env, w, st, _ = _bank(cuda_device, "params", n=64)
-    if world == "batched":
-        w = _random_world(cuda_device, 64, 3)
     rig = vk.CameraRig(resolution=res)
     cam_pos, cam_R = VisionAcroEnv(acro=env, rig=rig)._camera(st)
-    cfg = vk.RenderConfig.for_world(w, 25.0)
+    include, extent = pk.INCLUDE, None
+    if world == "batched":
+        w = _random_world(cuda_device, 64, 3)
+    elif world.startswith("edge"):
+        from fpyv_tpu_torch.ops.rotations import quat_to_rotmat
+        from fpyv_tpu_torch.vision.camera import camera_pose
+        from fpyv_tpu_torch.world.generators import render_edge_bank
+
+        w, pos, quat = render_edge_bank(64, rig, device=cuda_device)
+        pos, quat = (torch.from_numpy(x).to(cuda_device) for x in (pos, quat))
+        cam_pos, cam_R = camera_pose(rig, pos, quat_to_rotmat(quat))
+        extent = 4.0 if world == "edge_clipped" else None
+        include = NO_GROUND if world == "edge_no_ground" else pk.INCLUDE
+    cfg = vk.RenderConfig.for_world(w, 25.0, include, extent)
     dcam = torch.from_numpy(vk.flat_dcam(rig)).to(cuda_device)
     cam, wcol = vk.camera_matrix(cam_pos, cam_R), vk.world_cols(w)
     out = vk.launch_render_depth(cfg, dcam, cam, wcol)
@@ -383,7 +399,7 @@ def _gate_world(device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("res,world", [((33, 17), "params"), ((640, 480), "gates")])
 def test_cuda_k5_ragged_tiles_and_gate_shapes(cuda_device, res, world):
-    """K5 on a frame that is not a multiple of its 512-pixel tile (33x17)
+    """K5 on a frame that is not a multiple of its 1024-pixel tile (33x17)
     and at 640x480 on a gate of each shape: levels equal."""
     env, w, st, _ = _bank(cuda_device, "params", n=64)
     if world == "gates":
