@@ -252,7 +252,12 @@ reductions of each K3, K4, K5 and K6 instantiation.
 ``python3 chip_smoke.py --phases`` runs the build, those counts, K3's time
 and K4's split (default world from a fresh reset and on the bank the acro
 main path leaves, params.yaml world with DR and wind), K6's split (on a
-bank 8192 chase steps from a reset) and phase 15 alone.
+bank 8192 chase steps from a reset), phase 15 and phase 31 alone.
+
+Phase 31 (``levels_lut_check``): levels_lut at the race learner's minibatch
+(4096 x 108 x 256 uint8) into bf16 and float32, and into bf16 from an input
+off a 16-byte boundary, each bit-equal to the plain three-pass chain and
+timed beside it and its bound (bytes over 3.35 TB/s).
 
 Any failed check raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Needs the repository beside it and CUDA;
@@ -1158,6 +1163,7 @@ def phases_only(dev, smi: str) -> int:
     chase_phases(dev, env, s28, wm, rig, 64,
                  cuda_ms(lambda: vk.launch_vision_env_rollout(env, s28, wm, 64, rig), 10))
     actor_phases(dev, gen, rig)
+    levels_lut_check(dev, smi)
     log(f"card: {smi}")
     return 0
 
@@ -1243,10 +1249,11 @@ def flagship_eval(smi: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_build.launch_counts)
-        if counts.get("render_depth", 0) < FLAGSHIP_STEPS or any(
-                v for k, v in counts.items() if k != "render_depth"):
-            raise AssertionError(f"flagship eval: expected one K5 launch a step and no other "
-                                 f"kernel, saw {counts}")
+        if (counts.get("render_depth", 0) < FLAGSHIP_STEPS
+                or counts.get("levels_lut", 0) < FLAGSHIP_STEPS
+                or any(v for k, v in counts.items() if k not in ("render_depth", "levels_lut"))):
+            raise AssertionError(f"flagship eval: expected one K5 launch and one levels_lut (the "
+                                 f"net's input) a step and no other kernel, saw {counts}")
         if not (math.isfinite(out["final_gates_passed_mean"])
                 and math.isfinite(out["mean_reward_per_step"])):
             raise AssertionError(f"flagship eval: non-finite output {out}")
@@ -2229,6 +2236,7 @@ def video_checks(dev, smi: str) -> dict:
     counts = dict(_build.launch_counts)
     want = {k: 0 for k in counts}
     want["render_depth"] = 2 * VIDEO_STEPS + 1  # the env's frames (+ the reset's) and the video's
+    want["levels_lut"] = VIDEO_STEPS  # the net's uint8 input, one forward a step
     if counts != want or len(frames) != VIDEO_STEPS or out["steps"] != VIDEO_STEPS:
         raise AssertionError(f"phase 28 (d): {len(frames)} frames for {out['steps']} steps, "
                              f"launches {counts}, expected {want}")
@@ -2911,6 +2919,46 @@ def any_config_checks(dev, smi: str) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: levels_lut, the pixel net's uint8 input in one pass
+# ---------------------------------------------------------------------------
+
+LEVELS_SHAPE = (4096, 108, 256)  # race_k8's learner minibatch: 108 patches x 4 frames x 64
+
+
+def levels_lut_check(dev, smi: str) -> dict:
+    """Phase 31: levels_lut at the race learner's minibatch, uint8 levels
+    into bf16 and float32 (and into bf16 from an input one byte off a
+    16-byte boundary, the one-level-a-thread path), each bit-equal to the
+    plain three-pass chain (u8 -> float32, / 255 on the device, the cast)
+    and timed beside it and the bound: the levels read once and the values
+    written once over PEAK_BYTES."""
+    from fpyv_tpu_torch.ops import levels_kernel as lk
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    levels = torch.randint(0, 256, LEVELS_SHAPE, generator=g, dtype=torch.uint8, device=dev)
+    scale = torch.tensor(255.0, device=dev)
+    rows = {}
+    for name, lev, dtype in (("bf16", levels, torch.bfloat16),
+                             ("float32", levels, torch.float32),
+                             ("bf16_offset1", levels.view(-1)[1:], torch.bfloat16)):
+        out = lk.launch_levels_lut(lev, dtype)
+        ref = lk.levels_reference(lev, dtype, scale)
+        torch.cuda.synchronize()
+        bits = torch.int16 if out.element_size() == 2 else torch.int32
+        if not torch.equal(out.view(bits), ref.view(bits)):
+            raise AssertionError(f"phase 31: levels_lut ({name}) differs from its plain version")
+        ms = cuda_ms(lambda: lk.launch_levels_lut(lev, dtype), 50)
+        plain = cuda_ms(lambda: lk.levels_reference(lev, dtype, scale), 20)
+        bound = lev.numel() * (1 + out.element_size()) / PEAK_BYTES * 1e3
+        rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bound, roofline=100.0 * bound / ms)
+        log(f"phase 31 levels_lut {tuple(lev.shape)} uint8 -> {name}: {ms:.6f} ms a launch, "
+            f"bound {bound:.6f} ms (bytes, {100.0 * bound / ms:.1f} %), the plain three-pass "
+            f"chain {plain:.6f} ms ({plain / ms:.2f}x), bits equal, on {smi}")
+    log(json.dumps({"levels_lut": rows}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -3584,6 +3632,9 @@ def main() -> int:
             if kr["name"] == name:
                 kr["max_abs_err"] = max(kr["max_abs_err"], err)
     log(f"phase 30 took {time.perf_counter() - t0:.3f} s (budget 60 s)")
+
+    # ---- 31. levels_lut: the pixel net's uint8 input in one pass -------------------------
+    levels_lut_check(dev, smi)
 
     for kr in kernels:
         log(f"{kr['name']}: {kr['ms']:.6f} ms (plain {kr['plain_ms']:.3f} ms, bound "

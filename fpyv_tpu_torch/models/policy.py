@@ -65,6 +65,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fpyv_tpu_torch.ops.levels_kernel import levels_as
+
 # Flax's lecun_normal draws a normal truncated at +-2 std, scaled so the
 # truncated variable has the asked std (jax.nn.initializers.variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -234,7 +236,8 @@ class PixelActorCritic(nn.Module):
     takes pixels (..., H, W), a stack (..., K, H, W) of ``frame_stack``
     frames (newest last), or (..., n_patches, K*64) with ``prepatched=True``
     (patch-stack-major order, as the in-kernel rollouts emit them), in [0, 1]
-    float or as uint8 levels (divided by 255 through float32); proprio (...,
+    float or as uint8 levels (divided by 255 through float32, in one
+    levels_lut pass on the card); proprio (...,
     P). Returns (mean (..., A), clipped log_std (A,), value (...,)); with
     ``gru > 0`` ``forward(pixels, proprio, hidden)`` takes hidden (...,
     gru) and returns (mean, log_std, value, hidden').
@@ -284,10 +287,12 @@ class PixelActorCritic(nn.Module):
         self.pi_mean = nn.Linear(width, action_dim, **kw)
         self.v_out = nn.Linear(width, 1, **kw)
         self.log_std = nn.Parameter(torch.full((action_dim,), float(log_std_init), **kw))
-        # uint8 levels are divided by this float32 255 on the net's device: a
-        # true division (the kernels'; CUDA multiplies by the reciprocal of
-        # a Python scalar), made here once, so a forward copies nothing from
-        # the host and can be captured in a CUDA graph; not in the state dict
+        # uint8 levels are divided by this float32 255 on the net's device
+        # (levels_kernel.levels_as; on the card its table holds the same
+        # quotients): a true division (the kernels'; CUDA multiplies by the
+        # reciprocal of a Python scalar), made here once, so a forward copies
+        # nothing from the host and can be captured in a CUDA graph; not in
+        # the state dict
         self.register_buffer("level_scale", torch.tensor(255.0, **kw), persistent=False)
 
     # Flax names the pool layer "patch_pool" and the cell "gru", the config
@@ -370,8 +375,9 @@ class PixelActorCritic(nn.Module):
         dtype, the heads' input."""
         dt = self.compute_dtype
         if pixels.dtype == torch.uint8:
-            # via float32 true division, as the kernel's policy input
-            pixels = pixels.to(torch.float32) / self.level_scale
+            # dt(float32(u) / 255), as the kernel's policy input: on the card
+            # one levels_lut pass into the dtype the torso reads
+            pixels = levels_as(pixels.contiguous(), dt or torch.float32, self.level_scale)
         if self.torso == "conv":
             if pixels.ndim < 3 or proprio.ndim + 1 >= pixels.ndim:
                 pixels = pixels[..., None, :, :]  # one frame: K = 1 channel

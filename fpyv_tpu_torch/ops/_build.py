@@ -29,7 +29,7 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("step_kernels.cu", "env_kernels.cu", "vision_kernels.cu", "policy_kernels.cu",
-           "race_kernels.cu")
+           "race_kernels.cu", "levels_kernels.cu")
 HEADERS = ("physics.cuh", "env.cuh", "lanes.cuh", "render.cuh", "actor.cuh", "clock.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
@@ -38,7 +38,8 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
 # kernel name -> launches since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {"drone_step": 0, "rollout": 0, "env_rollout": 0,
                                   "render_depth": 0, "vision_env_rollout": 0,
-                                  "policy_vision_rollout": 0, "race_vision_rollout": 0}
+                                  "policy_vision_rollout": 0, "race_vision_rollout": 0,
+                                  "levels_lut": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: Dict[str, object] = {}
@@ -127,10 +128,12 @@ def library() -> ctypes.CDLL:
         lib.fpyv_race_vision_rollout.argtypes = [P, I, P, I, P, I, I, I, P, P, P, P, P, I, P, P,
                                                  P, P, P, P, I, P, I, P, P, P, I, I, P, P, P, P, I,
                                                  I, P, P]
+        lib.fpyv_levels_lut.argtypes = [P, P, P, ctypes.c_longlong, I, P]
         for fn in (lib.fpyv_drone_step, lib.fpyv_rollout, lib.fpyv_rollout_lanes,
                    lib.fpyv_env_rollout, lib.fpyv_env_rollout_lanes,
                    lib.fpyv_render_depth, lib.fpyv_vision_env_rollout,
-                   lib.fpyv_policy_vision_rollout, lib.fpyv_race_vision_rollout):
+                   lib.fpyv_policy_vision_rollout, lib.fpyv_race_vision_rollout,
+                   lib.fpyv_levels_lut):
             fn.restype = I
         lib.fpyv_error_string.argtypes = [I]
         lib.fpyv_error_string.restype = ctypes.c_char_p

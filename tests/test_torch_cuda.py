@@ -62,7 +62,10 @@ last block of 5) as the cases above. The PPO learner's minibatch update
 replayed from CUDA graphs equals the same update run eagerly with the same
 capturable Adam, losses and weights bit for bit; against the Adam that takes
 its bias corrections on the host it holds the losses within 1e-4 and the
-weights within 4e-3 after 48 steps (measured 7.2e-6 and 1.2e-3).
+weights within 4e-3 after 48 steps (measured 7.2e-6 and 1.2e-3). With the
+net's uint8 input through levels_lut inside the graphs, the learner equals
+the eager one on the old input chain bit for bit
+(``tests/test_torch_levels_lut.py`` holds the kernel itself).
 """
 
 import copy
@@ -289,7 +292,8 @@ def test_cuda_entry_points_launch_and_count(cuda_device):
     torch.cuda.synchronize()
     assert _build.launch_counts == {"drone_step": 1, "rollout": 1, "env_rollout": 1,
                                     "render_depth": 2, "vision_env_rollout": 1,
-                                    "policy_vision_rollout": 1, "race_vision_rollout": 1}
+                                    "policy_vision_rollout": 1, "race_vision_rollout": 1,
+                                    "levels_lut": 0}
     assert rframes.is_cuda and torch.isfinite(raux).all()
     assert frames.is_cuda and torch.isfinite(aux).all()
     assert obs["pixels"].is_cuda and chased[0].drone.pos.is_cuda
@@ -879,6 +883,32 @@ def test_cuda_ppo_graphs_replay_the_eager_update(cuda_device):
     graphed, g_loss, g_rep, g_cap = _profiled_iterations(graphed, it_g, 2)
     twin, e_loss, _, _ = _profiled_iterations(twin, it_e, 2)
     assert (g_rep, g_cap) == ([0, 16], [0, 1])
+    assert float((g_loss - e_loss).abs().max()) <= GRAPH_VS_EAGER
+    assert _gap(graphed.params, twin.params) <= GRAPH_VS_EAGER
+
+
+@pytest.mark.cuda
+def test_cuda_levels_lut_leaves_the_graphed_learner_unchanged(cuda_device, monkeypatch):
+    """Three race_k8-shaped iterations graphed, the net's uint8 input through
+    levels_lut (a launch captured in each minibatch's graph), against the
+    same iterations eager with the same capturable Adam and the net's old
+    input chain (u8 -> float32, / its 255, the torso's bf16 cast): losses
+    and weights equal bit for bit."""
+    from fpyv_tpu_torch.models import policy
+    from fpyv_tpu_torch.ops import levels_kernel
+
+    state0, recorded = _race_rollouts(cuda_device, iterations=3)
+    _build.reset_launch_counts()
+    graphed, it_g = _replay_learner(state0, recorded)
+    graphed, g_loss, g_rep, g_cap = _profiled_iterations(graphed, it_g, 3)
+    assert (g_rep, g_cap) == ([0, 16, 16], [0, 1, 0])
+    launched = _build.launch_counts["levels_lut"]
+    assert launched > 0
+    monkeypatch.setattr(policy, "levels_as", levels_kernel.levels_reference)
+    twin, it_e = _replay_learner(state0, recorded,
+                                 opt=lambda p: _EagerAdam(p, lr=3e-4, eps=1e-5, capturable=True))
+    twin, e_loss, e_rep, _ = _profiled_iterations(twin, it_e, 3)
+    assert e_rep == [0] * 3 and _build.launch_counts["levels_lut"] == launched
     assert float((g_loss - e_loss).abs().max()) <= GRAPH_VS_EAGER
     assert _gap(graphed.params, twin.params) <= GRAPH_VS_EAGER
 
